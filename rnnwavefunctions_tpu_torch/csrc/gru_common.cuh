@@ -1,0 +1,204 @@
+// Shared device code for the single-layer GRU kernels (K1-K4).
+//
+// Layout: the weights keep the JAX package's parameter layout
+// (models/cells.py): wx (2, 3U), wh (U, 3U), bx (3U), bh (3U), head w (U, 2),
+// head b (2), gates packed [r | z | c].  A block copies them once into shared
+// memory in exactly this order, so the gradient kernel can accumulate into a
+// buffer of the same layout and hand back one flat weight-shaped vector.
+//
+// Work split: one warp advances T trajectories (samples, or flipped-sample
+// suffixes) through one site at a time.  Lane j owns hidden units
+// j, j+32, ...; the hidden state of the warp's T trajectories sits in shared
+// memory as h[k*T + t], so one (broadcast) load of h[k] serves T trajectories
+// while each wh row entry is loaded once per site.  The 2-logit head is a
+// butterfly shuffle reduction, which leaves bitwise-identical logits on every
+// lane (float addition commutes), so every lane takes the same sampling
+// decision without another exchange.
+//
+// Numerics: precise expf/tanhf/logf (never built with --use_fast_math); the
+// Kahan pairs are written so that no reassociation applies.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rnnwf {
+
+constexpr int kWarp = 32;
+
+// Floats of one weight set in shared memory, padded to a multiple of 4 so
+// the per-warp buffers that follow stay 16-byte aligned.
+__host__ __device__ inline int weight_floats(int u) {
+  const int g = 3 * u;
+  const int n = 2 * g + u * g + 2 * g + 2 * u + 2;
+  return (n + 3) & ~3;
+}
+
+// The unpadded count: the length of the flat gradient vector.
+__host__ __device__ inline int weight_floats_exact(int u) {
+  const int g = 3 * u;
+  return 2 * g + u * g + 2 * g + 2 * u + 2;
+}
+
+// Dynamic shared memory of each kernel at width u, defined beside the kernel
+// and used both by its launch and by rnnwf_fits_shared_memory.
+size_t k1_smem_bytes(int u);
+size_t k2_smem_bytes(int u);
+size_t flip_base_smem_bytes(int u);
+size_t flip_suffix_smem_bytes(int u);
+
+struct Weights {
+  const float* wx;  // (2, 3U)
+  const float* wh;  // (U, 3U)
+  const float* bx;  // (3U)
+  const float* bh;  // (3U)
+  const float* hw;  // (U, 2)
+  const float* hb;  // (2)
+};
+
+__device__ __forceinline__ Weights weights_at(const float* base, int u) {
+  const int g = 3 * u;
+  Weights w;
+  w.wx = base;
+  w.wh = w.wx + 2 * g;
+  w.bx = w.wh + u * g;
+  w.bh = w.bx + g;
+  w.hw = w.bh + g;
+  w.hb = w.hw + 2 * u;
+  return w;
+}
+
+// Cooperative copy of the six weight tensors into shared memory (whole block).
+__device__ __forceinline__ Weights load_weights(
+    float* smem, const float* wx, const float* wh, const float* bx,
+    const float* bh, const float* hw, const float* hb, int u) {
+  const int g = 3 * u;
+  const int sizes[6] = {2 * g, u * g, g, g, 2 * u, 2};
+  const float* srcs[6] = {wx, wh, bx, bh, hw, hb};
+  float* dst = smem;
+  for (int a = 0; a < 6; ++a) {
+    for (int i = threadIdx.x; i < sizes[a]; i += blockDim.x) dst[i] = srcs[a][i];
+    dst += sizes[a];
+  }
+  __syncthreads();
+  return weights_at(smem, u);
+}
+
+__device__ __forceinline__ float sigmoidf_(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// log-softmax probability of target s in {0, 1} over two logits
+// (ops/fused_gru.py::_logp_rows).
+__device__ __forceinline__ float logp2(float l0, float l1, float s) {
+  const float m = fmaxf(l0, l1);
+  const float lse = m + logf(expf(l0 - m) + expf(l1 - m));
+  return (s > 0.5f ? l1 : l0) - lse;
+}
+
+// One compensated add (ops/compsum.py::kadd).
+__device__ __forceinline__ void kadd(float& s, float& c, float x) {
+  const float y = x - c;
+  const float t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Loads h[k*T + t] for t < T (one 16-byte broadcast load when T == 4).
+template <int T>
+__device__ __forceinline__ void load_h(const float* h, int k, float (&out)[T]) {
+  if constexpr (T == 4) {
+    const float4 v = reinterpret_cast<const float4*>(h)[k];
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < T; ++t) out[t] = h[k * T + t];
+  }
+}
+
+// One reset-after GRU step plus the 2-logit head for the warp's T
+// trajectories: reads h (U*T), writes hn (U*T), returns the logits on every
+// lane.  x[t] is the previous spin (0/1) and xscale is 0 at site 0 (the chain
+// starts from the zero vector, not a one-hot).  Ends with __syncwarp, so hn
+// is visible to the whole warp.
+template <int T>
+__device__ __forceinline__ void gru_site(const Weights& w, int u, const float* h,
+                                         float* hn, const float (&x)[T],
+                                         float xscale, float (&l0)[T],
+                                         float (&l1)[T], int lane) {
+  const int g = 3 * u;
+  float p0[T], p1[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) { p0[t] = 0.0f; p1[t] = 0.0f; }
+  for (int j = lane; j < u; j += kWarp) {
+    float ar[T], az[T], ac[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) { ar[t] = 0.0f; az[t] = 0.0f; ac[t] = 0.0f; }
+    for (int k = 0; k < u; ++k) {
+      const float* wk = w.wh + k * g;
+      const float wr = wk[j], wz = wk[u + j], wc = wk[2 * u + j];
+      float hk[T];
+      load_h<T>(h, k, hk);
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        ar[t] = fmaf(hk[t], wr, ar[t]);
+        az[t] = fmaf(hk[t], wz, az[t]);
+        ac[t] = fmaf(hk[t], wc, ac[t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const float xt = x[t];
+      const float gxr = xscale * ((1.0f - xt) * w.wx[j] + xt * w.wx[g + j]) + w.bx[j];
+      const float gxz = xscale * ((1.0f - xt) * w.wx[u + j] + xt * w.wx[g + u + j]) + w.bx[u + j];
+      const float gxc = xscale * ((1.0f - xt) * w.wx[2 * u + j] + xt * w.wx[g + 2 * u + j]) + w.bx[2 * u + j];
+      const float r = sigmoidf_(gxr + (ar[t] + w.bh[j]));
+      const float z = sigmoidf_(gxz + (az[t] + w.bh[u + j]));
+      const float c = tanhf(gxc + r * (ac[t] + w.bh[2 * u + j]));
+      const float hv = z * h[j * T + t] + (1.0f - z) * c;
+      hn[j * T + t] = hv;
+      p0[t] = fmaf(hv, w.hw[2 * j], p0[t]);
+      p1[t] = fmaf(hv, w.hw[2 * j + 1], p1[t]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    l0[t] = warp_sum(p0[t]) + w.hb[0];
+    l1[t] = warp_sum(p1[t]) + w.hb[1];
+  }
+  __syncwarp();
+}
+
+// Philox4x32-10 (Salmon et al., SC'11): counter-based, so a uniform depends
+// only on (key, counter) and not on how the work was split into blocks.
+__device__ __forceinline__ uint32_t philox_x(uint32_t c0, uint32_t c1, uint32_t c2,
+                                             uint32_t c3, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// Uniform in [0, 1) on the 2^-23 grid from the top 23 bits, the role of the
+// TPU kernels' ``uni`` (ops/tfim_flip_kernel.py:299-305): s = 1 iff u >= p0.
+__device__ __forceinline__ float uniform23(uint32_t seed, uint32_t offset,
+                                           uint32_t sample, uint32_t site) {
+  const uint32_t bits = philox_x(sample, site, 0u, 0u, seed, offset);
+  return static_cast<float>(bits >> 9) * (1.0f / 8388608.0f);
+}
+
+}  // namespace rnnwf

@@ -1,0 +1,204 @@
+"""K1: teacher-forced log-probability of a single-layer GRU, and the
+``autograd.Function`` whose forward is K1 and whose backward is K2.
+
+Counterpart of ``rnnwavefunctions_tpu/ops/fused_gru.py`` (``_log_prob_pallas``
+and ``make_log_prob_fn``).  The CUDA kernel is ``csrc/fused_gru.cu``; the
+plain PyTorch version below is the same site loop written with tensor ops.
+
+A kernel's weights travel as a 6-tuple in the JAX package's parameter layout:
+``(wx (2, 3U), wh (U, 3U), bx (3U,), bh (3U,), head_w (U, 2), head_b (2,))``
+with gates packed ``[r | z | c]``.  Samples are (B, N) int32 spins in {0, 1}.
+
+Every wrapper runs the plain version for CPU tensors and launches the kernel
+for CUDA tensors; on any other input it raises.  Each wrapper counts its
+kernel launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from .build import check, load_library
+from .compsum import kadd, kfinal
+
+Weights = Tuple[torch.Tensor, ...]
+
+def supports(n_sites: int, units: Sequence[int], device) -> bool:
+    """True when the GRU kernels take this shape on ``device``: one GRU
+    layer and, on a CUDA device, every kernel's shared memory within the
+    device's opt-in limit per block (asked of the kernel library, whose
+    launches use the same sizes).  On the CPU only the plain versions run,
+    and they take any width."""
+    units = tuple(units)
+    if len(units) != 1 or n_sites < 1:
+        return False
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    fits = ctypes.c_int(0)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    check(load_library().lib.rnnwf_fits_shared_memory(units[0], index, ctypes.byref(fits)),
+          "rnnwf_fits_shared_memory")
+    return bool(fits.value)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def site_step(weights: Weights, h: torch.Tensor, x: torch.Tensor, x_scale: float):
+    """One GRU + head step on a (B, U) state; ``x`` is the previous spin
+    (B,) as float and ``x_scale`` is 0 at site 0 (the zero input vector).
+    Returns (h_new, logit_0, logit_1)."""
+    wx, wh, bx, bh, hw, hb = weights
+    u = h.shape[-1]
+    x = x[:, None]
+    gx = x_scale * ((1.0 - x) * wx[0] + x * wx[1]) + bx
+    gh = h @ wh + bh
+    r = torch.sigmoid(gx[:, :u] + gh[:, :u])
+    z = torch.sigmoid(gx[:, u : 2 * u] + gh[:, u : 2 * u])
+    c = torch.tanh(gx[:, 2 * u :] + r * gh[:, 2 * u :])
+    h_new = z * h + (1.0 - z) * c
+    logits = h_new @ hw + hb
+    return h_new, logits[:, 0], logits[:, 1]
+
+
+def logp2(l0: torch.Tensor, l1: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Stable log-softmax probability of target ``s`` in {0, 1}."""
+    m = torch.maximum(l0, l1)
+    lse = m + torch.log(torch.exp(l0 - m) + torch.exp(l1 - m))
+    return torch.where(s > 0.5, l1, l0) - lse
+
+
+def log_prob_plain(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """(B, N) int samples -> (B,) joint log p, Kahan-summed over sites."""
+    b, n = samples.shape
+    u = weights[1].shape[0]
+    s = samples.to(torch.float32)
+    h = torch.zeros(b, u, dtype=torch.float32, device=samples.device)
+    x = torch.zeros(b, dtype=torch.float32, device=samples.device)
+    acc = torch.zeros_like(x)
+    cmp = torch.zeros_like(x)
+    for i in range(n):
+        h, l0, l1 = site_step(weights, h, x, 1.0 if i > 0 else 0.0)
+        acc, cmp = kadd(acc, cmp, logp2(l0, l1, s[:, i]))
+        x = s[:, i]
+    return kfinal(acc, cmp)
+
+
+def log_prob_bwd_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
+    """VJP of ``log_prob_plain`` for cotangent ``g`` (B,): autograd through
+    the plain loop.  Returns the six weight gradients."""
+    with torch.enable_grad():
+        ws = [w.detach().requires_grad_(True) for w in weights]
+        lp = log_prob_plain(ws, samples)
+        return torch.autograd.grad(lp, ws, grad_outputs=g)
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the wrappers
+# ---------------------------------------------------------------------------
+
+def is_cpu_call(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs);
+    False when all lie on CUDA (the kernel runs); raises on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"}:
+        raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all tensors must lie on one CUDA device")
+    return False
+
+
+def check_weights(weights: Weights) -> int:
+    """Checks the 6-tuple for the kernels; returns U."""
+    if len(weights) != 6:
+        raise ValueError(f"expected 6 weight tensors, got {len(weights)}")
+    u = weights[1].shape[0]
+    shapes = [(2, 3 * u), (u, 3 * u), (3 * u,), (3 * u,), (u, 2), (2,)]
+    for w, shape in zip(weights, shapes):
+        if w.dtype != torch.float32 or tuple(w.shape) != shape:
+            raise ValueError(
+                f"weight of shape {tuple(w.shape)} and dtype {w.dtype}; the "
+                f"kernels take float32 {shape}"
+            )
+        if not w.is_contiguous():
+            raise ValueError("weights must be contiguous")
+    return u
+
+
+def check_samples(samples: torch.Tensor) -> Tuple[int, int]:
+    if samples.dtype != torch.int32 or samples.dim() != 2:
+        raise ValueError(
+            f"samples must be a (B, N) int32 tensor; got {tuple(samples.shape)} "
+            f"{samples.dtype}"
+        )
+    if not samples.is_contiguous():
+        raise ValueError("samples must be contiguous")
+    b, n = samples.shape
+    if b < 1 or n < 1:
+        raise ValueError(f"empty sample batch {tuple(samples.shape)}")
+    return b, n
+
+
+def check_supported(n: int, u: int, device) -> None:
+    if not supports(n, (u,), device):
+        raise ValueError(f"the CUDA kernels do not take N={n}, U={u} on {device}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1 wrapper and the autograd Function (K1 forward, K2 backward)
+# ---------------------------------------------------------------------------
+
+def gru_log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """(B, N) int32 samples -> (B,) float32 joint log p (no gradient)."""
+    if is_cpu_call(samples, *weights):
+        return log_prob_plain(weights, samples)
+    u = check_weights(weights)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device)
+    out = torch.empty(b, dtype=torch.float32, device=samples.device)
+    lib = load_library().lib
+    with torch.cuda.device(samples.device):
+        err = lib.rnnwf_gru_log_prob(
+            samples.data_ptr(), *[w.data_ptr() for w in weights], out.data_ptr(),
+            b, n, u, stream_of(samples),
+        )
+    check(err, "rnnwf_gru_log_prob")
+    gru_log_prob.launches += 1
+    return out
+
+
+gru_log_prob.launches = 0
+
+
+class GRULogProb(torch.autograd.Function):
+    """log p(samples) with K1 forward and K2 backward (the counterpart of
+    ``make_log_prob_fn``'s ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, samples, *weights):
+        ctx.save_for_backward(samples, *weights)
+        return gru_log_prob(weights, samples)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .fused_gru_bwd import gru_log_prob_bwd
+
+        samples, *weights = ctx.saved_tensors
+        grads = gru_log_prob_bwd(tuple(weights), samples, g.contiguous())
+        return (None, *grads)
+
+
+def log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """Differentiable joint log p through the kernels."""
+    return GRULogProb.apply(samples, *weights)

@@ -1,0 +1,137 @@
+"""Measures the flagship VMC step (1D TFIM N=100, Bx=1, open boundaries; one
+GRU layer of 50 units; S=500; Adam at lr 5e-3) on one CUDA card.
+
+    python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--out FILE]
+    python -m rnnwavefunctions_tpu_torch.tools.profile_step accuracy [--steps 8000]
+
+``profile``: steps/s of the kernel path over three repeats of 50 steps
+(host clock, ending in a synchronize, after 3 warm-up steps), and of the
+plain path (``impl="plain"``) over two repeats of 5 steps; then
+``torch.profiler`` over 20 kernel-path steps: device time per step of each
+kernel, and the device's idle share, 1 - (summed kernel time) / (wall time
+of the profiled window).
+
+``accuracy``: ``--steps`` Adam steps from ``TrainConfig()``'s seed, the
+metrics read back every ``--block`` steps; the energy is the mean of the
+last 100 steps' mean energies (± their standard error), held against the
+DMRG ground-state energy of the chain.
+
+Each mode prints the card's name and power limit first and a JSON summary
+last, and writes that summary to ``--out`` when given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+
+N, U = 100, 50
+E_DMRG = -126.9618766964  # the N=100, Bx=1 open chain (the JAX package's README)
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def _trainer(impl: str = "auto"):
+    trainer = VMCTrainer(PRNN1D(N, (U,), impl=impl, device="cuda"), TFIM1D(N, 1.0),
+                         TrainConfig())
+    return trainer, trainer.init()
+
+
+def _steps_per_second(trainer, state, steps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run_steps(state, steps)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def profile() -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    trainer, state = _trainer()
+    trainer.run_steps(state, 3)  # warm-up: build, allocator
+    kernel_rates = [_steps_per_second(trainer, state, 50) for _ in range(3)]
+    plain, plain_state = _trainer("plain")
+    plain.run_steps(plain_state, 1)
+    plain_rates = [_steps_per_second(plain, plain_state, 5) for _ in range(2)]
+
+    steps = 20
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        trainer.run_steps(state, steps)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in device}
+    busy_ms = steps * sum(per_step.values())
+    return {
+        "kernel_steps_per_s": kernel_rates,
+        "plain_steps_per_s": plain_rates,
+        "profiled_steps": steps,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])),
+    }
+
+
+def accuracy(steps: int, block: int) -> dict:
+    trainer, state = _trainer()
+    energies = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for done in range(0, steps, block):
+        state, ms = trainer.run_steps(state, min(block, steps - done))
+        energies.append(ms["mean_energy"].cpu().numpy())
+    seconds = time.perf_counter() - t0
+    last = np.concatenate(energies)[-100:]
+    energy = float(last.mean())
+    return {
+        "steps": steps,
+        "seconds": seconds,
+        "steps_per_s": steps / seconds,
+        "energy": energy,
+        "energy_stderr": float(last.std(ddof=1) / np.sqrt(last.size)),
+        "e_dmrg": E_DMRG,
+        "relative_error": abs(energy - E_DMRG) / abs(E_DMRG),
+    }
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("mode", choices=("profile", "accuracy"))
+    parser.add_argument("--steps", type=int, default=8000, help="accuracy: Adam steps")
+    parser.add_argument("--block", type=int, default=500,
+                        help="accuracy: steps between metric reads")
+    parser.add_argument("--out", type=Path, help="also write the summary here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    print(_card(), flush=True)
+    result = profile() if args.mode == "profile" else accuracy(args.steps, args.block)
+    result["card"] = _card()
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1) + "\n")
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

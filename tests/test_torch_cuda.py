@@ -1,0 +1,116 @@
+"""PyTorch port: the CUDA kernels K1-K4 against their plain versions on the
+card, at small shapes with ragged batches.  They skip without a CUDA device
+(a CUDA kernel has no CPU mode).  This file imports no JAX, so on a machine
+with a card and without JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from rnnwavefunctions_tpu_torch import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd
+from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
+
+pytestmark = pytest.mark.cuda
+
+N, B = 12, 37  # B is not a multiple of the 4 samples a block takes
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _weights(u, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = PRNN1D(N, (u,)).init(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return tuple(w.detach().to(device) for w in model.weights())
+
+
+def _samples(device, seed=1):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand(B, N, generator=gen) < 0.5).to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("u", [16, 50])
+def test_k1_matches_plain(cuda, u):
+    w, s = _weights(u, cuda), _samples(cuda)
+    before = fused_gru.gru_log_prob.launches
+    got = fused_gru.gru_log_prob(w, s)
+    torch.testing.assert_close(got, fused_gru.log_prob_plain(w, s), atol=1e-5 * N, rtol=0)
+    assert fused_gru.gru_log_prob.launches == before + 1
+
+
+@pytest.mark.parametrize("u", [16, 50])
+def test_k2_matches_plain(cuda, u):
+    w, s = _weights(u, cuda), _samples(cuda)
+    g = torch.randn(B, generator=torch.Generator().manual_seed(2)).to(cuda)
+    for a, b in zip(fused_gru_bwd.gru_log_prob_bwd(w, s, g),
+                    fused_gru.log_prob_bwd_plain(w, s, g)):
+        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
+
+
+def test_k4_and_k3_match_plain(cuda):
+    w, s = _weights(50, cuda), _samples(cuda)
+    ratio, lp = tk.tfim_flip_ratio_sum(w, s)
+    ratio_p, lp_p = tk.flip_ratio_sum_plain(w, s)
+    torch.testing.assert_close(ratio, ratio_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(lp, lp_p, atol=1e-5 * N, rtol=0)
+    s3, lp3, ratio3 = tk.tfim_sample_and_flip_sum(w, B, N, 3, 5)
+    assert s3.shape == (B, N) and bool(((s3 == 0) | (s3 == 1)).all())
+    torch.testing.assert_close(lp3, fused_gru.log_prob_plain(w, s3), atol=1e-5 * N, rtol=0)
+    torch.testing.assert_close(ratio3, tk.flip_ratio_sum_plain(w, s3)[0], rtol=1e-4, atol=0)
+
+
+def test_wrappers_reject_cpu_cuda_mix(cuda):
+    w = _weights(16, cuda)
+    with pytest.raises(ValueError, match="devices"):
+        fused_gru.gru_log_prob(w, _samples("cpu"))
+
+
+def test_training_step_runs_every_kernel(cuda):
+    trainer = VMCTrainer(PRNN1D(N, (16,), device=cuda), TFIM1D(N, 1.0),
+                         TrainConfig(num_samples=B))
+    state = trainer.init()
+    counts = [fn.launches for fn in (fused_gru.gru_log_prob, fused_gru_bwd.gru_log_prob_bwd,
+                                     tk.tfim_sample_and_flip_sum)]
+    state, ms = trainer.run_steps(state, 2)
+    after = [fn.launches for fn in (fused_gru.gru_log_prob, fused_gru_bwd.gru_log_prob_bwd,
+                                    tk.tfim_sample_and_flip_sum)]
+    assert [a - c for a, c in zip(after, counts)] == [2, 2, 2]
+    assert bool(torch.isfinite(ms["mean_energy"]).all())
+
+
+def test_shared_memory_bounds_coverage(cuda):
+    assert fused_gru.supports(100, (50,), cuda)
+    assert not fused_gru.supports(100, (256,), cuda)
+    with pytest.raises(ValueError, match="do not take"):
+        fused_gru.gru_log_prob(_weights(256, cuda), _samples(cuda))
+
+
+def test_auto_raises_outside_coverage_on_the_card(cuda):
+    wide = PRNN1D(N, (256,), device=cuda)
+    with pytest.raises(ValueError, match="impl='plain'"):
+        wide.log_prob(_samples(cuda))
+    with pytest.raises(ValueError, match="impl='plain'"):
+        VMCTrainer(PRNN1D(N, (16, 16), device=cuda), TFIM1D(N, 1.0))
+    plain = PRNN1D(N, (16, 16), impl="plain", device=cuda)
+    assert plain.log_prob(_samples(cuda)).shape == (B,)
+
+
+def test_sampler_runs_k3_on_the_card(cuda):
+    model = PRNN1D(N, (16,), device=cuda)
+    model.init(torch.Generator().manual_seed(0))
+    before = tk.tfim_sample_and_flip_sum.launches
+    s, lp = model.sample_with_log_prob(B, torch.Generator().manual_seed(4))
+    assert tk.tfim_sample_and_flip_sum.launches == before + 1
+    with torch.no_grad():
+        want = fused_gru.log_prob_plain(model.weights(), s)
+    torch.testing.assert_close(lp, want, atol=1e-5 * N, rtol=0)
