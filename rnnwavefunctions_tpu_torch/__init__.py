@@ -8,7 +8,9 @@ no JAX.
 
 import torch
 
+from .hamiltonians.j1j2 import J1J2
 from .hamiltonians.tfim1d import TFIM1D
+from .models.crnn_u1 import CRNNU1
 from .models.prnn1d import PRNN1D
 from .vmc.trainer import TrainConfig, TrainState, VMCTrainer
 
@@ -20,4 +22,4 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["PRNN1D", "TFIM1D", "TrainConfig", "TrainState", "VMCTrainer"]
+__all__ = ["CRNNU1", "J1J2", "PRNN1D", "TFIM1D", "TrainConfig", "TrainState", "VMCTrainer"]

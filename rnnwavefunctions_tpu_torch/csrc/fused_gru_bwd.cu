@@ -208,6 +208,12 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   out[e] = v;
 }
 
+cudaError_t launch_sum_partials(const float* partial, float* out, int blocks, int wfx,
+                                cudaStream_t stream) {
+  sum_partials_kernel<<<(wfx + 255) / 256, 256, 0, stream>>>(partial, out, blocks, wfx);
+  return cudaGetLastError();
+}
+
 }  // namespace rnnwf
 
 // The floats of the per-block partial gradients rnnwf_gru_log_prob_bwd needs.
@@ -239,8 +245,7 @@ extern "C" int rnnwf_gru_log_prob_bwd(const void* samples, const void* g, const 
       static_cast<float*>(hist), static_cast<float*>(partial), b_total, n_sites, u);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int wfx = weight_floats_exact(u);
-  sum_partials_kernel<<<(wfx + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), blocks, wfx);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_sum_partials(static_cast<const float*>(partial),
+                                              static_cast<float*>(out), blocks,
+                                              weight_floats_exact(u), st));
 }

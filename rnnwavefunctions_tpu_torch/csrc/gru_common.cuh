@@ -122,20 +122,24 @@ __device__ __forceinline__ void load_h(const float* h, int k, float (&out)[T]) {
   }
 }
 
-// One reset-after GRU step plus the 2-logit head for the warp's T
-// trajectories: reads h (U*T), writes hn (U*T), returns the logits on every
-// lane.  x[t] is the previous spin (0/1) and xscale is 0 at site 0 (the chain
-// starts from the zero vector, not a one-hot).  Ends with __syncwarp, so hn
-// is visible to the whole warp.
-template <int T>
-__device__ __forceinline__ void gru_site(const Weights& w, int u, const float* h,
-                                         float* hn, const float (&x)[T],
-                                         float xscale, float (&l0)[T],
-                                         float (&l1)[T], int lane) {
+// One reset-after GRU step plus NH 2-logit heads for the warp's T
+// trajectories: reads h (U*T), writes hn (U*T), returns head k's logits
+// lg[k][0..1][t] on every lane (hw[k] is its (U, 2) weight, hb[k] its bias).
+// x[t] is the previous spin (0/1) and xscale is 0 at site 0 (the chain starts
+// from the zero vector, not a one-hot).  Ends with __syncwarp, so hn is
+// visible to the whole warp.
+template <int T, int NH>
+__device__ __forceinline__ void gru_site_heads(const Weights& w, int u, const float* h,
+                                               float* hn, const float (&x)[T], float xscale,
+                                               const float* const (&hw)[NH],
+                                               const float* const (&hb)[NH],
+                                               float (&lg)[NH][2][T], int lane) {
   const int g = 3 * u;
-  float p0[T], p1[T];
+  float p[NH][2][T];
 #pragma unroll
-  for (int t = 0; t < T; ++t) { p0[t] = 0.0f; p1[t] = 0.0f; }
+  for (int k = 0; k < NH; ++k)
+#pragma unroll
+    for (int t = 0; t < T; ++t) { p[k][0][t] = 0.0f; p[k][1][t] = 0.0f; }
   for (int j = lane; j < u; j += kWarp) {
     float ar[T], az[T], ac[T];
 #pragma unroll
@@ -163,17 +167,41 @@ __device__ __forceinline__ void gru_site(const Weights& w, int u, const float* h
       const float c = tanhf(gxc + r * (ac[t] + w.bh[2 * u + j]));
       const float hv = z * h[j * T + t] + (1.0f - z) * c;
       hn[j * T + t] = hv;
-      p0[t] = fmaf(hv, w.hw[2 * j], p0[t]);
-      p1[t] = fmaf(hv, w.hw[2 * j + 1], p1[t]);
+#pragma unroll
+      for (int k = 0; k < NH; ++k) {
+        p[k][0][t] = fmaf(hv, hw[k][2 * j], p[k][0][t]);
+        p[k][1][t] = fmaf(hv, hw[k][2 * j + 1], p[k][1][t]);
+      }
     }
   }
 #pragma unroll
-  for (int t = 0; t < T; ++t) {
-    l0[t] = warp_sum(p0[t]) + w.hb[0];
-    l1[t] = warp_sum(p1[t]) + w.hb[1];
-  }
+  for (int k = 0; k < NH; ++k)
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      lg[k][0][t] = warp_sum(p[k][0][t]) + hb[k][0];
+      lg[k][1][t] = warp_sum(p[k][1][t]) + hb[k][1];
+    }
   __syncwarp();
 }
+
+// The GRU step with the single 2-logit head of K1-K4.
+template <int T>
+__device__ __forceinline__ void gru_site(const Weights& w, int u, const float* h,
+                                         float* hn, const float (&x)[T],
+                                         float xscale, float (&l0)[T],
+                                         float (&l1)[T], int lane) {
+  const float* const hw[1] = {w.hw};
+  const float* const hb[1] = {w.hb};
+  float lg[1][2][T];
+  gru_site_heads<T, 1>(w, u, h, hn, x, xscale, hw, hb, lg, lane);
+#pragma unroll
+  for (int t = 0; t < T; ++t) { l0[t] = lg[0][0][t]; l1[t] = lg[0][1][t]; }
+}
+
+// Sums per-block partial gradients (blocks x wfx floats) in block order into
+// out (wfx floats); defined in fused_gru_bwd.cu, shared by K2 and B9.
+cudaError_t launch_sum_partials(const float* partial, float* out, int blocks, int wfx,
+                                cudaStream_t stream);
 
 // Philox4x32-10 (Salmon et al., SC'11): counter-based, so a uniform depends
 // only on (key, counter) and not on how the work was split into blocks.

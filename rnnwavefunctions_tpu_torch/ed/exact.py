@@ -1,6 +1,7 @@
-"""Exact-diagonalization oracle for the 1D TFIM (NumPy only).
+"""Exact-diagonalization oracle for the 1D TFIM and the J1-J2 chain (NumPy
+only).
 
-A copy of ``tfim1d_dense`` and ``ground_state_energy`` from
+A copy of ``tfim1d_dense``, ``j1j2_dense`` and ``ground_state_energy`` from
 ``rnnwavefunctions_tpu/ed/exact.py``, so that code without JAX (the
 PyTorch package and ``chip_smoke.py``) has an ED oracle.
 
@@ -31,6 +32,35 @@ def tfim1d_dense(n: int, bx: float, jz: Optional[np.ndarray] = None) -> np.ndarr
         h[s, s] = -np.sum(jz * z[:-1] * z[1:])
         for i in range(n):
             h[s ^ (1 << i), s] += -bx
+    return h
+
+
+def j1j2_dense(n: int, j1: float = 1.0, j2: float = 0.0, bz: float = 0.0,
+               periodic: bool = False, marshall_sign: bool = False) -> np.ndarray:
+    """Dense H for the J1-J2 chain, S = sigma/2: diagonal +-J/4 per
+    (anti)aligned pair plus Bz (sigma - 1/2); spin-exchange off-diagonals
+    -J1/2 (Marshall-rotated) or +J1/2, and +J2/2."""
+    dim = 1 << n
+    h = np.zeros((dim, dim))
+    lim1 = n if periodic else n - 1
+    lim2 = n if periodic else n - 2
+    for s in range(dim):
+        b = _bits(s, n)
+        diag = np.sum(bz * (b - 0.5))
+        for i in range(lim1):
+            j = (i + 1) % n
+            diag += 0.25 * j1 if b[i] == b[j] else -0.25 * j1
+            if b[i] != b[j]:
+                sp = s ^ (1 << i) ^ (1 << j)  # exchange the two spins
+                h[sp, s] += (-j1 / 2) if marshall_sign else (+j1 / 2)
+        for i in range(lim2):
+            j = (i + 2) % n
+            if j2 != 0.0:
+                diag += 0.25 * j2 if b[i] == b[j] else -0.25 * j2
+                if b[i] != b[j]:
+                    sp = s ^ (1 << i) ^ (1 << j)
+                    h[sp, s] += +j2 / 2
+        h[s, s] += diag
     return h
 
 

@@ -1,10 +1,12 @@
 """Parameter interchange with the JAX package.
 
-The JAX ``PRNN1D`` keeps its parameters as a pytree
-``{"rnn": [{"wx", "wh", "bx", "bh"}, ...], "head": {"w", "b"}}``
-(``rnnwavefunctions_tpu/models/cells.py``, ``models/prnn1d.py``).  The
-PyTorch ``PRNN1D`` stores the same tensors in the same layout, so the
-conversion is a copy both ways and a round trip is bit-exact.  The pytree
+The JAX ansatze keep their parameters as pytrees: ``PRNN1D``'s is
+``{"rnn": [{"wx", "wh", "bx", "bh"}, ...], "head": {"w", "b"}}`` and
+``CRNNU1``'s has ``"head_ampl"`` and ``"head_phase"`` in place of ``"head"``
+(``rnnwavefunctions_tpu/models/{cells,prnn1d,crnn_u1}.py``).  The PyTorch
+modules store the same tensors in the same layout, so the conversion is a
+copy both ways and a round trip is bit-exact.  The model names its heads
+(``head_names``), which decides the tree's kind.  The pytree
 is passed as NumPy arrays (``jax.tree.map(np.asarray, params)``); this
 module imports no JAX.
 """
@@ -32,7 +34,9 @@ def load_params(model, tree: Dict[str, Any]) -> None:
         for layer, cell in zip(model.rnn, tree["rnn"])
         for k in _GRU_KEYS
     ]
-    pairs += [(model.head.w, tree["head"]["w"]), (model.head.b, tree["head"]["b"])]
+    for name in model.head_names:
+        head = getattr(model, name)
+        pairs += [(head.w, tree[name]["w"]), (head.b, tree[name]["b"])]
     for param, arr in pairs:
         src = torch.from_numpy(np.array(arr, dtype=np.float32))  # a writable copy
         if tuple(src.shape) != tuple(param.shape):
@@ -45,7 +49,8 @@ def load_params(model, tree: Dict[str, Any]) -> None:
 def params_to_numpy(model) -> Dict[str, Any]:
     """The model's parameters as the JAX package's pytree of NumPy arrays."""
     as_np = lambda p: p.detach().cpu().numpy().copy()  # noqa: E731
-    return {
-        "rnn": [{k: as_np(getattr(layer, k)) for k in _GRU_KEYS} for layer in model.rnn],
-        "head": {"w": as_np(model.head.w), "b": as_np(model.head.b)},
-    }
+    tree = {"rnn": [{k: as_np(getattr(layer, k)) for k in _GRU_KEYS} for layer in model.rnn]}
+    for name in model.head_names:
+        head = getattr(model, name)
+        tree[name] = {"w": as_np(head.w), "b": as_np(head.b)}
+    return tree

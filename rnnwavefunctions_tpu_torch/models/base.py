@@ -1,4 +1,8 @@
-"""The shared ``impl`` dispatch of the ansatz modules.
+"""The shared device rule and ``impl`` dispatch of the ansatz modules.
+
+``resolve_device``: the parameters go to the card unless the caller asks
+for another device (``device="cpu"``, as the CPU tests do); with no CUDA
+device and no explicit device it raises, never falling back to the CPU.
 
 Counterpart of ``rnnwavefunctions_tpu/models/base.py::resolve_impl``:
 
@@ -14,7 +18,21 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 IMPLS = ("auto", "kernel", "plain")
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card (``cuda``); anything else is taken as given."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the parameters go to the card unless a device is "
+            "given; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def resolve_impl(ansatz: Any, kernelizable: Callable[[], bool], requirement: str) -> bool:

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from . import cells
-from .base import resolve_impl
+from .base import resolve_device, resolve_impl
 from ..ops import fused_gru
 from ..ops import tfim_flip_kernel as tk
 from ..ops.compsum import compensated_sum
@@ -36,10 +36,12 @@ class PRNN1D(nn.Module):
       parity: parity-symmetrized density (not ported yet).
       cell: "gru" (LSTM and custom cells are not ported yet).
       impl: "auto", "kernel" or "plain" (``models/base.py``).
-      device: where the parameters live.
+      device: where the parameters live; None means the card (raises
+        without one: pass device="cpu" to run on the CPU).
     """
 
     is_complex = False
+    head_names = ("head",)  # the parameter pytree's head entries (interop.py)
 
     def __init__(self, num_sites: int, units: Sequence[int] = (50,),
                  local_dim: int = 2, parity: bool = False, cell: str = "gru",
@@ -62,8 +64,7 @@ class PRNN1D(nn.Module):
             cells.GRUCell(dims[i], dims[i + 1]) for i in range(len(units))
         )
         self.head = cells.Dense(units[-1], local_dim)
-        if device is not None:
-            self.to(device)
+        self.to(resolve_device(device))
 
     def extra_repr(self) -> str:
         return (f"num_sites={self.num_sites}, units={self.units}, "

@@ -1,9 +1,10 @@
 """Builds the CUDA kernels under ``csrc/`` at first use and loads them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together) and links the objects into one shared library with a plain C
 interface (``-gencode arch=compute_90a,code=sm_90a``, no fast math), which
-``ctypes`` loads: a build of a few seconds, where a PyTorch C++ extension
-would take minutes.  The library goes to ``rnnwavefunctions_tpu_torch/_build/``
+``ctypes`` loads: a build of seconds, where a PyTorch C++ extension would
+take minutes.  The library goes to ``rnnwavefunctions_tpu_torch/_build/``
 under a name keyed by a hash of the sources and flags, so a changed source is
 rebuilt and an unchanged one is loaded as it is.  Only the sources in this
 package are compiled.
@@ -26,12 +27,14 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
+_EXCHANGE = ([_P, _U, _U] + [_P] * 13 + [_I] * 4 + [_F, _F, _I, _I, _P], _I)
 # C entry points: name -> (argument types, result type); pointers and the
 # stream go as void*, and the launches return a CUDA error code
 SIGNATURES = {
@@ -40,7 +43,13 @@ SIGNATURES = {
     "rnnwf_gru_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
     "rnnwf_tfim_flip_ratio_sum": ([_P] * 13 + [_I, _I, _I, _P], _I),
     "rnnwf_tfim_sample_and_flip_sum": ([_U, _U] + [_P] * 13 + [_I, _I, _I, _P], _I),
-    "rnnwf_fits_shared_memory": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "rnnwf_crnn_log_amp_parts": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "rnnwf_crnn_log_amp_bwd": ([_P] * 14 + [_I] * 4 + [_P], _I),
+    "rnnwf_crnn_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
+    "rnnwf_j1j2_num_bonds": ([_I, _I, _I], _I),
+    "rnnwf_j1j2_exchange_offdiag": _EXCHANGE,
+    "rnnwf_j1j2_sample_and_exchange": _EXCHANGE,
+    "rnnwf_fits_shared_memory": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
 }
 
 
@@ -69,6 +78,11 @@ def _nvcc() -> str:
     )
 
 
+def _check_nvcc(returncode: int, cmd, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stderr}")
+
+
 @functools.cache
 def load_library() -> KernelLibrary:
     """Compiles (if needed) and loads the kernel library; raises with nvcc's
@@ -83,16 +97,26 @@ def load_library() -> KernelLibrary:
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        nvcc = _nvcc()
+        objects = [tmp.with_name(f"{tmp.name}.{path.stem}.o") for path in cu]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(path)]
+                        for obj, path in zip(objects, cu))
+        ]
+        logs = [proc.communicate()[1] for _, proc in procs]  # every process ends here
+        for (cmd, proc), stderr in zip(procs, logs):
+            _check_nvcc(proc.returncode, cmd, stderr)
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(proc.returncode, link, proc.stderr)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+        for obj in objects:
+            obj.unlink()
         os.replace(tmp, target)  # atomic: a concurrent process never loads half a file
-        log = proc.stderr
+        log = "".join(logs)
     lib = ctypes.CDLL(str(target))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)

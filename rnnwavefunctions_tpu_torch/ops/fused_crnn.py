@@ -1,0 +1,190 @@
+"""B7: teacher-forced (Re, Im) log psi of the complex U(1) cRNN, and the
+``autograd.Function`` whose forward is B7 and whose backward is B9.
+
+Counterpart of ``rnnwavefunctions_tpu/ops/fused_crnn.py``
+(``crnn_log_amp_parts``, ``_crnn_site_rows`` and ``make_log_amp_parts_fn``).
+The CUDA kernel is ``csrc/fused_crnn.cu``; the plain PyTorch version below
+is the same site loop written with tensor ops.
+
+Per site, in log space (no complex arithmetic): the reset-after GRU trunk,
+the amplitude head ``lp0 = -softplus(-d)``, ``lp1 = -softplus(d)`` with
+``d = l0 - l1`` (log of the softmax), and the phase head ``pi * softsign``.
+Under the U(1) mask, sites with ``2n >= N`` keep only the classes that do
+not push either spin count past ``N//2`` (heavyside with H(0)=1 on
+``N//2 - 1 - count``) and renormalise with eps 1e-30; a forbidden target
+gets the finite ``LOG_ZERO - log_norm2``.  ``Re log psi`` sums
+``0.5 * lp_target`` and ``Im log psi`` the target's phase, both Kahan-summed.
+
+A kernel's weights travel as an 8-tuple in the JAX package's layout:
+``(wx (2, 3U), wh (U, 3U), bx (3U,), bh (3U,), ampl_w (U, 2), ampl_b (2,),
+phase_w (U, 2), phase_b (2,))``.  The plain versions also take a uniform
+stack: four tensors per GRU layer, then the two heads.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from .build import check, load_library
+from .compsum import kadd, kfinal
+from .fused_gru import (
+    CRNN_FAMILY,
+    Weights,
+    check_samples,
+    check_supported,
+    check_weights,
+    fits_shared_memory,
+    gru_layer,
+    is_cpu_call,
+    spin_input,
+    stream_of,
+)
+
+LOG_ZERO = -1e9  # finite stand-in for log 0 of a masked class
+
+
+def supports(n_sites: int, units: Sequence[int], device) -> bool:
+    """True when the cRNN kernels B7, B9, B10 and B11 take this shape on
+    ``device`` (one GRU layer whose kernels fit shared memory)."""
+    return fits_shared_memory(CRNN_FAMILY, n_sites, units, device)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def site_heads(top: torch.Tensor, heads: Weights, n: int, num_up: torch.Tensor,
+               n_sites: int, u1: bool):
+    """The two heads at site ``n`` on the trunk output ``top`` (B, U):
+    (lp0, lp1, ph0, ph1), each (B,), where lp_i is the log of the masked,
+    renormalised probability of class i and ph_i its phase (the counterpart
+    of ``_crnn_site_rows``).  ``num_up`` (B,) counts the ups before n."""
+    aw, ab, pw, pb = heads
+    la = top @ aw + ab
+    d = la[:, 0] - la[:, 1]
+    lp0 = -_softplus(-d)
+    lp1 = -_softplus(d)
+    if u1 and 2 * n >= n_sites:
+        baseline = n_sites // 2 - 1
+        act_up = baseline - num_up >= 0  # heavyside, H(0) = 1
+        act_down = baseline - (n - num_up) >= 0
+        zero = torch.zeros_like(lp0)
+        norm2 = torch.clamp_min(torch.where(act_down, torch.exp(lp0), zero)
+                                + torch.where(act_up, torch.exp(lp1), zero), 1e-30)
+        log_norm2 = torch.log(norm2)
+        lp0 = torch.where(act_down, lp0, LOG_ZERO) - log_norm2
+        lp1 = torch.where(act_up, lp1, LOG_ZERO) - log_norm2
+    q = top @ pw + pb
+    ph = math.pi * q / (1.0 + torch.abs(q))
+    return lp0, lp1, ph[:, 0], ph[:, 1]
+
+
+def trunk_step(weights: Weights, hs, x: torch.Tensor, x_scale: float):
+    """One site of the GRU stack (four tensors per layer at the head of
+    ``weights``); returns (top output, new per-layer states)."""
+    new_hs, inp = [], None
+    for layer, h in enumerate(hs):
+        wx, wh, bx, bh = weights[4 * layer : 4 * layer + 4]
+        gx = spin_input(wx, bx, x, x_scale) if layer == 0 else inp @ wx + bx
+        inp = gru_layer(gx, h, wh, bh)
+        new_hs.append(inp)
+    return inp, new_hs
+
+
+def base_pass_plain(weights: Weights, u1: bool, samples: Optional[torch.Tensor] = None,
+                    uniforms: Optional[torch.Tensor] = None):
+    """Teacher-forced (``samples`` given) or sampling (``uniforms`` (B, N)
+    given: s = 1 iff u >= p0, clamped to the allowed class) site loop.
+    Returns (spins (B, N) float, Re log psi (B,), Im log psi (B,))."""
+    src = samples if samples is not None else uniforms
+    b, n = src.shape
+    u = weights[1].shape[0]
+    dev = src.device
+    hs = [torch.zeros(b, u, dtype=torch.float32, device=dev)] * ((len(weights) - 4) // 4)
+    x = torch.zeros(b, dtype=torch.float32, device=dev)
+    num_up = torch.zeros_like(x)
+    re, rec, im, imc = (torch.zeros_like(x) for _ in range(4))
+    spins = []
+    for i in range(n):
+        top, hs = trunk_step(weights, hs, x, 1.0 if i > 0 else 0.0)
+        lp0, lp1, ph0, ph1 = site_heads(top, weights[-4:], i, num_up, n, u1)
+        if samples is not None:
+            s = samples[:, i].to(torch.float32)
+        else:
+            s = (uniforms[:, i] >= torch.exp(lp0)).to(torch.float32)
+            # the exp/log round trip can leave a masked class a sliver of
+            # probability: a forbidden draw is clamped to the allowed class
+            s = torch.where(lp1 < 0.5 * LOG_ZERO, 0.0, s)
+            s = torch.where(lp0 < 0.5 * LOG_ZERO, 1.0, s)
+        re, rec = kadd(re, rec, 0.5 * torch.where(s > 0.5, lp1, lp0))
+        im, imc = kadd(im, imc, torch.where(s > 0.5, ph1, ph0))
+        spins.append(s)
+        x = s
+        num_up = num_up + s
+    return torch.stack(spins, dim=1), kfinal(re, rec), kfinal(im, imc)
+
+
+def log_amp_parts_plain(weights: Weights, samples: torch.Tensor, u1: bool):
+    """(B, N) int samples -> (Re log psi, Im log psi), each (B,)."""
+    return base_pass_plain(weights, u1, samples=samples)[1:]
+
+
+# ---------------------------------------------------------------------------
+# B7 wrapper and the autograd Function (B7 forward, B9 backward)
+# ---------------------------------------------------------------------------
+
+def crnn_log_amp_parts(weights: Weights, samples: torch.Tensor, u1: bool):
+    """(B, N) int32 samples -> (Re, Im) log psi, each (B,) float32 (no
+    gradient)."""
+    if is_cpu_call(samples, *weights):
+        return log_amp_parts_plain(weights, samples, u1)
+    u = check_weights(weights, heads=2)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device, CRNN_FAMILY)
+    re = torch.empty(b, dtype=torch.float32, device=samples.device)
+    im = torch.empty_like(re)
+    lib = load_library().lib
+    with torch.cuda.device(samples.device):
+        err = lib.rnnwf_crnn_log_amp_parts(
+            samples.data_ptr(), *[w.data_ptr() for w in weights], re.data_ptr(),
+            im.data_ptr(), b, n, u, int(u1), stream_of(samples),
+        )
+    check(err, "rnnwf_crnn_log_amp_parts")
+    crnn_log_amp_parts.launches += 1
+    return re, im
+
+
+crnn_log_amp_parts.launches = 0
+
+
+class CRNNLogAmpParts(torch.autograd.Function):
+    """(Re, Im) log psi with B7 forward and B9 backward (the counterpart of
+    ``make_log_amp_parts_fn``'s ``custom_vjp``).  Gradients are defined
+    inside the U(1) sector only, where the sampler draws."""
+
+    @staticmethod
+    def forward(ctx, u1, samples, *weights):
+        ctx.u1 = u1
+        ctx.save_for_backward(samples, *weights)
+        return crnn_log_amp_parts(weights, samples, u1)
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        from .fused_crnn_bwd import crnn_log_amp_bwd
+
+        samples, *weights = ctx.saved_tensors
+        grads = crnn_log_amp_bwd(tuple(weights), samples, g_re.contiguous(),
+                                 g_im.contiguous(), ctx.u1)
+        return (None, None, *grads)
+
+
+def log_amp_parts(weights: Weights, samples: torch.Tensor, u1: bool):
+    """Differentiable (Re, Im) log psi through the kernels."""
+    return CRNNLogAmpParts.apply(u1, samples, *weights)

@@ -26,10 +26,14 @@ from .compsum import kadd, kfinal
 
 Weights = Tuple[torch.Tensor, ...]
 
-def supports(n_sites: int, units: Sequence[int], device) -> bool:
-    """True when the GRU kernels take this shape on ``device``: one GRU
-    layer and, on a CUDA device, every kernel's shared memory within the
-    device's opt-in limit per block (asked of the kernel library, whose
+# kernel families whose shared memory ``rnnwf_fits_shared_memory`` checks
+GRU_FAMILY, CRNN_FAMILY = 0, 1
+
+
+def fits_shared_memory(family: int, n_sites: int, units: Sequence[int], device) -> bool:
+    """True when the kernels of ``family`` take this shape on ``device``:
+    one layer and, on a CUDA device, every kernel's shared memory within
+    the device's opt-in limit per block (asked of the kernel library, whose
     launches use the same sizes).  On the CPU only the plain versions run,
     and they take any width."""
     units = tuple(units)
@@ -40,28 +44,47 @@ def supports(n_sites: int, units: Sequence[int], device) -> bool:
         return True
     fits = ctypes.c_int(0)
     index = torch.cuda.current_device() if device.index is None else device.index
-    check(load_library().lib.rnnwf_fits_shared_memory(units[0], index, ctypes.byref(fits)),
-          "rnnwf_fits_shared_memory")
+    check(load_library().lib.rnnwf_fits_shared_memory(
+        family, units[0], index, ctypes.byref(fits)), "rnnwf_fits_shared_memory")
     return bool(fits.value)
+
+
+def supports(n_sites: int, units: Sequence[int], device) -> bool:
+    """True when the GRU kernels K1-K4 take this shape on ``device``."""
+    return fits_shared_memory(GRU_FAMILY, n_sites, units, device)
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def spin_input(wx: torch.Tensor, bx: torch.Tensor, x: torch.Tensor,
+               x_scale: float) -> torch.Tensor:
+    """The first layer's input gates for the previous spin ``x`` (B,) as
+    float: the one-hot row of ``wx`` picked by x, times ``x_scale`` (0 at
+    site 0, where the input is the zero vector), plus ``bx``."""
+    x = x[:, None]
+    return x_scale * ((1.0 - x) * wx[0] + x * wx[1]) + bx
+
+
+def gru_layer(gx: torch.Tensor, h: torch.Tensor, wh: torch.Tensor,
+              bh: torch.Tensor) -> torch.Tensor:
+    """The reset-after GRU update of a (B, U) state from its input gates
+    ``gx`` (B, 3U), gates packed ``[r | z | c]``."""
+    u = h.shape[-1]
+    gh = h @ wh + bh
+    r = torch.sigmoid(gx[:, :u] + gh[:, :u])
+    z = torch.sigmoid(gx[:, u : 2 * u] + gh[:, u : 2 * u])
+    c = torch.tanh(gx[:, 2 * u :] + r * gh[:, 2 * u :])
+    return z * h + (1.0 - z) * c
+
+
 def site_step(weights: Weights, h: torch.Tensor, x: torch.Tensor, x_scale: float):
     """One GRU + head step on a (B, U) state; ``x`` is the previous spin
     (B,) as float and ``x_scale`` is 0 at site 0 (the zero input vector).
     Returns (h_new, logit_0, logit_1)."""
     wx, wh, bx, bh, hw, hb = weights
-    u = h.shape[-1]
-    x = x[:, None]
-    gx = x_scale * ((1.0 - x) * wx[0] + x * wx[1]) + bx
-    gh = h @ wh + bh
-    r = torch.sigmoid(gx[:, :u] + gh[:, :u])
-    z = torch.sigmoid(gx[:, u : 2 * u] + gh[:, u : 2 * u])
-    c = torch.tanh(gx[:, 2 * u :] + r * gh[:, 2 * u :])
-    h_new = z * h + (1.0 - z) * c
+    h_new = gru_layer(spin_input(wx, bx, x, x_scale), h, wh, bh)
     logits = h_new @ hw + hb
     return h_new, logits[:, 0], logits[:, 1]
 
@@ -115,12 +138,14 @@ def is_cpu_call(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def check_weights(weights: Weights) -> int:
-    """Checks the 6-tuple for the kernels; returns U."""
-    if len(weights) != 6:
-        raise ValueError(f"expected 6 weight tensors, got {len(weights)}")
+def check_weights(weights: Weights, heads: int = 1) -> int:
+    """Checks the kernels' weight tuple: the GRU layer and ``heads`` 2-logit
+    heads (6 tensors for K1-K4, 8 for the cRNN kernels); returns U."""
+    count = 4 + 2 * heads
+    if len(weights) != count:
+        raise ValueError(f"expected {count} weight tensors, got {len(weights)}")
     u = weights[1].shape[0]
-    shapes = [(2, 3 * u), (u, 3 * u), (3 * u,), (3 * u,), (u, 2), (2,)]
+    shapes = [(2, 3 * u), (u, 3 * u), (3 * u,), (3 * u,)] + [(u, 2), (2,)] * heads
     for w, shape in zip(weights, shapes):
         if w.dtype != torch.float32 or tuple(w.shape) != shape:
             raise ValueError(
@@ -146,8 +171,8 @@ def check_samples(samples: torch.Tensor) -> Tuple[int, int]:
     return b, n
 
 
-def check_supported(n: int, u: int, device) -> None:
-    if not supports(n, (u,), device):
+def check_supported(n: int, u: int, device, family: int = GRU_FAMILY) -> None:
+    if not fits_shared_memory(family, n, (u,), device):
         raise ValueError(f"the CUDA kernels do not take N={n}, U={u} on {device}")
 
 

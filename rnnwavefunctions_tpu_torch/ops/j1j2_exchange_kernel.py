@@ -1,0 +1,147 @@
+"""B10 and B11: the J1-J2 off-diagonal local energy of the U(1) cRNN by
+prefix sharing.
+
+Counterpart of ``rnnwavefunctions_tpu/ops/j1j2_exchange_kernel.py``
+(``j1j2_exchange_offdiag`` and ``j1j2_sample_and_exchange``).  Per sample it
+returns
+
+    eoff[b] = sum_k el_k exp(dRe_k) (cos dIm_k, sin dIm_k),
+    dRe_k + i dIm_k = log psi(sigma_b with bond k exchanged) - log psi(sigma_b),
+
+over the anti-aligned NN bonds (element ``el_nn``), the anti-aligned NNN
+bonds (``el_nnn``, when ``has_nnn``) and, when ``periodic``, the wrap bonds
+(0, N-1), (0, N-2) and (1, N-1); an aligned bond contributes exactly 0.
+The base (Re, Im) log psi comes back as a by-product.  B11 draws the samples
+first, in the same base pass.
+
+The CUDA kernels are ``csrc/j1j2_exchange.cu``.  The plain versions are
+independent of the kernels' prefix sharing: they list every exchanged
+configuration with ``J1J2.connected`` and evaluate each in full with the
+plain B7 loop.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..hamiltonians.j1j2 import J1J2
+from .build import check, load_library
+from .fused_crnn import base_pass_plain, log_amp_parts_plain
+from .fused_gru import (
+    CRNN_FAMILY,
+    Weights,
+    check_samples,
+    check_supported,
+    check_weights,
+    is_cpu_call,
+    stream_of,
+)
+from .tfim_flip_kernel import plain_uniforms
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def exchange_offdiag_plain(weights: Weights, samples: torch.Tensor, *, u1: bool,
+                           el_nn: float, el_nnn: float, has_nnn: bool, periodic: bool):
+    """Brute force: every connected configuration of the chain whose
+    exchange elements are (el_nn, el_nnn) through the full plain loop.
+    Returns (eoff_re, eoff_im, lp_re, lp_im)."""
+    b, n = samples.shape
+    ham = J1J2(n, j1=2.0 * el_nn, j2=2.0 * el_nnn if has_nnn else 0.0, periodic=periodic)
+    _, flips, elements, mask = ham.connected(samples)
+    k = flips.shape[1]
+    lp_re, lp_im = log_amp_parts_plain(weights, samples, u1)
+    la_re, la_im = log_amp_parts_plain(weights, flips.reshape(b * k, n), u1)
+    d_re = la_re.view(b, k) - lp_re[:, None]
+    d_im = la_im.view(b, k) - lp_im[:, None]
+    w = torch.where(mask, elements * torch.exp(d_re), 0.0)
+    return (w * torch.cos(d_im)).sum(dim=1), (w * torch.sin(d_im)).sum(dim=1), lp_re, lp_im
+
+
+@torch.no_grad()
+def sample_and_exchange_plain(weights: Weights, uniforms: torch.Tensor, *, u1: bool,
+                              **elements):
+    """The plain sampler on given (B, N) uniforms, then the plain B10 on its
+    samples: (samples, eoff_re, eoff_im, lp_re, lp_im)."""
+    spins, _, _ = base_pass_plain(weights, u1, uniforms=uniforms)
+    samples = spins.to(torch.int32)
+    return (samples, *exchange_offdiag_plain(weights, samples, u1=u1, **elements))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _launch(name: str, weights: Weights, samples: torch.Tensor, seed: int, offset: int,
+            u1: bool, el_nn: float, el_nnn: float, has_nnn: bool, periodic: bool):
+    """Allocates the scratch and runs the four launches of B10 (``samples``
+    read) or B11 (``samples`` written)."""
+    b, n = samples.shape
+    u = weights[1].shape[0]
+    dev = samples.device
+    lib = load_library().lib
+    k = lib.rnnwf_j1j2_num_bonds(n, int(has_nnn), int(periodic))
+    f32 = dict(dtype=torch.float32, device=dev)
+    hist = torch.empty(b * n * u, **f32)
+    pfx = torch.empty(3, b * n, **f32)     # Re and Im prefixes, up-counts
+    terms = torch.empty(2, k * b, **f32)   # Re and Im term of each (bond, sample)
+    order = torch.empty(k * b + k, dtype=torch.int32, device=dev)  # anti-aligned lists, counts
+    out = torch.empty(4, b, **f32)         # eoff_re, eoff_im, lp_re, lp_im
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(
+            samples.data_ptr(), seed, offset, *[w.data_ptr() for w in weights],
+            hist.data_ptr(), pfx.data_ptr(), terms.data_ptr(), order.data_ptr(),
+            out.data_ptr(), b, n, u, int(u1), float(el_nn), float(el_nnn),
+            int(has_nnn), int(periodic), stream_of(samples),
+        )
+    check(err, name)
+    return tuple(out)
+
+
+def j1j2_exchange_offdiag(weights: Weights, samples: torch.Tensor, *, u1: bool,
+                          el_nn: float, el_nnn: float, has_nnn: bool,
+                          periodic: bool = False):
+    """B10: (B, N) int32 samples -> (eoff_re, eoff_im, lp_re, lp_im), each
+    (B,) float32."""
+    elements = dict(el_nn=el_nn, el_nnn=el_nnn, has_nnn=has_nnn, periodic=periodic)
+    if is_cpu_call(samples, *weights):
+        return exchange_offdiag_plain(weights, samples, u1=u1, **elements)
+    u = check_weights(weights, heads=2)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device, CRNN_FAMILY)
+    out = _launch("rnnwf_j1j2_exchange_offdiag", weights, samples, 0, 0, u1, **elements)
+    j1j2_exchange_offdiag.launches += 1
+    return out
+
+
+j1j2_exchange_offdiag.launches = 0
+
+
+def j1j2_sample_and_exchange(weights: Weights, num_samples: int, n_sites: int,
+                             seed: int, offset: int, *, u1: bool, el_nn: float,
+                             el_nnn: float, has_nnn: bool, periodic: bool = False):
+    """B11: draw ``num_samples`` U(1)-masked chains of ``n_sites`` spins
+    and estimate their exchange sums in one pass.  ``(seed, offset)`` (each
+    in [0, 2^32)) keys the kernel's Philox generator.  Returns (samples
+    (B, N) int32, eoff_re, eoff_im, lp_re, lp_im)."""
+    if not (0 <= seed < 2**32 and 0 <= offset < 2**32):
+        raise ValueError(f"seed and offset must lie in [0, 2^32); got {seed}, {offset}")
+    elements = dict(el_nn=el_nn, el_nnn=el_nnn, has_nnn=has_nnn, periodic=periodic)
+    if is_cpu_call(*weights):
+        uni = plain_uniforms(num_samples, n_sites, seed, offset, weights[0].device)
+        return sample_and_exchange_plain(weights, uni, u1=u1, **elements)
+    u = check_weights(weights, heads=2)
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
+    check_supported(n_sites, u, weights[0].device, CRNN_FAMILY)
+    samples = torch.empty(num_samples, n_sites, dtype=torch.int32, device=weights[0].device)
+    out = _launch("rnnwf_j1j2_sample_and_exchange", weights, samples, seed, offset, u1,
+                  **elements)
+    j1j2_sample_and_exchange.launches += 1
+    return (samples, *out)
+
+
+j1j2_sample_and_exchange.launches = 0

@@ -1,8 +1,13 @@
-"""Measures the flagship VMC step (1D TFIM N=100, Bx=1, open boundaries; one
-GRU layer of 50 units; S=500; Adam at lr 5e-3) on one CUDA card.
+"""Measures a flagship VMC step on one CUDA card:
 
-    python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--out FILE]
-    python -m rnnwavefunctions_tpu_torch.tools.profile_step accuracy [--steps 8000]
+* ``--model tfim`` (default): 1D TFIM N=100, Bx=1, open boundaries; ``PRNN1D``
+  with one GRU layer of 50 units; S=500; Adam at lr 5e-3;
+* ``--model j1j2``: ``J1J2(N=100, J2=0.2)``, open chain (``--marshall-sign``
+  applies the Marshall rotation, which leaves the spectrum as it is);
+  ``CRNNU1`` with one GRU layer of 50 units; S=500; Adam at lr 5e-3.
+
+    python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--model M] [--out FILE]
+    python -m rnnwavefunctions_tpu_torch.tools.profile_step accuracy [--model M] [--steps 8000]
 
 ``profile``: steps/s of the kernel path over three repeats of 50 steps
 (host clock, ending in a synchronize, after 3 warm-up steps), and of the
@@ -31,10 +36,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from .. import CRNNU1, J1J2, PRNN1D, TFIM1D, TrainConfig, VMCTrainer
 
 N, U = 100, 50
-E_DMRG = -126.9618766964  # the N=100, Bx=1 open chain (the JAX package's README)
+# DMRG ground-state energies of the two chains (the JAX package's README and
+# BASELINE.md)
+E_DMRG = {"tfim": -126.9618766964, "j1j2": -40.73881897}
 
 
 def _card() -> str:
@@ -44,9 +51,13 @@ def _card() -> str:
     ).stdout.strip()
 
 
-def _trainer(impl: str = "auto"):
-    trainer = VMCTrainer(PRNN1D(N, (U,), impl=impl, device="cuda"), TFIM1D(N, 1.0),
-                         TrainConfig())
+def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False):
+    if model == "tfim":
+        ansatz, ham = PRNN1D(N, (U,), impl=impl, device="cuda"), TFIM1D(N, 1.0)
+    else:
+        ansatz = CRNNU1(N, (U,), impl=impl, device="cuda")
+        ham = J1J2(N, j2=0.2, marshall_sign=marshall_sign)
+    trainer = VMCTrainer(ansatz, ham, TrainConfig(num_samples=500, learning_rate=5e-3))
     return trainer, trainer.init()
 
 
@@ -58,14 +69,14 @@ def _steps_per_second(trainer, state, steps: int) -> float:
     return steps / (time.perf_counter() - t0)
 
 
-def profile() -> dict:
+def profile(model: str, marshall_sign: bool) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    trainer, state = _trainer()
+    trainer, state = _trainer(model, marshall_sign=marshall_sign)
     trainer.run_steps(state, 3)  # warm-up: build, allocator
     kernel_rates = [_steps_per_second(trainer, state, 50) for _ in range(3)]
-    plain, plain_state = _trainer("plain")
+    plain, plain_state = _trainer(model, "plain", marshall_sign)
     plain.run_steps(plain_state, 1)
     plain_rates = [_steps_per_second(plain, plain_state, 5) for _ in range(2)]
 
@@ -82,6 +93,8 @@ def profile() -> dict:
     per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in device}
     busy_ms = steps * sum(per_step.values())
     return {
+        "model": model,
+        "marshall_sign": marshall_sign,
         "kernel_steps_per_s": kernel_rates,
         "plain_steps_per_s": plain_rates,
         "profiled_steps": steps,
@@ -92,31 +105,40 @@ def profile() -> dict:
     }
 
 
-def accuracy(steps: int, block: int) -> dict:
-    trainer, state = _trainer()
-    energies = []
+def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
+    trainer, state = _trainer(model, marshall_sign=marshall_sign)
+    energies, imag = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for done in range(0, steps, block):
         state, ms = trainer.run_steps(state, min(block, steps - done))
         energies.append(ms["mean_energy"].cpu().numpy())
+        if "mean_energy_im" in ms:
+            imag.append(ms["mean_energy_im"].cpu().numpy())
     seconds = time.perf_counter() - t0
     last = np.concatenate(energies)[-100:]
     energy = float(last.mean())
+    e_dmrg = E_DMRG[model]
     return {
+        "model": model,
+        "marshall_sign": marshall_sign,
         "steps": steps,
         "seconds": seconds,
         "steps_per_s": steps / seconds,
         "energy": energy,
         "energy_stderr": float(last.std(ddof=1) / np.sqrt(last.size)),
-        "e_dmrg": E_DMRG,
-        "relative_error": abs(energy - E_DMRG) / abs(E_DMRG),
+        "energy_im": float(np.concatenate(imag)[-100:].mean()) if imag else None,
+        "e_dmrg": e_dmrg,
+        "relative_error": abs(energy - e_dmrg) / abs(e_dmrg),
     }
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("mode", choices=("profile", "accuracy"))
+    parser.add_argument("--model", choices=("tfim", "j1j2"), default="tfim")
+    parser.add_argument("--marshall-sign", action="store_true",
+                        help="j1j2: train the Marshall-rotated Hamiltonian")
     parser.add_argument("--steps", type=int, default=8000, help="accuracy: Adam steps")
     parser.add_argument("--block", type=int, default=500,
                         help="accuracy: steps between metric reads")
@@ -125,7 +147,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     print(_card(), flush=True)
-    result = profile() if args.mode == "profile" else accuracy(args.steps, args.block)
+    if args.mode == "profile":
+        result = profile(args.model, args.marshall_sign)
+    else:
+        result = accuracy(args.model, args.marshall_sign, args.steps, args.block)
     result["card"] = _card()
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -22,12 +22,12 @@ from typing import Any, Callable, Optional
 import torch
 
 
-def _chunked_apply(fn: Callable, flat: torch.Tensor, chunk_size: Optional[int]):
-    """Apply ``fn`` over the leading axis of ``flat`` in chunks of at most
+def _chunks(flat: torch.Tensor, chunk_size: Optional[int]):
+    """``flat`` split along its leading axis into chunks of at most
     ``chunk_size`` rows (the whole batch at once when None)."""
     if chunk_size is None or chunk_size >= flat.shape[0]:
-        return fn(flat)
-    return torch.cat([fn(c) for c in torch.split(flat, chunk_size)])
+        return [flat]
+    return torch.split(flat, chunk_size)
 
 
 def _flip_kernel_ok(ansatz, hamiltonian) -> bool:
@@ -45,14 +45,24 @@ def _flip_kernel_ok(ansatz, hamiltonian) -> bool:
 
 
 def _select_family(ansatz: Any, hamiltonian: Any) -> Optional[str]:
-    """``"plain_flip"`` (positive pRNN + flat TFIM on the kernels) or None
-    (the generic connected-configs estimator)."""
+    """``"plain_flip"`` (positive pRNN + flat TFIM on the kernels),
+    ``"exchange"`` (complex cRNN + J1-J2 spin exchange on the kernels) or
+    None (the generic connected-configs estimator).  The ansatz's
+    ``_use_kernels`` raises for an uncovered configuration on the card."""
+    is_complex = getattr(ansatz, "is_complex", False)
     if (
         getattr(ansatz, "plain_positive", False)
-        and not getattr(ansatz, "is_complex", False)
+        and not is_complex
         and _flip_kernel_ok(ansatz, hamiltonian)
     ):
         return "plain_flip"
+    if (
+        is_complex
+        and getattr(hamiltonian, "exchange_kernel_info", None) is not None
+        and hasattr(ansatz, "_use_kernels")
+        and ansatz._use_kernels()
+    ):
+        return "exchange"
     return None
 
 
@@ -78,13 +88,39 @@ def make_local_energy_fn(ansatz: Any, hamiltonian: Any,
         local_energy_fused.needs_log_amp = False
         return local_energy_fused
 
-    # ---- generic connected-configs path
+    if family == "exchange":
+        from ..ops.j1j2_exchange_kernel import j1j2_exchange_offdiag
+
+        exch = hamiltonian.exchange_kernel_info
+
+        @torch.no_grad()
+        def local_energy_exchange(samples, log_amp_samples=None):
+            diag = hamiltonian.diagonal(samples)
+            e_re, e_im, lp_re, lp_im = j1j2_exchange_offdiag(
+                ansatz.weights(), samples, u1=ansatz.u1, **exch)
+            return diag + e_re, e_im, (lp_re, lp_im)
+
+        local_energy_exchange.needs_log_amp = False
+        return local_energy_exchange
+
+    # ---- generic connected-configs path; ``log_amp_samples`` is log psi of
+    # the samples, an (Re, Im) pair for a complex ansatz
     @torch.no_grad()
     def local_energy(samples, log_amp_samples):
         diag, flips, elements, mask = hamiltonian.connected(samples)
         s, k = flips.shape[0], flips.shape[1]
         flat = flips.reshape((s * k,) + flips.shape[2:])
-        la = _chunked_apply(ansatz.log_amp, flat, chunk_size).reshape(s, k)
+        if getattr(ansatz, "is_complex", False):
+            parts = [ansatz.log_amp_parts(c) for c in _chunks(flat, chunk_size)]
+            la_re = torch.cat([p[0] for p in parts]).reshape(s, k)
+            la_im = torch.cat([p[1] for p in parts]).reshape(s, k)
+            s_re, s_im = log_amp_samples
+            d_im = la_im - s_im[:, None]
+            w = torch.where(mask, elements * torch.exp(la_re - s_re[:, None]), 0.0)
+            off_re = torch.sum(w * torch.cos(d_im), dim=1)
+            off_im = torch.sum(w * torch.sin(d_im), dim=1)
+            return diag + off_re, off_im, log_amp_samples
+        la = torch.cat([ansatz.log_amp(c) for c in _chunks(flat, chunk_size)]).reshape(s, k)
         ratios = torch.exp(la - log_amp_samples[:, None])
         contrib = elements.to(ratios.dtype) * ratios
         offdiag = torch.sum(torch.where(mask, contrib, torch.zeros_like(contrib)), dim=1)
@@ -102,9 +138,22 @@ def make_fused_sample_energy_fn(ansatz: Any, hamiltonian: Any):
     family = _select_family(ansatz, hamiltonian)
     if family is None:
         return None
+    n = ansatz.num_sites
+    if family == "exchange":
+        from ..ops.j1j2_exchange_kernel import j1j2_sample_and_exchange
+
+        exch = hamiltonian.exchange_kernel_info
+
+        @torch.no_grad()
+        def fused_j1j2(num_samples, seed, offset):
+            samples, e_re, e_im, lp_re, lp_im = j1j2_sample_and_exchange(
+                ansatz.weights(), num_samples, n, seed, offset, u1=ansatz.u1, **exch)
+            return samples, (lp_re, lp_im), hamiltonian.diagonal(samples) + e_re, e_im
+
+        return fused_j1j2
+
     from ..ops import tfim_flip_kernel as tk
 
-    n = ansatz.num_sites
     flip_element = hamiltonian.uniform_flip_element
 
     @torch.no_grad()

@@ -3,10 +3,12 @@
 Counterpart of ``rnnwavefunctions_tpu/vmc/trainer.py`` for one device, the
 Adam optimizer and a constant learning rate.  One step:
 
-1. sample + local energies: the fused kernel K3 when ``_select_family``
-   picks it, else the ansatz's sampler and the generic estimator;
+1. sample + local energies: the fused kernel (K3 for the pRNN on the
+   TFIM, B11 for the cRNN on J1-J2) when ``_select_family`` picks it, else
+   the ansatz's sampler and the generic estimator;
 2. the surrogate loss on ``ansatz.log_amp`` (kernels K1 forward and K2
-   backward when the ansatz runs its kernels);
+   backward), or for a complex ansatz on ``ansatz.log_amp_parts`` (B7
+   forward and B9 backward), when the ansatz runs its kernels;
 3. ``torch.optim.Adam``, whose update ``lr * m_hat / (sqrt(v_hat) + eps)``
    is optax's ``adam`` with ``eps_root=0``.
 
@@ -85,37 +87,57 @@ class VMCTrainer:
 
     # -- one step -----------------------------------------------------------
 
+    def _log_amp_of_batch(self, samples: torch.Tensor, logp_sampling: torch.Tensor):
+        """log psi of a drawn batch, the generic estimator's ratio
+        denominators: 0.5 * the sampling log p for a positive ansatz, a
+        teacher-forced (Re, Im) pass for a complex one."""
+        if getattr(self.ansatz, "is_complex", False):
+            with torch.no_grad():
+                return self.ansatz.log_amp_parts(samples)
+        return 0.5 * logp_sampling
+
     def _sample_and_energy(self, state: TrainState):
+        """Returns (samples, e_re, e_im); e_im is None for a real ansatz."""
         n = self.config.num_samples
         if self._fused_sample_energy is not None:
             seed, offset = torch.randint(
                 0, 2**32, (2,), generator=state.generator, dtype=torch.int64
             ).tolist()
-            samples, _, e_re, _ = self._fused_sample_energy(n, seed, offset)
-            return samples, e_re
+            samples, _, e_re, e_im = self._fused_sample_energy(n, seed, offset)
+            return samples, e_re, e_im
         samples, logp = self.ansatz.sample_with_log_prob(n, state.generator)
-        la = 0.5 * logp if self.local_energy.needs_log_amp else None
-        e_re, _, _ = self.local_energy(samples, la)
-        return samples, e_re
+        la = self._log_amp_of_batch(samples, logp) if self.local_energy.needs_log_amp else None
+        e_re, e_im, _ = self.local_energy(samples, la)
+        return samples, e_re, e_im
 
-    def _update(self, state: TrainState, samples: torch.Tensor,
-                e_loc: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _update(self, state: TrainState, samples: torch.Tensor, e_loc: torch.Tensor,
+                e_im: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Surrogate-loss gradient and one Adam step on given samples and
-        local energies; returns the step's metrics (0-dim tensors)."""
+        local energies (``e_im`` for a complex ansatz); returns the step's
+        metrics (0-dim tensors).  A complex ansatz's loss runs on its own
+        teacher-forced ``log_amp_parts`` of the samples."""
         e_loc = e_loc.detach()
         e_mean = e_loc.mean()
         var_e = ((e_loc - e_mean) ** 2).mean()
+        metrics = {"mean_energy": e_mean, "var_energy": var_e}
         state.optimizer.zero_grad(set_to_none=True)
-        loss = surrogate_loss(self.ansatz.log_amp(samples), None, e_loc, None, e_mean, None)
+        if getattr(self.ansatz, "is_complex", False):
+            e_im = e_im.detach()
+            e_im_mean = e_im.mean()
+            la_re, la_im = self.ansatz.log_amp_parts(samples)
+            loss = surrogate_loss(la_re, la_im, e_loc, e_im, e_mean, e_im_mean)
+            metrics["mean_energy_im"] = e_im_mean
+        else:
+            loss = surrogate_loss(self.ansatz.log_amp(samples), None, e_loc, None, e_mean, None)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return {"mean_energy": e_mean, "var_energy": var_e}
+        return metrics
 
     def step(self, state: TrainState):
         """One VMC update.  Returns (state, metrics dict of 0-dim tensors)."""
-        samples, e_loc = self._sample_and_energy(state)
-        return state, self._update(state, samples, e_loc)
+        samples, e_re, e_im = self._sample_and_energy(state)
+        return state, self._update(state, samples, e_re, e_im)
 
     def run_steps(self, state: TrainState, num_steps: int):
         """``num_steps`` updates; returns (state, metrics with a leading

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels K1-K4 against their plain versions on the
-card, at small shapes with ragged batches.  They skip without a CUDA device
+"""PyTorch port: the CUDA kernels K1-K4 and B7, B9, B10, B11 against their
+plain versions on the card, at small shapes with ragged batches.  They skip without a CUDA device
 (a CUDA kernel has no CPU mode).  This file imports no JAX, so on a machine
 with a card and without JAX it runs as
 
@@ -9,8 +9,9 @@ with a card and without JAX it runs as
 import pytest
 import torch
 
-from rnnwavefunctions_tpu_torch import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd
+from rnnwavefunctions_tpu_torch import CRNNU1, J1J2, PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_crnn_bwd, fused_gru, fused_gru_bwd
+from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
 from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
 pytestmark = pytest.mark.cuda
@@ -27,16 +28,16 @@ def cuda():
 
 def _weights(u, device, seed=0):
     gen = torch.Generator().manual_seed(seed)
-    model = PRNN1D(N, (u,)).init(gen)
+    model = PRNN1D(N, (u,), device="cpu").init(gen)
     with torch.no_grad():
         for p in model.parameters():
             p.add_(0.1 * torch.randn(p.shape, generator=gen))
     return tuple(w.detach().to(device) for w in model.weights())
 
 
-def _samples(device, seed=1):
+def _samples(device, seed=1, n=N):
     gen = torch.Generator().manual_seed(seed)
-    return (torch.rand(B, N, generator=gen) < 0.5).to(torch.int32).to(device)
+    return (torch.rand(B, n, generator=gen) < 0.5).to(torch.int32).to(device)
 
 
 @pytest.mark.parametrize("u", [16, 50])
@@ -114,3 +115,87 @@ def test_sampler_runs_k3_on_the_card(cuda):
     with torch.no_grad():
         want = fused_gru.log_prob_plain(model.weights(), s)
     torch.testing.assert_close(lp, want, atol=1e-5 * N, rtol=0)
+
+
+# ---- the complex U(1) cRNN kernels (B7, B9, B10, B11)
+
+
+def _crnn_weights(u, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = CRNNU1(N, (u,), device="cpu").init(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return tuple(w.detach().to(device) for w in model.weights())
+
+
+def _sector(device, seed=1, n=N):
+    """Zero-magnetisation samples: random permutations of n//2 ones."""
+    gen = torch.Generator().manual_seed(seed)
+    keys = torch.rand(B, n, generator=gen)
+    return (keys.argsort(dim=1) < n // 2).to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("u1", [True, False])
+@pytest.mark.parametrize("n", [N, N - 1], ids=["even", "odd"])
+def test_b7_matches_plain(cuda, u1, n):
+    w = _crnn_weights(50, cuda)
+    # in and out of the sector; at odd n the mask forbids every class of a
+    # late site, whose targets take the finite LOG_ZERO - log norm2
+    for s in (_sector(cuda, n=n), _samples(cuda, n=n)):
+        before = fused_crnn.crnn_log_amp_parts.launches
+        re, im = fused_crnn.crnn_log_amp_parts(w, s, u1)
+        want_re, want_im = fused_crnn.log_amp_parts_plain(w, s, u1)
+        torch.testing.assert_close(re, want_re, atol=1e-5 * n, rtol=1e-6)
+        torch.testing.assert_close(im, want_im, atol=1e-5 * n, rtol=0)
+        assert fused_crnn.crnn_log_amp_parts.launches == before + 1
+
+
+@pytest.mark.parametrize("u1", [True, False])
+def test_b9_matches_plain(cuda, u1):
+    w, s = _crnn_weights(50, cuda), _sector(cuda)
+    g_re, g_im = torch.randn(2, B, generator=torch.Generator().manual_seed(2)).to(cuda)
+    for a, b in zip(fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, u1),
+                    fused_crnn_bwd.log_amp_bwd_plain(w, s, g_re, g_im, u1)):
+        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
+
+
+@pytest.mark.parametrize("periodic,j2", [(False, 0.2), (True, 0.2), (False, 0.0), (True, 0.0)])
+def test_b10_and_b11_match_plain(cuda, periodic, j2):
+    w, s = _crnn_weights(50, cuda), _sector(cuda)
+    info = J1J2(N, j2=j2, periodic=periodic, marshall_sign=periodic).exchange_kernel_info
+    got = jk.j1j2_exchange_offdiag(w, s, u1=True, **info)
+    want = jk.exchange_offdiag_plain(w, s, u1=True, **info)
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, atol=1e-5 * N, rtol=0)
+    s11, *rest = jk.j1j2_sample_and_exchange(w, B, N, 3, 5, u1=True, **info)
+    assert s11.shape == (B, N) and bool((s11.sum(dim=1) == N // 2).all())
+    want = jk.j1j2_exchange_offdiag(w, s11, u1=True, **info)
+    for a, b in zip(rest, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    again, *_ = jk.j1j2_sample_and_exchange(w, B, N, 3, 5, u1=True, **info)
+    assert torch.equal(again, s11)
+
+
+def test_j1j2_training_step_runs_every_kernel(cuda):
+    trainer = VMCTrainer(CRNNU1(N, (16,), device=cuda), J1J2(N, j2=0.2),
+                         TrainConfig(num_samples=B))
+    state = trainer.init()
+    fns = (jk.j1j2_sample_and_exchange, fused_crnn.crnn_log_amp_parts,
+           fused_crnn_bwd.crnn_log_amp_bwd, jk.j1j2_exchange_offdiag)
+    counts = [fn.launches for fn in fns]
+    state, ms = trainer.run_steps(state, 2)
+    trainer.local_energy(trainer.ansatz.sample(B, torch.Generator().manual_seed(0)))
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [3, 2, 2, 1]
+    assert bool(torch.isfinite(ms["mean_energy"]).all())
+    assert ms["mean_energy_im"].shape == (2,)
+
+
+def test_crnn_coverage_on_the_card(cuda):
+    assert fused_crnn.supports(100, (50,), cuda)
+    assert not fused_crnn.supports(100, (256,), cuda)
+    with pytest.raises(ValueError, match="impl='plain'"):
+        CRNNU1(N, (16, 16), device=cuda).log_amp_parts(_sector(cuda))
+    assert CRNNU1(N, (16, 16), impl="plain", device=cuda).log_prob(_sector(cuda)).shape == (B,)

@@ -30,7 +30,7 @@ def setup():
     params = jax.tree.map(
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params
     )
-    model = PRNN1D(N, (U,))
+    model = PRNN1D(N, (U,), device="cpu")
     interop.load_params(model, jax.tree.map(np.asarray, params))
     samples = rng.integers(0, 2, (B, N)).astype(np.int32)
     g = rng.standard_normal(B).astype(np.float32)

@@ -8,9 +8,10 @@ import pytest
 import torch
 
 from rnnwavefunctions_tpu.ed import exact as jexact
+from rnnwavefunctions_tpu.models.crnn_u1 import CRNNU1 as JCRNNU1
 from rnnwavefunctions_tpu.models.prnn1d import PRNN1D as JPRNN1D
 from rnnwavefunctions_tpu.ops import compsum as jcompsum
-from rnnwavefunctions_tpu_torch import PRNN1D, interop
+from rnnwavefunctions_tpu_torch import CRNNU1, PRNN1D, interop
 from rnnwavefunctions_tpu_torch.ed import exact
 from rnnwavefunctions_tpu_torch.models import cells
 from rnnwavefunctions_tpu_torch.ops import compsum
@@ -22,7 +23,7 @@ torch.set_num_threads(1)
 def test_params_round_trip_bit_exact(units):
     params = JPRNN1D(num_sites=5, units=units, impl="jnp").init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, params)
-    model = PRNN1D(5, units)
+    model = PRNN1D(5, units, device="cpu")
     interop.load_params(model, tree)
     back = interop.params_to_numpy(model)
     want, want_def = jax.tree.flatten(tree)
@@ -33,12 +34,31 @@ def test_params_round_trip_bit_exact(units):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("units", [(8,), (6, 6)])
+def test_crnn_params_round_trip_bit_exact(units):
+    """The CRNNU1 tree has two heads; the model, not the keys, says so."""
+    params = JCRNNU1(num_sites=6, units=units, impl="jnp").init(jax.random.PRNGKey(1))
+    tree = jax.tree.map(np.asarray, params)
+    model = CRNNU1(6, units, device="cpu")
+    interop.load_params(model, tree)
+    back = interop.params_to_numpy(model)
+    want, want_def = jax.tree.flatten(tree)
+    got, got_def = jax.tree.flatten(back)
+    assert got_def == want_def
+    for a, b in zip(got, want):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    # a pRNN tree has no phase head: the cRNN does not take it
+    with pytest.raises(KeyError):
+        interop.load_params(model, interop.params_to_numpy(PRNN1D(6, units, device="cpu")))
+
+
 def test_load_params_rejects_wrong_shapes():
-    tree = interop.params_to_numpy(PRNN1D(5, (8,)))
+    tree = interop.params_to_numpy(PRNN1D(5, (8,), device="cpu"))
     with pytest.raises(ValueError):
-        interop.load_params(PRNN1D(5, (6,)), tree)
+        interop.load_params(PRNN1D(5, (6,), device="cpu"), tree)
     with pytest.raises(ValueError):
-        interop.load_params(PRNN1D(5, (8, 8)), tree)
+        interop.load_params(PRNN1D(5, (8, 8), device="cpu"), tree)
 
 
 def test_kahan_sum_matches_jax_and_float64():
@@ -67,9 +87,9 @@ def test_kahan_sum_keeps_minus_infinity():
 
 
 def test_glorot_init_is_seeded_and_bounded():
-    a = PRNN1D(7, (16,)).init(torch.Generator().manual_seed(3)).requires_grad_(False)
-    b = PRNN1D(7, (16,)).init(torch.Generator().manual_seed(3))
-    c = PRNN1D(7, (16,)).init(torch.Generator().manual_seed(4))
+    a = PRNN1D(7, (16,), device="cpu").init(torch.Generator().manual_seed(3)).requires_grad_(False)
+    b = PRNN1D(7, (16,), device="cpu").init(torch.Generator().manual_seed(3))
+    c = PRNN1D(7, (16,), device="cpu").init(torch.Generator().manual_seed(4))
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
     assert not torch.equal(a.rnn[0].wh, c.rnn[0].wh)

@@ -9,7 +9,7 @@ import torch
 
 from rnnwavefunctions_tpu.models.prnn1d import PRNN1D as JPRNN1D
 from rnnwavefunctions_tpu_torch import PRNN1D, interop
-from rnnwavefunctions_tpu_torch.models.base import resolve_impl
+from rnnwavefunctions_tpu_torch.models.base import resolve_device, resolve_impl
 
 torch.set_num_threads(1)
 
@@ -23,7 +23,7 @@ def _pair(n, units, seed=0):
     params = jax.tree.map(
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params
     )
-    model = PRNN1D(n, units)
+    model = PRNN1D(n, units, device="cpu")
     interop.load_params(model, jax.tree.map(np.asarray, params))
     return jans, params, model
 
@@ -85,15 +85,15 @@ def test_sampler_frequencies_match_exact_density():
 
 
 def test_resolve_impl_rules_on_cpu():
-    assert not PRNN1D(6, (8,), impl="plain")._use_kernels()
+    assert not PRNN1D(6, (8,), impl="plain", device="cpu")._use_kernels()
     # auto takes the kernels only when the parameters lie on a CUDA device
-    assert not PRNN1D(6, (8,), impl="auto")._use_kernels()
+    assert not PRNN1D(6, (8,), impl="auto", device="cpu")._use_kernels()
     with pytest.raises(ValueError, match="CUDA"):
-        PRNN1D(6, (8,), impl="kernel")._use_kernels()
+        PRNN1D(6, (8,), impl="kernel", device="cpu")._use_kernels()
     with pytest.raises(ValueError, match="support"):
-        PRNN1D(6, (8, 8), impl="kernel")._use_kernels()
+        PRNN1D(6, (8, 8), impl="kernel", device="cpu")._use_kernels()
     with pytest.raises(ValueError, match="unknown impl"):
-        PRNN1D(6, (8,), impl="pallas")._use_kernels()
+        PRNN1D(6, (8,), impl="pallas", device="cpu")._use_kernels()
 
     class Fake:
         impl = "auto"
@@ -117,13 +117,13 @@ def test_auto_on_cuda_raises_outside_coverage(units):
             # stands in for the kernel library's shared-memory query
             return self._single_gru() and self.units[0] <= 8
 
-    assert CudaModel(6, (8,))._use_kernels()
-    uncovered = CudaModel(6, units)
+    assert CudaModel(6, (8,), device="cpu")._use_kernels()
+    uncovered = CudaModel(6, units, device="cpu")
     with pytest.raises(ValueError, match="support one GRU layer"):
         uncovered.log_prob(torch.zeros(3, 6, dtype=torch.int32))
     with pytest.raises(ValueError, match="support one GRU layer"):
         uncovered.sample_with_log_prob(3, torch.Generator().manual_seed(0))
-    assert not CudaModel(6, units, impl="plain")._use_kernels()
+    assert not CudaModel(6, units, impl="plain", device="cpu")._use_kernels()
 
 
 @pytest.mark.parametrize(
@@ -131,14 +131,27 @@ def test_auto_on_cuda_raises_outside_coverage(units):
 )
 def test_unported_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        PRNN1D(6, **kwargs)
+        PRNN1D(6, **kwargs, device="cpu")
 
 
 def test_plain_positive_and_kernel_coverage():
-    model = PRNN1D(100, (50,))
+    model = PRNN1D(100, (50,), device="cpu")
     assert model.plain_positive and not model.is_complex
     assert model._kernelizable()
-    assert not PRNN1D(100, (50, 50))._kernelizable()
+    assert not PRNN1D(100, (50, 50), device="cpu")._kernelizable()
     # the shared-memory bound is the card's (tests/test_torch_cuda.py); on
     # the CPU the plain versions take any width of a single layer
-    assert PRNN1D(10, (200,))._kernelizable()
+    assert PRNN1D(10, (200,), device="cpu")._kernelizable()
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """No ``device`` means the card: without CUDA the constructor raises
+    (no CPU fallback); with CUDA the rule resolves to ``cuda``.  No CUDA
+    tensor is made."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PRNN1D(5, (8,))
+    assert PRNN1D(5, (8,), device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

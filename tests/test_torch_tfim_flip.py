@@ -28,7 +28,7 @@ def setup():
     params = jax.tree.map(
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params
     )
-    model = PRNN1D(N, (U,))
+    model = PRNN1D(N, (U,), device="cpu")
     interop.load_params(model, jax.tree.map(np.asarray, params))
     samples = rng.integers(0, 2, (B, N)).astype(np.int32)
     return jans, params, model, samples
@@ -114,13 +114,13 @@ def test_tfim_diagonal_and_connected_match_jax(setup):
 def test_select_family_dispatch():
     ham = TFIM1D(N, 1.0)
     # on the CPU "auto" never takes the kernels, so both consumers agree on None
-    cpu = PRNN1D(N, (U,))
+    cpu = PRNN1D(N, (U,), device="cpu")
     assert le._select_family(cpu, ham) is None
     assert le.make_fused_sample_energy_fn(cpu, ham) is None
-    assert le._select_family(PRNN1D(N, (U,), impl="plain"), ham) is None
+    assert le._select_family(PRNN1D(N, (U,), impl="plain", device="cpu"), ham) is None
     # "kernel" demands a CUDA device: no silent CPU fallback
     with pytest.raises(ValueError, match="CUDA"):
-        le._select_family(PRNN1D(N, (U,), impl="kernel"), ham)
+        le._select_family(PRNN1D(N, (U,), impl="kernel", device="cpu"), ham)
 
     class CudaModel(PRNN1D):
         device = torch.device("cuda", 0)
@@ -129,12 +129,12 @@ def test_select_family_dispatch():
             # stands in for the kernel library's shared-memory query
             return self._single_gru()
 
-    fake = CudaModel(N, (U,))
+    fake = CudaModel(N, (U,), device="cpu")
     assert le._select_family(fake, ham) == "plain_flip"
     # a zero transverse field has no flips, whatever the device
     assert le._select_family(fake, TFIM1D(N, 0.0)) is None
     # an uncovered stack on the card raises instead of running the plain path
     with pytest.raises(ValueError, match="impl='plain'"):
-        le._select_family(CudaModel(N, (U, U)), ham)
-    assert le._select_family(CudaModel(N, (U, U), impl="plain"), ham) is None
+        le._select_family(CudaModel(N, (U, U), device="cpu"), ham)
+    assert le._select_family(CudaModel(N, (U, U), impl="plain", device="cpu"), ham) is None
     assert le.make_local_energy_fn(fake, ham).needs_log_amp is False

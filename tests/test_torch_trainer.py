@@ -13,7 +13,9 @@ from rnnwavefunctions_tpu.hamiltonians.tfim1d import TFIM1D as JTFIM1D
 from rnnwavefunctions_tpu.models.prnn1d import PRNN1D as JPRNN1D
 from rnnwavefunctions_tpu.vmc import local_energy as jle
 from rnnwavefunctions_tpu.vmc.loss import surrogate_loss as jsurrogate_loss
-from rnnwavefunctions_tpu_torch import PRNN1D, TFIM1D, TrainConfig, VMCTrainer, interop
+from rnnwavefunctions_tpu_torch import (
+    CRNNU1, J1J2, PRNN1D, TFIM1D, TrainConfig, VMCTrainer, interop,
+)
 from rnnwavefunctions_tpu_torch.ed import exact
 from rnnwavefunctions_tpu_torch.vmc.loss import surrogate_loss
 
@@ -28,7 +30,7 @@ def _jax_side(seed=0):
 
 
 def _port_trainer(params, config=TrainConfig(num_samples=B)):
-    trainer = VMCTrainer(PRNN1D(N, (U,)), TFIM1D(N, 1.0), config)
+    trainer = VMCTrainer(PRNN1D(N, (U,), device="cpu"), TFIM1D(N, 1.0), config)
     state = trainer.init()
     interop.load_params(trainer.ansatz, jax.tree.map(np.asarray, params))
     return trainer, state
@@ -114,7 +116,7 @@ def test_three_steps_on_fed_samples_match_jax():
 def test_short_cpu_run_approaches_ed():
     n = 6
     e_exact = exact.ground_state_energy(exact.tfim1d_dense(n, 1.0))
-    trainer = VMCTrainer(PRNN1D(n, (16,)), TFIM1D(n, 1.0),
+    trainer = VMCTrainer(PRNN1D(n, (16,), device="cpu"), TFIM1D(n, 1.0),
                          TrainConfig(num_samples=200, learning_rate=1e-2))
     state = trainer.init()
     state, ms = trainer.run_steps(state, 120)
@@ -127,7 +129,7 @@ def test_short_cpu_run_approaches_ed():
 
 def test_steps_are_reproducible_from_the_seed():
     def run():
-        trainer = VMCTrainer(PRNN1D(5, (8,)), TFIM1D(5, 1.0),
+        trainer = VMCTrainer(PRNN1D(5, (8,), device="cpu"), TFIM1D(5, 1.0),
                              TrainConfig(num_samples=32, seed=7))
         state = trainer.init()
         return trainer.run_steps(state, 3)[1]["mean_energy"]
@@ -135,9 +137,38 @@ def test_steps_are_reproducible_from_the_seed():
     assert torch.equal(run(), run())
 
 
+def test_j1j2_cpu_run_approaches_ed():
+    """The complex path end to end on the CPU (plain sampler, generic
+    estimator, (Re, Im) loss): J1-J2 at N=6 with the Marshall sign, and a
+    vanishing imaginary energy."""
+    n = 6
+    e_exact = exact.ground_state_energy(exact.j1j2_dense(n, 1.0, 0.2, marshall_sign=True))
+    trainer = VMCTrainer(CRNNU1(n, (16,), device="cpu"), J1J2(n, j2=0.2, marshall_sign=True),
+                         TrainConfig(num_samples=200, learning_rate=1e-2))
+    state = trainer.init()
+    state, ms = trainer.run_steps(state, 150)
+    assert set(ms) == {"mean_energy", "var_energy", "mean_energy_im"}
+    assert ms["mean_energy_im"].shape == (150,)
+    e_vmc = float(ms["mean_energy"][-20:].mean())
+    assert abs(e_vmc - e_exact) / abs(e_exact) < 2e-2
+    assert abs(float(ms["mean_energy_im"][-20:].mean())) < 0.05
+
+
+def test_j1j2_steps_are_reproducible_from_the_seed():
+    def run():
+        trainer = VMCTrainer(CRNNU1(6, (8,), device="cpu"), J1J2(6, j2=0.2),
+                             TrainConfig(num_samples=32, seed=7))
+        state = trainer.init()
+        return trainer.run_steps(state, 3)[1]
+
+    a, b = run(), run()
+    assert torch.equal(a["mean_energy"], b["mean_energy"])
+    assert torch.equal(a["mean_energy_im"], b["mean_energy_im"])
+
+
 @pytest.mark.parametrize("schedule", ["inverse", "staged"])
 def test_config_rejects_what_is_not_ported(schedule):
     with pytest.raises(ValueError, match="not ported yet"):
-        VMCTrainer(PRNN1D(5, (8,)), TFIM1D(5, 1.0), TrainConfig(schedule=schedule))
+        VMCTrainer(PRNN1D(5, (8,), device="cpu"), TFIM1D(5, 1.0), TrainConfig(schedule=schedule))
     with pytest.raises(TypeError):
         TrainConfig(optimizer="minsr")
