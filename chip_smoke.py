@@ -30,11 +30,24 @@ Phases (each prints its time; any failure raises and exits non-zero):
    50 units, on J1J2(N=100, J2=0.2), open chain, S=500, Adam at lr 5e-3):
    steps/s and the first and last energies beside the DMRG energy, which
    must be finite and falling.
+10. The 2D MDRNN kernels B12-B16 against their plain versions at the
+   flagship shapes (16x16, U=50, B=500, perturbed weights) and on the
+   non-square 5x3 and 3x6 lattices: B12 log p, B14 per tensor, B15 ratio and
+   log p, B16 against B12 and B15 on its own samples, B13's draws equal to
+   B16's for the same (seed, offset) and a function of it, and the sampler's
+   frequencies at 2x2 over 20k draws against the exact density.
+11. The five MDRNN kernels and their plain versions timed with CUDA events,
+   and the lattice widths and unit counts the MDRNN kernels cover.
+12. VMC training of the 2D TFIM at 3x3, Bx=3 (MDRNN2D, U=50) against exact
+   diagonalization; every MDRNN kernel must have launched.
+13. 50 steps of the 2D flagship (MDRNN2D 16x16, U=50, on
+   TFIM2D(16, 16, Bx=3, grid), S=500, Adam at lr 5e-3): steps/s and the
+   first and last energies, which must be finite and falling.
 
 The second-last line is a JSON object with one entry per kernel: its
-launches on its main path (phase 5 for K1-K4, phase 9 for B7-B11), its
-largest error against its plain version, its time and its plain version's,
-and ``bound_ms``, the least time the card could take for the work on this
+launches on its main path (phase 5 for K1-K4, phase 9 for B7-B11, phase 13
+for B12-B16), its largest error against its plain version, its time and its
+plain version's, and ``bound_ms``, the least time the card could take for the work on this
 run's inputs.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,9 +79,24 @@ SOURCES = {
                                   "rnnwavefunctions_tpu/ops/j1j2_exchange_kernel.py:542"),
     "B11 j1j2_sample_and_exchange": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
                                      "rnnwavefunctions_tpu/ops/j1j2_exchange_kernel.py:626"),
+    "B12 mdrnn_log_prob": ("rnnwavefunctions_tpu_torch/csrc/fused_mdrnn.cu",
+                           "rnnwavefunctions_tpu/ops/fused_mdrnn.py:165"),
+    "B13 mdrnn_sample": ("rnnwavefunctions_tpu_torch/csrc/fused_mdrnn.cu",
+                         "rnnwavefunctions_tpu/ops/fused_mdrnn.py:186"),
+    "B14 mdrnn_log_prob_bwd": ("rnnwavefunctions_tpu_torch/csrc/fused_mdrnn_bwd.cu",
+                               "rnnwavefunctions_tpu/ops/fused_mdrnn_bwd.py:402"),
+    "B15 mdrnn_flip_ratio_sum": ("rnnwavefunctions_tpu_torch/csrc/mdrnn_flip.cu",
+                                 "rnnwavefunctions_tpu/ops/mdrnn_flip_kernel.py:556"),
+    "B16 mdrnn_sample_and_flip_sum": ("rnnwavefunctions_tpu_torch/csrc/mdrnn_flip.cu",
+                                      "rnnwavefunctions_tpu/ops/mdrnn_flip_kernel.py:594"),
 }
 J2_FLAG = 0.2
 E_DMRG_J1J2 = -40.73881897  # J1J2(N=100, J2=0.2), open chain (the JAX package's BASELINE.md)
+NX_FLAG = NY_FLAG = 16  # the 2D flagship: bench.py's mdrnn_16x16 row, Bx=3
+BX_2D = 3.0
+# phase 12: a CPU rehearsal of the plain path (same model, S=500, lr 5e-3, two
+# seeds) was within 1.0e-4 of ED after 100 steps and 3.3e-5 after 200
+MDRNN_VMC_STEPS, MDRNN_VMC_TOL = 200, 1e-3
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): float32
 # outside the tensor cores, and device memory.
@@ -89,6 +117,21 @@ def bwd_site_flops(u: int, heads: int) -> int:
     product for the recurrent cotangent and the outer product for the
     weight cotangent (three 3U x U products), and the elementwise chains."""
     return 18 * u * u + 60 * u + heads * (12 * u + 20)
+
+
+def mdrnn_site_flops(u: int) -> int:
+    """Operations of one MDRNN site step of one trajectory: the two U x U
+    products (two per multiply-add), about twelve per unit for the input
+    terms, activation and the U x 2 head, and the log-softmax."""
+    return 4 * u * u + 12 * u + 10
+
+
+def mdrnn_bwd_site_flops(u: int) -> int:
+    """Operations of one site of the MDRNN VJP: the forward replay, the two
+    transposed products for the cotangents along both links and the two
+    outer products for the weight cotangents (six U x U products), and the
+    elementwise chains."""
+    return 12 * u * u + 40 * u + 20
 
 
 def bound(flops: float, nbytes: float):
@@ -156,6 +199,20 @@ def perturbed_model(pkg, n, u, seed, device, cls="PRNN1D"):
     return model
 
 
+def perturbed_mdrnn(pkg, nx, ny, u, seed, device):
+    """An MDRNN2D with Glorot weights plus seeded noise on every tensor; the
+    two recurrent matrices are then halved, so that the 2D recurrence (whose
+    paths multiply along both links) keeps its states bounded at 16x16."""
+    gen = torch.Generator().manual_seed(seed)
+    model = pkg.MDRNN2D(nx, ny, u, impl="kernel", device=device).init(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen).to(device))
+        model.cell.wh.mul_(0.5)
+        model.cell.wv.mul_(0.5)
+    return model
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -163,7 +220,9 @@ def main() -> None:
     from rnnwavefunctions_tpu_torch.ed import exact
     from rnnwavefunctions_tpu_torch.ops import build, fused_crnn, fused_crnn_bwd
     from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd
+    from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
     from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
+    from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
     from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
     dev = torch.device("cuda", 0)
@@ -176,8 +235,15 @@ def main() -> None:
         "B9 crnn_log_amp_bwd": fused_crnn_bwd.crnn_log_amp_bwd,
         "B10 j1j2_exchange_offdiag": jk.j1j2_exchange_offdiag,
         "B11 j1j2_sample_and_exchange": jk.j1j2_sample_and_exchange,
+        "B12 mdrnn_log_prob": fused_mdrnn.mdrnn_log_prob,
+        "B13 mdrnn_sample": fused_mdrnn.mdrnn_sample,
+        "B14 mdrnn_log_prob_bwd": fused_mdrnn_bwd.mdrnn_log_prob_bwd,
+        "B15 mdrnn_flip_ratio_sum": mk.mdrnn_flip_ratio_sum,
+        "B16 mdrnn_sample_and_flip_sum": mk.mdrnn_sample_and_flip_sum,
     }
     record = {k: {} for k in wrappers}
+    crnn_names = [k for k in wrappers if k.split()[0] in ("B7", "B9", "B10", "B11")]
+    mdrnn_names = [k for k in wrappers if "mdrnn" in k]
 
     with Phase("1 card and build"):
         smi = subprocess.run(
@@ -497,7 +563,7 @@ def main() -> None:
         torch.cuda.synchronize()
         c = counts()
         print("launches:", c)
-        require(all(c[k] > 0 for k in c if k.startswith("B")), "every J1-J2 kernel launched")
+        require(all(c[k] > 0 for k in crnn_names), "every J1-J2 kernel launched")
         e_vmc = float(ms["mean_energy"][-50:].mean())
         e_im = float(ms["mean_energy_im"][-50:].mean())
         rel_err = abs(e_vmc - e_exact) / abs(e_exact)
@@ -528,9 +594,197 @@ def main() -> None:
         print("launches:", c)
         require(bool(np.isfinite(energies).all()), "finite J1-J2 flagship energies")
         require(energies[-5:].mean() < energies[:5].mean(), "J1-J2 flagship energies falling")
-        require(all(c[k] > 0 for k in c if k.startswith("B")),
+        require(all(c[k] > 0 for k in crnn_names),
                 "every J1-J2 kernel launched in the flagship run")
-        launches.update({k: v for k, v in c.items() if k.startswith("B")})
+        launches.update({k: c[k] for k in crnn_names})
+
+    # ---- the 2D flagship inputs: 16x16, U=50, B=500, perturbed weights
+    ns = NX_FLAG * NY_FLAG
+    mdrnn = perturbed_mdrnn(pkg, NX_FLAG, NY_FLAG, U_FLAG, 2468, dev)
+    wm = tuple(t.detach() for t in mdrnn.weights())
+    lattices = (torch.rand(S_FLAG, NX_FLAG, NY_FLAG, generator=gen) < 0.5).to(torch.int32).to(dev)
+    lp2d_tol = 1e-5 * ns  # 1e-5 per site, as K1
+
+    def check_mdrnn(w, s, label, worst):
+        """B12, B14, B15 and B13/B16 against their plain versions on
+        lattices ``s``; folds each kernel's largest error into ``worst``."""
+        b, nx, ny = s.shape
+        tol = 1e-5 * nx * ny
+        lk, lp = fused_mdrnn.mdrnn_log_prob(w, s), fused_mdrnn.log_prob_plain(w, s)
+        torch.cuda.synchronize()
+        e = max_err(lk, lp)
+        print(f"B12 ({label}): log p max abs err {e:.3e} (tol {tol:.1e})")
+        require(e <= tol, f"B12 log p ({label})")
+        worst["B12 mdrnn_log_prob"] = max(worst["B12 mdrnn_log_prob"], e)
+
+        gm = torch.randn(b, generator=gen).to(dev)
+        gk = fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, gm)
+        gp = fused_mdrnn.log_prob_bwd_plain(w, s, gm)
+        torch.cuda.synchronize()
+        for name, a, c in zip(("uh", "uv", "wh", "wv", "b", "head_w", "head_b"), gk, gp):
+            r = rel(a, c)
+            print(f"B14 d{name} ({label}): max abs err {max_err(a, c):.3e}, relative {r:.3e} "
+                  f"(tol {rel_tol:.0e})")
+            require(r <= rel_tol, f"B14 d{name} ({label})")
+            worst["B14 mdrnn_log_prob_bwd"] = max(worst["B14 mdrnn_log_prob_bwd"], max_err(a, c))
+
+        rk, l15 = mk.mdrnn_flip_ratio_sum(w, s)
+        rp, l15p = mk.flip_ratio_sum_plain(w, s)
+        torch.cuda.synchronize()
+        er, el = rel(rk, rp), max_err(l15, l15p)
+        print(f"B15 ({label}): ratio relative err {er:.3e} (tol {rel_tol:.0e}); log p max abs "
+              f"err {el:.3e} (tol {tol:.1e})")
+        require(er <= rel_tol and el <= tol, f"B15 ({label})")
+        worst["B15 mdrnn_flip_ratio_sum"] = max(worst["B15 mdrnn_flip_ratio_sum"],
+                                                max_err(rk, rp), el)
+
+        s16, lp16, r16 = mk.mdrnn_sample_and_flip_sum(w, b, nx, ny, 7, 1)
+        s13, lp13 = fused_mdrnn.mdrnn_sample(w, b, nx, ny, 7, 1)
+        torch.cuda.synchronize()
+        require(tuple(s16.shape) == (b, nx, ny), "B16 sample shape")
+        require(bool(((s16 == 0) | (s16 == 1)).all()), "B16 spins in {0, 1}")
+        require(bool((s13 == s16).all()), "B13 draws the same lattices as B16 for one key")
+        again, _, _ = mk.mdrnn_sample_and_flip_sum(w, b, nx, ny, 7, 1)
+        other, _ = fused_mdrnn.mdrnn_sample(w, b, nx, ny, 7, 2)
+        require(bool((again == s16).all()), "B16 draws are a function of (seed, offset)")
+        require(not bool((other == s13).all()), "B13 draws change with the offset")
+        l12 = fused_mdrnn.mdrnn_log_prob(w, s16)
+        r15, _ = mk.mdrnn_flip_ratio_sum(w, s16)
+        lp_p = fused_mdrnn.log_prob_plain(w, s16)
+        r_p, _ = mk.flip_ratio_sum_plain(w, s16)
+        torch.cuda.synchronize()
+        e12, e15, ep = max_err(lp16, l12), rel(r16, r15), rel(r16, r_p)
+        e13, epl = max_err(lp13, lp_p), max_err(lp16, lp_p)
+        print(f"B16 ({label}): log p vs B12 on its samples {e12:.3e}, vs plain {epl:.3e} (tol "
+              f"{tol:.1e}); ratio vs B15 relative {e15:.3e}, vs plain B15 {ep:.3e} (tol "
+              f"{rel_tol:.0e}); B13 log p vs plain {e13:.3e}")
+        require(e12 <= tol and epl <= tol and e15 <= rel_tol and ep <= rel_tol and e13 <= tol,
+                f"B13/B16 ({label})")
+        worst["B16 mdrnn_sample_and_flip_sum"] = max(
+            worst["B16 mdrnn_sample_and_flip_sum"], epl, max_err(r16, r_p))
+        worst["B13 mdrnn_sample"] = max(worst["B13 mdrnn_sample"], e13)
+
+    with Phase("10 MDRNN kernels against their plain versions (16x16, U=50, B=500)"):
+        worst = {k: 0.0 for k in mdrnn_names}
+        check_mdrnn(wm, lattices, "16x16", worst)
+        for nx, ny in ((5, 3), (3, 6)):
+            small = perturbed_mdrnn(pkg, nx, ny, U_FLAG, 11 * nx + ny, dev)
+            ws = tuple(t.detach() for t in small.weights())
+            s_small = (torch.rand(37, nx, ny, generator=gen) < 0.5).to(torch.int32).to(dev)
+            check_mdrnn(ws, s_small, f"{nx}x{ny}, B=37", worst)
+        for k, v in worst.items():
+            record[k]["max_abs_err"] = v
+
+        draws = 20000
+        tiny = perturbed_mdrnn(pkg, 2, 2, U_FLAG, 12, dev)
+        wt = tuple(t.detach() for t in tiny.weights())
+        s_tiny, _ = fused_mdrnn.mdrnn_sample(wt, draws, 2, 2, 11, 0)
+        codes = (s_tiny.transpose(1, 2).reshape(draws, 4).cpu().numpy() @ (2 ** np.arange(4)))
+        freq = np.bincount(codes.astype(int), minlength=16) / draws
+        flat = torch.tensor([[(c >> i) & 1 for i in range(4)] for c in range(16)], dtype=torch.int32)
+        basis = flat.reshape(16, 2, 2).transpose(1, 2).contiguous().to(dev)  # bit y*2 + x
+        probs = torch.exp(fused_mdrnn.log_prob_plain(wt, basis)).cpu().numpy()
+        e = float(np.abs(freq - probs).max())
+        print(f"B13 sampler at 2x2, {draws} draws: max |freq - p| {e:.4f} (tol 0.02), "
+              f"sum p = {probs.sum():.6f}")
+        require(e <= 0.02, "B13 sampler distribution")
+
+    with Phase("11 MDRNN kernel times at the flagship shapes (CUDA events)"):
+        s16, *_ = mk.mdrnn_sample_and_flip_sum(wm, S_FLAG, NX_FLAG, NY_FLAG, 3, 4)
+        uni2 = torch.rand(S_FLAG, ns, generator=gen).to(dev)
+        g2 = torch.randn(S_FLAG, generator=gen).to(dev)
+        pairs = {
+            "B12 mdrnn_log_prob": (lambda: fused_mdrnn.mdrnn_log_prob(wm, s16),
+                                   lambda: fused_mdrnn.log_prob_plain(wm, s16)),
+            "B13 mdrnn_sample": (
+                lambda: fused_mdrnn.mdrnn_sample(wm, S_FLAG, NX_FLAG, NY_FLAG, 3, 4),
+                lambda: fused_mdrnn.sample_plain(wm, uni2, NX_FLAG, NY_FLAG)),
+            "B14 mdrnn_log_prob_bwd": (
+                lambda: fused_mdrnn_bwd.mdrnn_log_prob_bwd(wm, s16, g2),
+                lambda: fused_mdrnn.log_prob_bwd_plain(wm, s16, g2)),
+            "B15 mdrnn_flip_ratio_sum": (lambda: mk.mdrnn_flip_ratio_sum(wm, s16),
+                                         lambda: mk.flip_ratio_sum_plain(wm, s16)),
+            "B16 mdrnn_sample_and_flip_sum": (
+                lambda: mk.mdrnn_sample_and_flip_sum(wm, S_FLAG, NX_FLAG, NY_FLAG, 3, 4),
+                lambda: mk.sample_and_flip_sum_plain(wm, uni2, NX_FLAG, NY_FLAG)),
+        }
+        for name, (kern, plain) in pairs.items():
+            record[name]["ms"] = cuda_ms(kern, reps=10)
+            record[name]["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
+                  f"plain {record[name]['plain_ms']:.4f} ms")
+        b_, m_, u_ = S_FLAG, ns, U_FLAG
+        wb = 4 * sum(t.numel() for t in wm)
+        steps_sweep = b_ * m_
+        steps_flip = steps_sweep + b_ * m_ * (m_ + 1) // 2
+        work2d = {
+            "B12 mdrnn_log_prob": (steps_sweep * mdrnn_site_flops(u_), 4 * b_ * m_ + wb + 4 * b_),
+            "B13 mdrnn_sample": (steps_sweep * mdrnn_site_flops(u_), wb + 4 * b_ * m_ + 4 * b_),
+            "B14 mdrnn_log_prob_bwd": (steps_sweep * mdrnn_bwd_site_flops(u_),
+                                       4 * b_ * m_ + 4 * b_ + 2 * wb),
+            "B15 mdrnn_flip_ratio_sum": (steps_flip * mdrnn_site_flops(u_),
+                                         4 * b_ * m_ + wb + 8 * b_),
+            "B16 mdrnn_sample_and_flip_sum": (steps_flip * mdrnn_site_flops(u_),
+                                              wb + 4 * b_ * m_ + 8 * b_),
+        }
+        print(f"MDRNN flip site steps at the flagship: {steps_flip}")
+        widest = max(n for n in range(1, 513) if fused_mdrnn.supports(n, 16, U_FLAG, dev))
+        largest = {n: max(u for u in range(1, 257) if fused_mdrnn.supports(n, n, u, dev))
+                   for n in (1, 16, 32, 48)}
+        print(f"MDRNN kernels cover Nx <= {widest} at U={U_FLAG}; the largest U at "
+              f"Nx = Ny = 1, 16, 32, 48: {largest}")
+        require(fused_mdrnn.supports(NX_FLAG, NY_FLAG, U_FLAG, dev), "the flagship is covered")
+        for name, (flops, nbytes) in work2d.items():
+            record[name]["bound_ms"], record[name]["bound_by"] = bound(flops, nbytes)
+            print(f"{name}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
+                  f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}), "
+                  f"kernel {record[name]['ms']:.4f} ms")
+
+    with Phase("12 2D TFIM VMC at 3x3, Bx=3 against exact diagonalization"):
+        e_exact = exact.ground_state_energy(exact.tfim2d_dense(3, 3, BX_2D))
+        trainer = pkg.VMCTrainer(pkg.MDRNN2D(3, 3, U_FLAG, device=dev),
+                                 pkg.TFIM2D(3, 3, BX_2D, encoding="grid"),
+                                 pkg.TrainConfig(num_samples=S_FLAG))
+        state = trainer.init()
+        reset_counts()
+        state, ms = trainer.run_steps(state, MDRNN_VMC_STEPS)
+        trainer.local_energy(trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(0)))
+        torch.cuda.synchronize()
+        c = counts()
+        print("launches:", c)
+        require(all(c[k] > 0 for k in mdrnn_names), "every MDRNN kernel launched")
+        e_vmc = float(ms["mean_energy"][-50:].mean())
+        rel_err = abs(e_vmc - e_exact) / abs(e_exact)
+        print(f"3x3: E_vmc (mean of the last 50 steps) {e_vmc:.6f}, E_exact {e_exact:.6f}, "
+              f"relative error {rel_err:.3e} (tol {MDRNN_VMC_TOL:.0e})")
+        require(rel_err <= MDRNN_VMC_TOL, "3x3 relative error against ED")
+
+    with Phase("13 2D flagship: MDRNN2D 16x16, U=50, on TFIM2D(16, 16, Bx=3), S=500, "
+               "Adam lr 5e-3"):
+        trainer = pkg.VMCTrainer(pkg.MDRNN2D(NX_FLAG, NY_FLAG, U_FLAG, device=dev),
+                                 pkg.TFIM2D(NX_FLAG, NY_FLAG, BX_2D, encoding="grid"),
+                                 pkg.TrainConfig(num_samples=S_FLAG, learning_rate=5e-3))
+        state = trainer.init()
+        trainer.run_steps(state, 3)  # warm-up (allocator)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, ms = trainer.run_steps(state, 50)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        trainer.local_energy(trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(1)))
+        torch.cuda.synchronize()
+        c = counts()
+        energies = ms["mean_energy"].cpu().numpy()
+        print(f"{smi}: {50 / dt:.2f} steps/s ({1000 * dt / 50:.3f} ms/step)")
+        print(f"energy: first {energies[0]:.4f}, last {energies[-1]:.4f} "
+              f"(per site {energies[-1] / ns:.4f})")
+        print("launches:", c)
+        require(bool(np.isfinite(energies).all()), "finite 2D flagship energies")
+        require(energies[-5:].mean() < energies[:5].mean(), "2D flagship energies falling")
+        require(all(c[k] > 0 for k in mdrnn_names),
+                "every MDRNN kernel launched in the 2D flagship run")
+        launches.update({k: c[k] for k in mdrnn_names})
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

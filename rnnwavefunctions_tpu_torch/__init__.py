@@ -10,7 +10,9 @@ import torch
 
 from .hamiltonians.j1j2 import J1J2
 from .hamiltonians.tfim1d import TFIM1D
+from .hamiltonians.tfim2d import TFIM2D
 from .models.crnn_u1 import CRNNU1
+from .models.mdrnn2d import MDRNN2D
 from .models.prnn1d import PRNN1D
 from .vmc.trainer import TrainConfig, TrainState, VMCTrainer
 
@@ -22,4 +24,7 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["CRNNU1", "J1J2", "PRNN1D", "TFIM1D", "TrainConfig", "TrainState", "VMCTrainer"]
+__all__ = [
+    "CRNNU1", "J1J2", "MDRNN2D", "PRNN1D", "TFIM1D", "TFIM2D", "TrainConfig", "TrainState",
+    "VMCTrainer",
+]

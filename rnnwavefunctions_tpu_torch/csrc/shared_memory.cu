@@ -1,25 +1,35 @@
-// Which widths the kernels take on a device.  Every kernel keeps a block's
-// copy of the weights and its per-warp buffers in shared memory, so a width
+// Which shapes the kernels take on a device.  Every kernel keeps a block's
+// copy of the weights and its per-warp buffers in shared memory, so a shape
 // is covered when each kernel of a family has its dynamic shared memory
 // within the device's opt-in limit per block (232,448 bytes on an H100).
 #include <algorithm>
 
 #include "crnn_common.cuh"
+#include "mdrnn_common.cuh"
 
 // Writes 1 to *fits when every kernel of `family` (0: the GRU kernels K1-K4,
-// 1: the cRNN kernels B7, B9, B10/B11) fits at width u on `device`, else 0.
+// 1: the cRNN kernels B7, B9, B10/B11, 2: the MDRNN kernels B12-B16) fits at
+// width u on `device`, else 0.  `nx` is the lattice width of the MDRNN
+// family (its kernels keep rows of Nx states); the chain families ignore it.
 // Returns the CUDA error of the device query.
-extern "C" int rnnwf_fits_shared_memory(int family, int u, int device, int* fits) {
+extern "C" int rnnwf_fits_shared_memory(int family, int nx, int u, int device, int* fits) {
   using namespace rnnwf;
   int limit = 0;
   const cudaError_t err =
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t need =
-      family == 0 ? std::max({k1_smem_bytes(u), k2_smem_bytes(u), flip_base_smem_bytes(u),
-                              flip_suffix_smem_bytes(u)})
-                  : std::max({b7_smem_bytes(u), b9_smem_bytes(u), exchange_base_smem_bytes(u),
-                              exchange_suffix_smem_bytes(u)});
+  size_t need = 0;
+  if (family == 0) {
+    need = std::max({k1_smem_bytes(u), k2_smem_bytes(u), flip_base_smem_bytes(u),
+                     flip_suffix_smem_bytes(u)});
+  } else if (family == 1) {
+    need = std::max({b7_smem_bytes(u), b9_smem_bytes(u), exchange_base_smem_bytes(u),
+                     exchange_suffix_smem_bytes(u)});
+  } else {
+    // the suffix pass takes fewer warps per block where four do not fit
+    need = std::max({mdrnn_sweep_smem_bytes(nx, u), mdrnn_bwd_smem_bytes(nx, u),
+                     mdrnn_suffix_smem_bytes(nx, u, 1)});
+  }
   *fits = need <= static_cast<size_t>(limit) ? 1 : 0;
   return 0;
 }

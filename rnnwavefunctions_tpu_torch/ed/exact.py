@@ -1,7 +1,8 @@
-"""Exact-diagonalization oracle for the 1D TFIM and the J1-J2 chain (NumPy
-only).
+"""Exact-diagonalization oracle for the 1D and 2D TFIM and the J1-J2 chain
+(NumPy only).
 
-A copy of ``tfim1d_dense``, ``j1j2_dense`` and ``ground_state_energy`` from
+A copy of ``tfim1d_dense``, ``tfim2d_dense``, ``j1j2_dense`` and
+``ground_state_energy`` from
 ``rnnwavefunctions_tpu/ed/exact.py``, so that code without JAX (the
 PyTorch package and ``chip_smoke.py``) has an ED oracle.
 
@@ -33,6 +34,29 @@ def tfim1d_dense(n: int, bx: float, jz: Optional[np.ndarray] = None) -> np.ndarr
         for i in range(n):
             h[s ^ (1 << i), s] += -bx
     return h
+
+
+def tfim2d_dense(nx: int, ny: int, bx: float, jz: float = 1.0) -> np.ndarray:
+    """Dense H for the 2D TFIM on an nx x ny OBC lattice (site index
+    y-major: idx = y*nx + x, matching the snake/2DRNN sample layouts)."""
+    n = nx * ny
+    dim = 1 << n
+    h = np.zeros((dim, dim))
+    for s in range(dim):
+        b = _bits(s, n).reshape(ny, nx)  # [y, x]
+        z = 2 * b - 1
+        diag = -jz * (np.sum(z[:, :-1] * z[:, 1:]) + np.sum(z[:-1, :] * z[1:, :]))
+        h[s, s] = diag
+        for i in range(n):
+            h[s ^ (1 << i), s] += -bx
+    return h
+
+
+# Ground-state energy of the 4x4 open-boundary TFIM at Bx=3, Jz=1 (the
+# reference's default 2D configuration), from the JAX package's native
+# Lanczos oracle (BENCHMARKS.md, "2D TFIM at the reference's default 4x4,
+# Bx=3"): 2^16 states are too many for dense ED.
+E_TFIM2D_4X4_BX3 = -50.1866238828
 
 
 def j1j2_dense(n: int, j1: float = 1.0, j2: float = 0.0, bz: float = 0.0,

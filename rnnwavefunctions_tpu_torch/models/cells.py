@@ -1,8 +1,9 @@
 """Recurrent cells and the dense head as ``nn.Module``s.
 
-Counterpart of ``rnnwavefunctions_tpu/models/cells.py`` (GRU only for now).
-The stored tensors keep the JAX package's layout, contraction dimension
-first: ``wx (in, 3U)``, ``wh (U, 3U)``, gates packed ``[r | z | c]``, head
+Counterpart of ``rnnwavefunctions_tpu/models/cells.py`` (the GRU and the 2D
+MDRNN cell for now).  The stored tensors keep the JAX package's layout,
+contraction dimension first: ``wx (in, 3U)``, ``wh (U, 3U)``, gates packed
+``[r | z | c]``; the MDRNN's ``uh, uv (in, U)``, ``wh, wv (U, U)``; head
 ``w (U, out)``, so parameters pass between the two packages unchanged
 (``interop.py``).
 """
@@ -60,6 +61,36 @@ class GRUCell(nn.Module):
         z = torch.sigmoid(gx[..., u : 2 * u] + gh[..., u : 2 * u])
         c = torch.tanh(gx[..., 2 * u :] + r * gh[..., 2 * u :])
         return z * h + (1.0 - z) * c
+
+
+class MDRNNCell(nn.Module):
+    """The 2D cell (two-neighbour vanilla RNN) of the MDRNN:
+
+        h = elu(x_h Uh + x_v Uv + h_h Wh + h_v Wv + b)
+
+    with the one-hot spins ``x_h``/``x_v`` and cell outputs ``h_h``/``h_v``
+    of the horizontal and vertical neighbours (output == state)."""
+
+    def __init__(self, input_dim: int, units: int):
+        super().__init__()
+        self.units = units
+        self.uh = nn.Parameter(torch.zeros(input_dim, units))  # horizontal input
+        self.uv = nn.Parameter(torch.zeros(input_dim, units))  # vertical input
+        self.wh = nn.Parameter(torch.zeros(units, units))      # horizontal state
+        self.wv = nn.Parameter(torch.zeros(units, units))      # vertical state
+        self.b = nn.Parameter(torch.zeros(units))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Glorot on the four matrices, zero bias (``mdrnn_init``)."""
+        for w in (self.uh, self.uv, self.wh, self.wv):
+            glorot_(w, generator)
+        self.b.zero_()
+
+    def forward(self, xh: torch.Tensor, xv: torch.Tensor, hh: torch.Tensor,
+                hv: torch.Tensor) -> torch.Tensor:
+        pre = xh @ self.uh + xv @ self.uv + hh @ self.wh + hv @ self.wv + self.b
+        return nn.functional.elu(pre)
 
 
 class Dense(nn.Module):

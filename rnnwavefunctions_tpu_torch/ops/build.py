@@ -49,7 +49,13 @@ SIGNATURES = {
     "rnnwf_j1j2_num_bonds": ([_I, _I, _I], _I),
     "rnnwf_j1j2_exchange_offdiag": _EXCHANGE,
     "rnnwf_j1j2_sample_and_exchange": _EXCHANGE,
-    "rnnwf_fits_shared_memory": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+    "rnnwf_mdrnn_log_prob": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_sample": ([_U, _U] + [_P] * 9 + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_log_prob_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
+    "rnnwf_mdrnn_flip_ratio_sum": ([_P] * 13 + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_sample_and_flip_sum": ([_U, _U] + [_P] * 13 + [_I] * 4 + [_P], _I),
+    "rnnwf_fits_shared_memory": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
 }
 
 

@@ -27,15 +27,17 @@ from .compsum import kadd, kfinal
 Weights = Tuple[torch.Tensor, ...]
 
 # kernel families whose shared memory ``rnnwf_fits_shared_memory`` checks
-GRU_FAMILY, CRNN_FAMILY = 0, 1
+GRU_FAMILY, CRNN_FAMILY, MDRNN_FAMILY = 0, 1, 2
 
 
-def fits_shared_memory(family: int, n_sites: int, units: Sequence[int], device) -> bool:
+def fits_shared_memory(family: int, n_sites: int, units: Sequence[int], device,
+                       nx: int = 0) -> bool:
     """True when the kernels of ``family`` take this shape on ``device``:
     one layer and, on a CUDA device, every kernel's shared memory within
     the device's opt-in limit per block (asked of the kernel library, whose
-    launches use the same sizes).  On the CPU only the plain versions run,
-    and they take any width."""
+    launches use the same sizes; ``nx`` is the MDRNN family's lattice
+    width).  On the CPU only the plain versions run, and they take any
+    width."""
     units = tuple(units)
     if len(units) != 1 or n_sites < 1:
         return False
@@ -45,7 +47,7 @@ def fits_shared_memory(family: int, n_sites: int, units: Sequence[int], device) 
     fits = ctypes.c_int(0)
     index = torch.cuda.current_device() if device.index is None else device.index
     check(load_library().lib.rnnwf_fits_shared_memory(
-        family, units[0], index, ctypes.byref(fits)), "rnnwf_fits_shared_memory")
+        family, nx, units[0], index, ctypes.byref(fits)), "rnnwf_fits_shared_memory")
     return bool(fits.value)
 
 

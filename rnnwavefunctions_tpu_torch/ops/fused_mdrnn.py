@@ -1,0 +1,269 @@
+"""B12 and B13: the 2D MDRNN's boustrophedon sweep, teacher-forced (joint
+log p) and sampling, and the ``autograd.Function`` whose forward is B12 and
+whose backward is B14.
+
+Counterpart of ``rnnwavefunctions_tpu/ops/fused_mdrnn.py`` (``mdrnn_log_prob``,
+``mdrnn_sample``, ``make_mdrnn_log_prob_fn``).  The CUDA kernels are
+``csrc/fused_mdrnn.cu``; the plain PyTorch versions below are the same site
+loop in visit order written with tensor ops.
+
+Visit order: left to right on even rows, right to left on odd rows
+(``visit_order``).  Each site consumes the spin and cell output of its
+horizontal predecessor in visit order and of its neighbour one row up; at
+the lattice boundary that neighbour is a zero vector input and a zero
+state.  The site step keeps the kernels' conventions (``fused_mdrnn.py:48-66``
+of the JAX package): input terms ``sh * ((1 - x_h) uh[0] + x_h uh[1])`` with
+boundary flags ``sh``/``sv``, and the activation ``exp(min(pre, 0)) - 1``
+for ``pre <= 0`` (the jnp path's ``elu`` uses expm1; the two agree to f32
+rounding).  Site log-probs are Kahan-summed in visit order.
+
+A kernel's weights travel as a 7-tuple in the JAX package's layout:
+``(uh (2, U), uv (2, U), wh (U, U), wv (U, U), b (U,), head_w (U, 2),
+head_b (2,))``.  Samples are (B, Nx, Ny) int32 spins indexed [b, x, y].
+Every wrapper runs the plain version for CPU tensors and launches the
+kernel for CUDA tensors; on any other input it raises.  Each wrapper counts
+its kernel launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .build import check, load_library
+from .compsum import kadd, kfinal
+from .fused_gru import MDRNN_FAMILY, Weights, fits_shared_memory, is_cpu_call, logp2, stream_of
+from .tfim_flip_kernel import plain_uniforms
+
+
+def supports(nx: int, ny: int, u: int, device) -> bool:
+    """True when the MDRNN kernels B12-B16 take an Nx x Ny lattice at width
+    U on ``device`` (asked of the kernel library on a CUDA device)."""
+    return ny >= 1 and fits_shared_memory(MDRNN_FAMILY, nx * ny, (u,), device, nx=nx)
+
+
+def visit_order(nx: int, ny: int):
+    """Boustrophedon (visit-order) lattice coordinates: arrays (NS,) of x, y."""
+    yy = np.repeat(np.arange(ny), nx)
+    kk = np.tile(np.arange(nx), ny)
+    xx = np.where(yy % 2 == 0, kk, nx - 1 - kk)
+    return xx, yy
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _input_term(w_in: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The one-hot row of ``w_in`` (2, U) picked by the spins ``x`` (B,)."""
+    x = x[:, None]
+    return (1.0 - x) * w_in[0] + x * w_in[1]
+
+
+def site_step(weights: Weights, hh, xh, sh: float, hv, xv, sv: float):
+    """One MDRNN cell + head step on (B, U) neighbour states and (B,)
+    neighbour spins; ``sh``/``sv`` are 0 where the neighbour lies outside
+    the lattice.  Returns (h_new, logit_0, logit_1)."""
+    uh, uv, wh, wv, b, hw, hb = weights
+    pre = sh * _input_term(uh, xh) + sv * _input_term(uv, xv) + hh @ wh + hv @ wv + b
+    h = torch.where(pre > 0, pre, torch.exp(torch.clamp(pre, max=0.0)) - 1.0)
+    logits = h @ hw + hb
+    return h, logits[:, 0], logits[:, 1]
+
+
+def sweep_plain(weights: Weights, nx: int, ny: int, samples: Optional[torch.Tensor] = None,
+                uniforms: Optional[torch.Tensor] = None, history: bool = True):
+    """Teacher-forced (``samples`` (B, Nx, Ny) given) or sampling
+    (``uniforms`` (B, NS) in visit order given: s = 1 iff u >= p0) sweep.
+    Returns, in visit order, (spins (B, NS) float, lp (B,), the cell-output
+    history (B, NS, U), the corrected running prefix pfx (B, NS)); the last
+    two are None without ``history``."""
+    src = samples if samples is not None else uniforms
+    b, dev = src.shape[0], src.device
+    u = weights[2].shape[0]
+    xx, yy = visit_order(nx, ny)
+    if samples is not None:
+        idx = [torch.from_numpy(a).to(dev) for a in (xx, yy)]
+        spins_v = samples[:, idx[0], idx[1]].to(torch.float32)
+    zeros = torch.zeros(b, u, dtype=torch.float32, device=dev)
+    zb = torch.zeros(b, dtype=torch.float32, device=dev)
+    row, srow = [zeros] * nx, [zb] * nx  # the last state and spin of each column
+    h, x, acc, cmp = zeros, zb, zb, zb
+    spins, hist, pfx = [], [], []
+    for m in range(nx * ny):
+        y, k, col = m // nx, m % nx, int(xx[m])
+        hh, xh, sh = (h, x, 1.0) if k > 0 else (zeros, zb, 0.0)
+        hv, xv, sv = (row[col], srow[col], 1.0) if y > 0 else (zeros, zb, 0.0)
+        h, l0, l1 = site_step(weights, hh, xh, sh, hv, xv, sv)
+        if samples is not None:
+            s = spins_v[:, m]
+        else:
+            s = (uniforms[:, m] >= torch.sigmoid(l0 - l1)).to(torch.float32)
+        acc, cmp = kadd(acc, cmp, logp2(l0, l1, s))
+        row[col], srow[col], x = h, s, s
+        spins.append(s)
+        if history:
+            hist.append(h)
+            pfx.append(kfinal(acc, cmp))
+    stack = lambda xs: torch.stack(xs, dim=1) if xs else None  # noqa: E731
+    return stack(spins), kfinal(acc, cmp), stack(hist), stack(pfx)
+
+
+def to_lattice(spins: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+    """(B, NS) visit-order spins -> (B, Nx, Ny) int32 samples."""
+    xx, yy = (torch.from_numpy(a).to(spins.device) for a in visit_order(nx, ny))
+    out = torch.zeros(spins.shape[0], nx, ny, dtype=torch.int32, device=spins.device)
+    out[:, xx, yy] = spins.to(torch.int32)
+    return out
+
+
+def log_prob_plain(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """(B, Nx, Ny) int samples -> (B,) joint log p."""
+    _, nx, ny = samples.shape
+    return sweep_plain(weights, nx, ny, samples=samples, history=False)[1]
+
+
+@torch.no_grad()
+def sample_plain(weights: Weights, uniforms: torch.Tensor, nx: int, ny: int):
+    """Draws with the (B, NS) visit-order ``uniforms``; returns (samples
+    (B, Nx, Ny) int32, log p (B,))."""
+    spins, lp, _, _ = sweep_plain(weights, nx, ny, uniforms=uniforms, history=False)
+    return to_lattice(spins, nx, ny), lp
+
+
+def log_prob_bwd_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
+    """VJP of ``log_prob_plain`` for cotangent ``g`` (B,): autograd through
+    the plain loop.  Returns the seven weight gradients."""
+    with torch.enable_grad():
+        ws = [w.detach().requires_grad_(True) for w in weights]
+        lp = log_prob_plain(ws, samples)
+        return torch.autograd.grad(lp, ws, grad_outputs=g)
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the wrappers
+# ---------------------------------------------------------------------------
+
+def check_weights(weights: Weights) -> int:
+    """Checks the MDRNN kernels' 7-tuple of weights; returns U."""
+    if len(weights) != 7:
+        raise ValueError(f"expected 7 weight tensors, got {len(weights)}")
+    u = weights[2].shape[0]
+    shapes = [(2, u), (2, u), (u, u), (u, u), (u,), (u, 2), (2,)]
+    for w, shape in zip(weights, shapes):
+        if w.dtype != torch.float32 or tuple(w.shape) != shape:
+            raise ValueError(
+                f"weight of shape {tuple(w.shape)} and dtype {w.dtype}; the "
+                f"kernels take float32 {shape}"
+            )
+        if not w.is_contiguous():
+            raise ValueError("weights must be contiguous")
+    return u
+
+
+def check_samples(samples: torch.Tensor) -> Tuple[int, int, int]:
+    if samples.dtype != torch.int32 or samples.dim() != 3:
+        raise ValueError(
+            f"samples must be a (B, Nx, Ny) int32 tensor; got {tuple(samples.shape)} "
+            f"{samples.dtype}"
+        )
+    if not samples.is_contiguous():
+        raise ValueError("samples must be contiguous")
+    b, nx, ny = samples.shape
+    if min(b, nx, ny) < 1:
+        raise ValueError(f"empty sample batch {tuple(samples.shape)}")
+    return b, nx, ny
+
+
+def check_supported(nx: int, ny: int, u: int, device) -> None:
+    if not supports(nx, ny, u, device):
+        raise ValueError(f"the CUDA kernels do not take a {nx}x{ny} lattice at U={u} on {device}")
+
+
+def check_draw(num_samples: int, nx: int, ny: int, seed: int, offset: int) -> None:
+    if not (0 <= seed < 2**32 and 0 <= offset < 2**32):
+        raise ValueError(f"seed and offset must lie in [0, 2^32); got {seed}, {offset}")
+    if min(num_samples, nx, ny) < 1:
+        raise ValueError(f"num_samples, nx and ny must be >= 1; got {num_samples}, {nx}, {ny}")
+
+
+def weight_ptrs(weights: Weights):
+    return [w.data_ptr() for w in weights]
+
+
+# ---------------------------------------------------------------------------
+# B12 and B13 wrappers and the autograd Function (B12 forward, B14 backward)
+# ---------------------------------------------------------------------------
+
+def mdrnn_log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """B12: (B, Nx, Ny) int32 samples -> (B,) float32 joint log p (no
+    gradient)."""
+    if is_cpu_call(samples, *weights):
+        return log_prob_plain(weights, samples)
+    u = check_weights(weights)
+    b, nx, ny = check_samples(samples)
+    check_supported(nx, ny, u, samples.device)
+    out = torch.empty(b, dtype=torch.float32, device=samples.device)
+    lib = load_library().lib
+    with torch.cuda.device(samples.device):
+        err = lib.rnnwf_mdrnn_log_prob(samples.data_ptr(), *weight_ptrs(weights),
+                                       out.data_ptr(), b, nx, ny, u, stream_of(samples))
+    check(err, "rnnwf_mdrnn_log_prob")
+    mdrnn_log_prob.launches += 1
+    return out
+
+
+mdrnn_log_prob.launches = 0
+
+
+def mdrnn_sample(weights: Weights, num_samples: int, nx: int, ny: int, seed: int,
+                 offset: int):
+    """B13: draw ``num_samples`` Nx x Ny lattices.  ``(seed, offset)`` (each
+    in [0, 2^32)) keys the kernel's Philox generator with counter (sample,
+    visit position), as B16's.  Returns (samples (B, Nx, Ny) int32, log p
+    (B,))."""
+    check_draw(num_samples, nx, ny, seed, offset)
+    if is_cpu_call(*weights):
+        uni = plain_uniforms(num_samples, nx * ny, seed, offset, weights[0].device)
+        return sample_plain(weights, uni, nx, ny)
+    u = check_weights(weights)
+    dev = weights[0].device
+    check_supported(nx, ny, u, dev)
+    samples = torch.empty(num_samples, nx, ny, dtype=torch.int32, device=dev)
+    lp = torch.empty(num_samples, dtype=torch.float32, device=dev)
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        err = lib.rnnwf_mdrnn_sample(seed, offset, *weight_ptrs(weights), samples.data_ptr(),
+                                     lp.data_ptr(), num_samples, nx, ny, u,
+                                     stream_of(weights[0]))
+    check(err, "rnnwf_mdrnn_sample")
+    mdrnn_sample.launches += 1
+    return samples, lp
+
+
+mdrnn_sample.launches = 0
+
+
+class MDRNNLogProb(torch.autograd.Function):
+    """log p(samples) with B12 forward and B14 backward (the counterpart of
+    ``make_mdrnn_log_prob_fn``'s ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, samples, *weights):
+        ctx.save_for_backward(samples, *weights)
+        return mdrnn_log_prob(weights, samples)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .fused_mdrnn_bwd import mdrnn_log_prob_bwd
+
+        samples, *weights = ctx.saved_tensors
+        grads = mdrnn_log_prob_bwd(tuple(weights), samples, g.contiguous())
+        return (None, *grads)
+
+
+def log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """Differentiable joint log p through the kernels."""
+    return MDRNNLogProb.apply(samples, *weights)

@@ -4,7 +4,11 @@
   with one GRU layer of 50 units; S=500; Adam at lr 5e-3;
 * ``--model j1j2``: ``J1J2(N=100, J2=0.2)``, open chain (``--marshall-sign``
   applies the Marshall rotation, which leaves the spectrum as it is);
-  ``CRNNU1`` with one GRU layer of 50 units; S=500; Adam at lr 5e-3.
+  ``CRNNU1`` with one GRU layer of 50 units; S=500; Adam at lr 5e-3;
+* ``--model mdrnn``: ``MDRNN2D(16, 16, units=50)`` on
+  ``TFIM2D(16, 16, Bx=3, encoding="grid")``; S=500; Adam at lr 5e-3
+  (``profile``); ``accuracy`` trains the same model on the 4x4, Bx=3
+  lattice.
 
     python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--model M] [--out FILE]
     python -m rnnwavefunctions_tpu_torch.tools.profile_step accuracy [--model M] [--steps 8000]
@@ -18,8 +22,9 @@ of the profiled window).
 
 ``accuracy``: ``--steps`` Adam steps from ``TrainConfig()``'s seed, the
 metrics read back every ``--block`` steps; the energy is the mean of the
-last 100 steps' mean energies (± their standard error), held against the
-DMRG ground-state energy of the chain.
+last 100 steps' mean energies (± their standard error), reported beside
+the reference energy: the DMRG ground-state energy of the chain, or for
+``mdrnn`` the Lanczos energy of the 4x4 lattice (reported, not gated).
 
 Each mode prints the card's name and power limit first and a JSON summary
 last, and writes that summary to ``--out`` when given.
@@ -36,12 +41,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import CRNNU1, J1J2, PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from .. import CRNNU1, J1J2, MDRNN2D, PRNN1D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer
+from ..ed.exact import E_TFIM2D_4X4_BX3
 
 N, U = 100, 50
-# DMRG ground-state energies of the two chains (the JAX package's README and
-# BASELINE.md)
-E_DMRG = {"tfim": -126.9618766964, "j1j2": -40.73881897}
+NX_2D, NY_2D, BX_2D = 16, 16, 3.0  # bench.py's mdrnn_16x16 row
+# Reference ground-state energies: DMRG for the two chains (the JAX package's
+# README and BASELINE.md), Lanczos for the 4x4, Bx=3 lattice of ``accuracy``
+E_REF = {"tfim": -126.9618766964, "j1j2": -40.73881897, "mdrnn": E_TFIM2D_4X4_BX3}
 
 
 def _card() -> str:
@@ -51,9 +58,13 @@ def _card() -> str:
     ).stdout.strip()
 
 
-def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False):
+def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False,
+             lattice=(NX_2D, NY_2D)):
     if model == "tfim":
         ansatz, ham = PRNN1D(N, (U,), impl=impl, device="cuda"), TFIM1D(N, 1.0)
+    elif model == "mdrnn":
+        ansatz = MDRNN2D(*lattice, units=U, impl=impl, device="cuda")
+        ham = TFIM2D(*lattice, bx=BX_2D, encoding="grid")
     else:
         ansatz = CRNNU1(N, (U,), impl=impl, device="cuda")
         ham = J1J2(N, j2=0.2, marshall_sign=marshall_sign)
@@ -106,7 +117,7 @@ def profile(model: str, marshall_sign: bool) -> dict:
 
 
 def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
-    trainer, state = _trainer(model, marshall_sign=marshall_sign)
+    trainer, state = _trainer(model, marshall_sign=marshall_sign, lattice=(4, 4))
     energies, imag = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -118,7 +129,7 @@ def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
     seconds = time.perf_counter() - t0
     last = np.concatenate(energies)[-100:]
     energy = float(last.mean())
-    e_dmrg = E_DMRG[model]
+    e_ref = E_REF[model]
     return {
         "model": model,
         "marshall_sign": marshall_sign,
@@ -128,15 +139,15 @@ def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
         "energy": energy,
         "energy_stderr": float(last.std(ddof=1) / np.sqrt(last.size)),
         "energy_im": float(np.concatenate(imag)[-100:].mean()) if imag else None,
-        "e_dmrg": e_dmrg,
-        "relative_error": abs(energy - e_dmrg) / abs(e_dmrg),
+        "e_ref": e_ref,
+        "relative_error": abs(energy - e_ref) / abs(e_ref),
     }
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("mode", choices=("profile", "accuracy"))
-    parser.add_argument("--model", choices=("tfim", "j1j2"), default="tfim")
+    parser.add_argument("--model", choices=("tfim", "j1j2", "mdrnn"), default="tfim")
     parser.add_argument("--marshall-sign", action="store_true",
                         help="j1j2: train the Marshall-rotated Hamiltonian")
     parser.add_argument("--steps", type=int, default=8000, help="accuracy: Adam steps")

@@ -21,6 +21,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..models.mdrnn2d import MDRNN2D
+
 
 def _chunks(flat: torch.Tensor, chunk_size: Optional[int]):
     """``flat`` split along its leading axis into chunks of at most
@@ -30,15 +32,16 @@ def _chunks(flat: torch.Tensor, chunk_size: Optional[int]):
     return torch.split(flat, chunk_size)
 
 
-def _flip_kernel_ok(ansatz, hamiltonian) -> bool:
-    """Gate for the single-flip kernels (pRNN family on a flat TFIM).  The
-    ansatz's kernel coverage covers the flip kernels' shapes too, and its
-    ``_use_kernels`` raises for an uncovered configuration on the card."""
+def _flip_kernel_ok(ansatz, hamiltonian, encoding: str) -> bool:
+    """Gate for the single-flip kernels (pRNN family on a flat TFIM, MDRNN
+    on a grid TFIM).  The ansatz's kernel coverage covers the flip kernels'
+    shapes too, and its ``_use_kernels`` raises for an uncovered
+    configuration on the card."""
     flip_element = getattr(hamiltonian, "uniform_flip_element", None)
     return (
         flip_element is not None
         and flip_element != 0.0
-        and getattr(hamiltonian, "encoding", "flat") == "flat"
+        and getattr(hamiltonian, "encoding", "flat") == encoding
         and hasattr(ansatz, "_use_kernels")
         and ansatz._use_kernels()
     )
@@ -46,16 +49,17 @@ def _flip_kernel_ok(ansatz, hamiltonian) -> bool:
 
 def _select_family(ansatz: Any, hamiltonian: Any) -> Optional[str]:
     """``"plain_flip"`` (positive pRNN + flat TFIM on the kernels),
-    ``"exchange"`` (complex cRNN + J1-J2 spin exchange on the kernels) or
-    None (the generic connected-configs estimator).  The ansatz's
-    ``_use_kernels`` raises for an uncovered configuration on the card."""
+    ``"mdrnn_flip"`` (2D MDRNN + grid TFIM on the kernels), ``"exchange"``
+    (complex cRNN + J1-J2 spin exchange on the kernels) or None (the
+    generic connected-configs estimator).  The ansatz's ``_use_kernels``
+    raises for an uncovered configuration on the card."""
     is_complex = getattr(ansatz, "is_complex", False)
-    if (
-        getattr(ansatz, "plain_positive", False)
-        and not is_complex
-        and _flip_kernel_ok(ansatz, hamiltonian)
-    ):
+    positive = getattr(ansatz, "plain_positive", False) and not is_complex
+    is_mdrnn = isinstance(ansatz, MDRNN2D)
+    if positive and not is_mdrnn and _flip_kernel_ok(ansatz, hamiltonian, "flat"):
         return "plain_flip"
+    if positive and is_mdrnn and _flip_kernel_ok(ansatz, hamiltonian, "grid"):
+        return "mdrnn_flip"
     if (
         is_complex
         and getattr(hamiltonian, "exchange_kernel_info", None) is not None
@@ -87,6 +91,20 @@ def make_local_energy_fn(ansatz: Any, hamiltonian: Any,
 
         local_energy_fused.needs_log_amp = False
         return local_energy_fused
+
+    if family == "mdrnn_flip":
+        from ..ops.mdrnn_flip_kernel import mdrnn_flip_ratio_sum
+
+        flip_element = hamiltonian.uniform_flip_element
+
+        @torch.no_grad()
+        def local_energy_mdrnn(samples, log_amp_samples=None):
+            diag = hamiltonian.diagonal(samples)
+            ratio_sum, lp = mdrnn_flip_ratio_sum(ansatz.weights(), samples)
+            return diag + flip_element * ratio_sum, None, 0.5 * lp
+
+        local_energy_mdrnn.needs_log_amp = False
+        return local_energy_mdrnn
 
     if family == "exchange":
         from ..ops.j1j2_exchange_kernel import j1j2_exchange_offdiag
@@ -138,11 +156,10 @@ def make_fused_sample_energy_fn(ansatz: Any, hamiltonian: Any):
     family = _select_family(ansatz, hamiltonian)
     if family is None:
         return None
-    n = ansatz.num_sites
     if family == "exchange":
         from ..ops.j1j2_exchange_kernel import j1j2_sample_and_exchange
 
-        exch = hamiltonian.exchange_kernel_info
+        n, exch = ansatz.num_sites, hamiltonian.exchange_kernel_info
 
         @torch.no_grad()
         def fused_j1j2(num_samples, seed, offset):
@@ -152,9 +169,23 @@ def make_fused_sample_energy_fn(ansatz: Any, hamiltonian: Any):
 
         return fused_j1j2
 
+    flip_element = hamiltonian.uniform_flip_element
+    if family == "mdrnn_flip":
+        from ..ops.mdrnn_flip_kernel import mdrnn_sample_and_flip_sum
+
+        nx, ny = ansatz.nx, ansatz.ny
+
+        @torch.no_grad()
+        def fused_mdrnn(num_samples, seed, offset):
+            samples, lp, ratio = mdrnn_sample_and_flip_sum(
+                ansatz.weights(), num_samples, nx, ny, seed, offset)
+            return samples, 0.5 * lp, hamiltonian.diagonal(samples) + flip_element * ratio, None
+
+        return fused_mdrnn
+
     from ..ops import tfim_flip_kernel as tk
 
-    flip_element = hamiltonian.uniform_flip_element
+    n = ansatz.num_sites
 
     @torch.no_grad()
     def fused_plain(num_samples, seed, offset):

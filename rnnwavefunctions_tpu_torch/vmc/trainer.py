@@ -4,18 +4,21 @@ Counterpart of ``rnnwavefunctions_tpu/vmc/trainer.py`` for one device, the
 Adam optimizer and a constant learning rate.  One step:
 
 1. sample + local energies: the fused kernel (K3 for the pRNN on the
-   TFIM, B11 for the cRNN on J1-J2) when ``_select_family`` picks it, else
-   the ansatz's sampler and the generic estimator;
+   TFIM, B16 for the 2D MDRNN on the grid TFIM, B11 for the cRNN on J1-J2)
+   when ``_select_family`` picks it, else the ansatz's sampler and the
+   generic estimator;
 2. the surrogate loss on ``ansatz.log_amp`` (kernels K1 forward and K2
-   backward), or for a complex ansatz on ``ansatz.log_amp_parts`` (B7
-   forward and B9 backward), when the ansatz runs its kernels;
+   backward for the pRNN, B12 and B14 for the MDRNN), or for a complex
+   ansatz on ``ansatz.log_amp_parts`` (B7 forward and B9 backward), when
+   the ansatz runs its kernels;
 3. ``torch.optim.Adam``, whose update ``lr * m_hat / (sqrt(v_hat) + eps)``
    is optax's ``adam`` with ``eps_root=0``.
 
 The parameters live in the ansatz module and are updated in place.  Per-step
 randomness comes from a CPU ``torch.Generator`` seeded with ``config.seed``:
 the kernel gets a (seed, offset) pair drawn from it, so no device sync is
-needed to seed a step.
+needed to seed a step.  Samples keep the ansatz's own shape ((S, N) chains,
+(S, Nx, Ny) lattices): the step only averages over their leading axis.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels K1-K4 and B7, B9, B10, B11 against their
-plain versions on the card, at small shapes with ragged batches.  They skip without a CUDA device
+"""PyTorch port: the CUDA kernels K1-K4, B7, B9, B10, B11 and B12-B16 against
+their plain versions on the card, at small shapes with ragged batches.  They skip without a CUDA device
 (a CUDA kernel has no CPU mode).  This file imports no JAX, so on a machine
 with a card and without JAX it runs as
 
@@ -9,9 +9,13 @@ with a card and without JAX it runs as
 import pytest
 import torch
 
-from rnnwavefunctions_tpu_torch import CRNNU1, J1J2, PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions_tpu_torch import (
+    CRNNU1, J1J2, MDRNN2D, PRNN1D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer,
+)
 from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_crnn_bwd, fused_gru, fused_gru_bwd
+from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
 from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
+from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
 from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
 pytestmark = pytest.mark.cuda
@@ -92,6 +96,11 @@ def test_training_step_runs_every_kernel(cuda):
 def test_shared_memory_bounds_coverage(cuda):
     assert fused_gru.supports(100, (50,), cuda)
     assert not fused_gru.supports(100, (256,), cuda)
+    # the MDRNN family: bench.py's 16x16 and 32x32 rows at U=50, 1-wide
+    # lattices; no width whose two U x U matrices leave no room
+    for nx, ny in ((16, 16), (32, 32), (1, 64), (64, 1)):
+        assert fused_mdrnn.supports(nx, ny, 50, cuda)
+    assert not fused_mdrnn.supports(16, 16, 256, cuda)
     with pytest.raises(ValueError, match="do not take"):
         fused_gru.gru_log_prob(_weights(256, cuda), _samples(cuda))
 
@@ -199,3 +208,83 @@ def test_crnn_coverage_on_the_card(cuda):
     with pytest.raises(ValueError, match="impl='plain'"):
         CRNNU1(N, (16, 16), device=cuda).log_amp_parts(_sector(cuda))
     assert CRNNU1(N, (16, 16), impl="plain", device=cuda).log_prob(_sector(cuda)).shape == (B,)
+
+
+# ---- the 2D MDRNN kernels (B12-B16)
+
+
+def _mdrnn_weights(nx, ny, u, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = MDRNN2D(nx, ny, u, device="cpu").init(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return tuple(w.detach().to(device) for w in model.weights())
+
+
+def _lattices(nx, ny, device, seed=1):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand(B, nx, ny, generator=gen) < 0.5).to(torch.int32).to(device)
+
+
+MDRNN_SHAPES = [(5, 3), (3, 6), (4, 4), (1, 6), (6, 1)]
+
+
+@pytest.mark.parametrize("nx,ny", MDRNN_SHAPES)
+def test_b12_b14_match_plain(cuda, nx, ny):
+    w, s = _mdrnn_weights(nx, ny, 50, cuda), _lattices(nx, ny, cuda)
+    tol = 1e-5 * nx * ny
+    before = fused_mdrnn.mdrnn_log_prob.launches
+    torch.testing.assert_close(fused_mdrnn.mdrnn_log_prob(w, s), fused_mdrnn.log_prob_plain(w, s),
+                               atol=tol, rtol=0)
+    assert fused_mdrnn.mdrnn_log_prob.launches == before + 1
+    g = torch.randn(B, generator=torch.Generator().manual_seed(2)).to(cuda)
+    for a, b in zip(fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g),
+                    fused_mdrnn.log_prob_bwd_plain(w, s, g)):
+        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
+
+
+@pytest.mark.parametrize("nx,ny", MDRNN_SHAPES)
+def test_b13_b15_b16_match_plain(cuda, nx, ny):
+    w, s = _mdrnn_weights(nx, ny, 50, cuda), _lattices(nx, ny, cuda)
+    tol = 1e-5 * nx * ny
+    ratio, lp = mk.mdrnn_flip_ratio_sum(w, s)
+    ratio_p, lp_p = mk.flip_ratio_sum_plain(w, s)
+    torch.testing.assert_close(ratio, ratio_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(lp, lp_p, atol=tol, rtol=0)
+    s13, lp13 = fused_mdrnn.mdrnn_sample(w, B, nx, ny, 3, 5)
+    s16, lp16, ratio16 = mk.mdrnn_sample_and_flip_sum(w, B, nx, ny, 3, 5)
+    assert s16.shape == (B, nx, ny) and bool(((s16 == 0) | (s16 == 1)).all())
+    assert torch.equal(s13, s16)
+    torch.testing.assert_close(lp13, fused_mdrnn.log_prob_plain(w, s13), atol=tol, rtol=0)
+    torch.testing.assert_close(lp16, lp13, atol=0, rtol=0)
+    torch.testing.assert_close(ratio16, mk.flip_ratio_sum_plain(w, s16)[0], rtol=1e-4, atol=0)
+    again, _, _ = mk.mdrnn_sample_and_flip_sum(w, B, nx, ny, 3, 5)
+    assert torch.equal(again, s16)
+
+
+def test_mdrnn_training_step_runs_b12_b14_b16(cuda):
+    trainer = VMCTrainer(MDRNN2D(4, 3, 16, device=cuda), TFIM2D(4, 3, 3.0, encoding="grid"),
+                         TrainConfig(num_samples=B))
+    state = trainer.init()
+    fns = (mk.mdrnn_sample_and_flip_sum, fused_mdrnn.mdrnn_log_prob,
+           fused_mdrnn_bwd.mdrnn_log_prob_bwd, mk.mdrnn_flip_ratio_sum, fused_mdrnn.mdrnn_sample)
+    counts = [fn.launches for fn in fns]
+    state, ms = trainer.run_steps(state, 2)
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 2, 0, 0]
+    assert bool(torch.isfinite(ms["mean_energy"]).all())
+    # trainer.local_energy runs B15 and MDRNN2D.sample runs B13
+    trainer.local_energy(trainer.ansatz.sample(B, torch.Generator().manual_seed(0)))
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 2, 1, 1]
+
+
+def test_mdrnn_coverage_on_the_card(cuda):
+    with pytest.raises(ValueError, match="do not take"):
+        fused_mdrnn.mdrnn_log_prob(_mdrnn_weights(4, 4, 256, cuda), _lattices(4, 4, cuda))
+    wide = MDRNN2D(4, 4, 256, device=cuda)
+    with pytest.raises(ValueError, match="impl='plain'"):
+        wide.log_prob(_lattices(4, 4, cuda))
+    with pytest.raises(ValueError, match="impl='plain'"):
+        VMCTrainer(wide, TFIM2D(4, 4, 3.0, encoding="grid"))
+    plain = MDRNN2D(4, 4, 256, impl="plain", device=cuda)
+    assert plain.log_prob(_lattices(4, 4, cuda)).shape == (B,)
