@@ -43,12 +43,32 @@ Phases (each prints its time; any failure raises and exits non-zero):
 13. 50 steps of the 2D flagship (MDRNN2D 16x16, U=50, on
    TFIM2D(16, 16, Bx=3, grid), S=500, Adam at lr 5e-3): steps/s and the
    first and last energies, which must be finite and falling.
+14. The stand-alone samplers B5 (GRU) and B8 (U(1) cRNN) and the per-flip
+   log p B6 (teacher-forced and in sample mode) against their plain
+   versions at N=100, U=50, B=500: B5's draws and log p equal to K3's for
+   one key, B6's sample mode equal to its teacher-forced mode on its own
+   samples, the flip-order sum of B6's terms against K4's ratio, B8's draws
+   equal to B11's (in the zero-magnetisation sector) and its log |psi|^2 to
+   2 Re log psi of B11 and B7, and the frequencies of B5 at N=3 and B8 at
+   N=4 over 20k draws against the exact densities.
+15. The four new kernels and their plain versions timed with CUDA events,
+   their bounds, and the widths their kernel families cover at N=100.
+16. Parity VMC at N=10 (TFIM, Bx=1) and snake-ordered VMC at 3x3, Bx=3
+   (PRNNSnake2D on the flat TFIM2D) against exact diagonalization; every
+   B5, B6 and K1/K2 counter must move.
+17. 50 steps each of the parity flagship (PRNN1D(100, (50,), parity=True) on
+   TFIM1D(100, Bx=1), S=500, Adam at lr 5e-3) and the snake flagship
+   (PRNNSnake2D(10, 10, (50,)) on TFIM2D(10, 10, Bx=3, flat), S=500, Adam
+   at lr 5e-3), after 3 warm-up steps: steps/s and the first and last
+   energies, which must be finite and falling; then one sample of each
+   model and of CRNNU1(100, (50,)), which run B5 and B8 and not K3 or B11.
 
 The second-last line is a JSON object with one entry per kernel: its
 launches on its main path (phase 5 for K1-K4, phase 9 for B7-B11, phase 13
-for B12-B16), its largest error against its plain version, its time and its
-plain version's, and ``bound_ms``, the least time the card could take for the work on this
-run's inputs.  The last line is ``{"ok": true, "device": {...}}``.
+for B12-B16, phase 17's parity run for B5, B6 and B8), its largest error
+against its plain version, its time and its plain version's, and
+``bound_ms``, the least time the card could take for the work on this run's
+inputs.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,8 +91,16 @@ SOURCES = {
                                     "rnnwavefunctions_tpu/ops/tfim_flip_kernel.py:595"),
     "K4 tfim_flip_ratio_sum": ("rnnwavefunctions_tpu_torch/csrc/tfim_flip.cu",
                                "rnnwavefunctions_tpu/ops/tfim_flip_kernel.py:499"),
+    "B5 gru_sample": ("rnnwavefunctions_tpu_torch/csrc/tfim_flip.cu",
+                      "rnnwavefunctions_tpu/ops/fused_gru.py:319"),
+    "B6a tfim_flip_log_probs": ("rnnwavefunctions_tpu_torch/csrc/tfim_flip.cu",
+                                "rnnwavefunctions_tpu/ops/tfim_flip_kernel.py:550"),
+    "B6b tfim_sample_and_flip_sum per_flip": ("rnnwavefunctions_tpu_torch/csrc/tfim_flip.cu",
+                                              "rnnwavefunctions_tpu/ops/tfim_flip_kernel.py:595"),
     "B7 crnn_log_amp_parts": ("rnnwavefunctions_tpu_torch/csrc/fused_crnn.cu",
                               "rnnwavefunctions_tpu/ops/fused_crnn.py:171"),
+    "B8 crnn_sample": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
+                       "rnnwavefunctions_tpu/ops/fused_crnn.py:245"),
     "B9 crnn_log_amp_bwd": ("rnnwavefunctions_tpu_torch/csrc/fused_crnn_bwd.cu",
                             "rnnwavefunctions_tpu/ops/fused_crnn_bwd.py:196"),
     "B10 j1j2_exchange_offdiag": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
@@ -97,6 +125,13 @@ BX_2D = 3.0
 # phase 12: a CPU rehearsal of the plain path (same model, S=500, lr 5e-3, two
 # seeds) was within 1.0e-4 of ED after 100 steps and 3.3e-5 after 200
 MDRNN_VMC_STEPS, MDRNN_VMC_TOL = 200, 1e-3
+# phase 16: a CPU rehearsal of the plain path (same models, S=500, lr 5e-3,
+# three seeds) put parity N=10 within 1.6e-4 of ED after 300 steps and 3.8e-5
+# after 400; the snake 3x3, Bx=3 sat on a plateau near 3.5e-3 until step
+# 350-450 and was within 3.4e-5 from step 500 on (1.8e-5 at 600)
+PARITY_VMC_STEPS, PARITY_VMC_TOL = 400, 1e-3
+SNAKE_VMC_STEPS, SNAKE_VMC_TOL = 800, 1e-3
+NX_SNAKE = NY_SNAKE = 10  # the snake flagship: bench.py's snake2d_10x10 row, Bx=3
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): float32
 # outside the tensor cores, and device memory.
@@ -231,7 +266,11 @@ def main() -> None:
         "K2 gru_log_prob_bwd": fused_gru_bwd.gru_log_prob_bwd,
         "K3 tfim_sample_and_flip_sum": tk.tfim_sample_and_flip_sum,
         "K4 tfim_flip_ratio_sum": tk.tfim_flip_ratio_sum,
+        "B5 gru_sample": fused_gru.gru_sample,
+        "B6a tfim_flip_log_probs": tk.tfim_flip_log_probs,
+        "B6b tfim_sample_and_flip_sum per_flip": tk.tfim_sample_and_flip_log_probs,
         "B7 crnn_log_amp_parts": fused_crnn.crnn_log_amp_parts,
+        "B8 crnn_sample": fused_crnn.crnn_sample,
         "B9 crnn_log_amp_bwd": fused_crnn_bwd.crnn_log_amp_bwd,
         "B10 j1j2_exchange_offdiag": jk.j1j2_exchange_offdiag,
         "B11 j1j2_sample_and_exchange": jk.j1j2_sample_and_exchange,
@@ -244,6 +283,7 @@ def main() -> None:
     record = {k: {} for k in wrappers}
     crnn_names = [k for k in wrappers if k.split()[0] in ("B7", "B9", "B10", "B11")]
     mdrnn_names = [k for k in wrappers if "mdrnn" in k]
+    new_names = [k for k in wrappers if k.split()[0] in ("B5", "B6a", "B6b", "B8")]
 
     with Phase("1 card and build"):
         smi = subprocess.run(
@@ -785,6 +825,228 @@ def main() -> None:
         require(all(c[k] > 0 for k in mdrnn_names),
                 "every MDRNN kernel launched in the 2D flagship run")
         launches.update({k: c[k] for k in mdrnn_names})
+
+    # ---- phases 14-17: the stand-alone samplers, the per-flip log p, and the
+    # parity and snake paths; N=100, U=50, B=500 with phase 2's and phase 6's
+    # perturbed weights (w, wc) and random chains (samples)
+    def rel_elementwise(got, want):
+        return float(((got.double() - want.double()).abs() / want.double().abs()).max())
+
+    def freq_err(s, n, probs):
+        codes = (s.cpu().numpy() @ (2 ** np.arange(n))).astype(int)
+        freq = np.bincount(codes, minlength=1 << n) / s.shape[0]
+        return float(np.abs(freq - probs).max())
+
+    def basis(n):
+        return torch.tensor([[(c >> i) & 1 for i in range(n)] for c in range(1 << n)],
+                            dtype=torch.int32, device=dev)
+
+    with Phase("14 B5, B6 and B8 against their plain versions (N=100, U=50, B=500)"):
+        s5, lp5 = fused_gru.gru_sample(w, S_FLAG, N_FLAG, 7, 1)
+        s3, lp3, _ = tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 7, 1)
+        lp5_p = fused_gru.log_prob_plain(w, s5)
+        torch.cuda.synchronize()
+        e = max_err(lp5, lp5_p)
+        same = bool(torch.equal(s5, s3)) and bool(torch.equal(lp5, lp3))
+        print(f"B5: log p vs plain K1 on its samples: max abs err {e:.3e} (tol {lp_tol:.1e}); "
+              f"spins and log p equal to K3's for one key, bit for bit: {same}")
+        require(e <= lp_tol and same, "B5 against plain and K3")
+        require(not bool(torch.equal(fused_gru.gru_sample(w, S_FLAG, N_FLAG, 7, 2)[0], s5)),
+                "B5 draws change with the offset")
+        record["B5 gru_sample"]["max_abs_err"] = e
+
+        lpf, lp6 = tk.tfim_flip_log_probs(w, samples)
+        lpf_p, lp6_p = tk.per_flip_log_probs_plain(w, samples)
+        ratio4, lp4 = tk.tfim_flip_ratio_sum(w, samples)
+        torch.cuda.synchronize()
+        ef, el = max_err(lpf, lpf_p), max_err(lp6, lp6_p)
+        er = rel_elementwise(tk.ratio_sum(lpf, lp6), ratio4)
+        print(f"B6a: lpf max abs err {ef:.3e}, log p {el:.3e} (tol {lp_tol:.1e}), lpf in "
+              f"[{float(lpf.min()):.2f}, {float(lpf.max()):.2f}], all finite "
+              f"{bool(torch.isfinite(lpf).all())}; flip-order sum of exp(0.5 (lpf - lp)) vs "
+              f"K4's ratio: relative err {er:.3e} (tol 1e-5); log p equal to K4's: "
+              f"{bool(torch.equal(lp6, lp4))}")
+        require(ef <= lp_tol and el <= lp_tol and bool(torch.isfinite(lpf).all()), "B6a")
+        require(er <= 1e-5 and bool(torch.equal(lp6, lp4)), "B6a against K4")
+        record["B6a tfim_flip_log_probs"]["max_abs_err"] = max(ef, el)
+
+        s6, lp6s, lpf6 = tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 7, 1, per_flip=True)
+        lpf6_t, lp6_t = tk.tfim_flip_log_probs(w, s6)
+        lpf6_p, lp6s_p = tk.per_flip_log_probs_plain(w, s6)
+        torch.cuda.synchronize()
+        same = (bool(torch.equal(s6, s3)) and bool(torch.equal(lpf6, lpf6_t))
+                and bool(torch.equal(lp6s, lp6_t)))
+        e = max(max_err(lpf6, lpf6_p), max_err(lp6s, lp6s_p))
+        print(f"B6b: K3's draws, and lpf and log p equal to B6a's on them, bit for bit: {same}; "
+              f"vs plain: max abs err {e:.3e} (tol {lp_tol:.1e})")
+        require(same and e <= lp_tol, "B6b")
+        record["B6b tfim_sample_and_flip_sum per_flip"]["max_abs_err"] = e
+
+        s8, lp8 = fused_crnn.crnn_sample(wc, S_FLAG, N_FLAG, 7, 1, True)
+        s11, _, _, lp11_re, _ = jk.j1j2_sample_and_exchange(wc, S_FLAG, N_FLAG, 7, 1, u1=True,
+                                                            **flag_info)
+        re7, _ = fused_crnn.crnn_log_amp_parts(wc, s8, True)
+        re_p, _ = fused_crnn.log_amp_parts_plain(wc, s8, True)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(s8, s11)) and bool(torch.equal(lp8, 2.0 * lp11_re))
+        in_sector = bool((s8.sum(dim=1) == N_FLAG // 2).all())
+        e7, ep = max_err(lp8, 2.0 * re7), max_err(lp8, 2.0 * re_p)
+        print(f"B8: spins equal to B11's and log |psi|^2 to 2 Re log psi of B11, bit for bit: "
+              f"{same}; zero magnetisation: {in_sector}; vs 2 x B7 Re {e7:.3e}, vs plain "
+              f"{ep:.3e} (tol {2 * lp_tol:.1e})")
+        require(same and in_sector and e7 <= 2 * lp_tol and ep <= 2 * lp_tol, "B8")
+        record["B8 crnn_sample"]["max_abs_err"] = ep
+
+        draws = 20000
+        small = perturbed_model(pkg, 3, U_FLAG, 5, dev)  # phase 2's N=3 model and key
+        ws = tuple(t.detach() for t in small.weights())
+        s_small, _ = fused_gru.gru_sample(ws, draws, 3, 11, 0)
+        probs = torch.exp(fused_gru.log_prob_plain(ws, basis(3))).cpu().numpy()
+        e = freq_err(s_small, 3, probs)
+        print(f"B5 sampler at N=3, {draws} draws: max |freq - p| {e:.4f} (tol 0.01)")
+        require(e <= 0.01, "B5 sampler distribution")
+        small = perturbed_model(pkg, 4, U_FLAG, 6, dev, cls="CRNNU1")  # phase 6's N=4 model
+        ws4 = tuple(t.detach() for t in small.weights())
+        s_small, _ = fused_crnn.crnn_sample(ws4, draws, 4, 11, 0, True)
+        probs = torch.exp(2.0 * fused_crnn.log_amp_parts_plain(ws4, basis(4), True)[0])
+        e = freq_err(s_small, 4, probs.cpu().numpy())
+        print(f"B8 sampler at N=4, {draws} draws: max |freq - |psi|^2| {e:.4f} (tol 0.01)")
+        require(e <= 0.01, "B8 sampler distribution")
+
+    with Phase("15 B5, B6 and B8 times at the flagship shapes (CUDA events) and coverage"):
+        uni3 = torch.rand(S_FLAG, N_FLAG, generator=gen).to(dev)
+        pairs = {
+            "B5 gru_sample": (lambda: fused_gru.gru_sample(w, S_FLAG, N_FLAG, 3, 4),
+                              lambda: fused_gru.sample_plain(w, uni3)),
+            "B6a tfim_flip_log_probs": (lambda: tk.tfim_flip_log_probs(w, samples),
+                                        lambda: tk.per_flip_log_probs_plain(w, samples)),
+            "B6b tfim_sample_and_flip_sum per_flip": (
+                lambda: tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 3, 4, per_flip=True),
+                lambda: tk.sample_and_per_flip_plain(w, uni3)),
+            "B8 crnn_sample": (lambda: fused_crnn.crnn_sample(wc, S_FLAG, N_FLAG, 3, 4, True),
+                               lambda: fused_crnn.sample_plain(wc, uni3, True)),
+        }
+        for name, (kern, plain) in pairs.items():
+            record[name]["ms"] = cuda_ms(kern, reps=20)
+            record[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
+            print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
+                  f"plain {record[name]['plain_ms']:.4f} ms")
+        b_, n_, u_ = S_FLAG, N_FLAG, U_FLAG
+        steps_chain = b_ * n_ + b_ * n_ * (n_ - 1) // 2  # base pass plus the flip suffixes
+        work_new = {
+            "B5 gru_sample": (b_ * n_ * site_flops(u_, 1), w6 + 4 * b_ * n_ + 4 * b_),
+            "B6a tfim_flip_log_probs": (steps_chain * site_flops(u_, 1),
+                                        4 * b_ * n_ + w6 + 4 * b_ * n_ + 4 * b_),
+            "B6b tfim_sample_and_flip_sum per_flip": (steps_chain * site_flops(u_, 1),
+                                                      w6 + 8 * b_ * n_ + 4 * b_),
+            "B8 crnn_sample": (b_ * n_ * site_flops(u_, 2), w8 + 4 * b_ * n_ + 4 * b_),
+        }
+        for name, (flops, nbytes) in work_new.items():
+            record[name]["bound_ms"], record[name]["bound_by"] = bound(flops, nbytes)
+            print(f"{name}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
+                  f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}), "
+                  f"kernel {record[name]['ms']:.4f} ms")
+        gru_u = max(u for u in range(1, 257) if fused_gru.supports(N_FLAG, (u,), dev))
+        crnn_u = max(u for u in range(1, 257) if fused_crnn.supports(N_FLAG, (u,), dev))
+        print(f"coverage at N={N_FLAG}: B5 and B6 run K3/K4's base and suffix launches, covered "
+              f"by the K1-K4 family to U={gru_u}; B8 runs B11's base launch, covered by the cRNN "
+              f"family to U={crnn_u}")
+        require(gru_u >= U_FLAG and crnn_u >= U_FLAG, "the flagships are covered")
+        wide = tuple(t.detach() for t in perturbed_model(pkg, 4, gru_u + 1, 3, dev).weights())
+        wide_c = tuple(t.detach() for t in
+                       perturbed_model(pkg, 4, crnn_u + 1, 3, dev, cls="CRNNU1").weights())
+        for label, call in (
+                ("B5", lambda: fused_gru.gru_sample(wide, 8, 4, 0, 0)),
+                ("B6a", lambda: tk.tfim_flip_log_probs(wide, samples[:8, :4].contiguous())),
+                ("B6b", lambda: tk.tfim_sample_and_flip_sum(wide, 8, 4, 0, 0, per_flip=True)),
+                ("B8", lambda: fused_crnn.crnn_sample(wide_c, 8, 4, 0, 0, True))):
+            try:
+                call()
+            except ValueError as exc:
+                print(f"{label} one unit past its coverage: raises ({exc})")
+            else:
+                raise RuntimeError(f"check failed: {label} ran past its shared-memory coverage")
+
+    with Phase("16 parity VMC at N=10 and snake VMC at 3x3, Bx=3, against exact "
+               "diagonalization"):
+        reset_counts()
+        n = 10
+        e_exact = exact.ground_state_energy(exact.tfim1d_dense(n, 1.0))
+        trainer = pkg.VMCTrainer(pkg.PRNN1D(n, (U_FLAG,), parity=True, device=dev),
+                                 pkg.TFIM1D(n, 1.0), pkg.TrainConfig(num_samples=S_FLAG))
+        state = trainer.init()
+        state, ms = trainer.run_steps(state, PARITY_VMC_STEPS)
+        trainer.local_energy(trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(0)))
+        e_vmc = float(ms["mean_energy"][-50:].mean())
+        rel_err = abs(e_vmc - e_exact) / abs(e_exact)
+        print(f"parity N=10: E_vmc (mean of the last 50 of {PARITY_VMC_STEPS} steps) "
+              f"{e_vmc:.6f}, E_exact {e_exact:.6f}, relative error {rel_err:.3e} "
+              f"(tol {PARITY_VMC_TOL:.0e})")
+        require(rel_err <= PARITY_VMC_TOL, "parity N=10 relative error against ED")
+        e_exact = exact.ground_state_energy(exact.tfim2d_dense(3, 3, BX_2D))
+        trainer = pkg.VMCTrainer(pkg.PRNNSnake2D(3, 3, (U_FLAG,), device=dev),
+                                 pkg.TFIM2D(3, 3, BX_2D), pkg.TrainConfig(num_samples=S_FLAG))
+        state = trainer.init()
+        state, ms = trainer.run_steps(state, SNAKE_VMC_STEPS)
+        trainer.local_energy(trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(0)))
+        torch.cuda.synchronize()
+        c = counts()
+        print("launches:", c)
+        e_vmc = float(ms["mean_energy"][-50:].mean())
+        rel_err = abs(e_vmc - e_exact) / abs(e_exact)
+        print(f"snake 3x3: E_vmc (mean of the last 50 of {SNAKE_VMC_STEPS} steps) {e_vmc:.6f}, "
+              f"E_exact {e_exact:.6f}, relative error {rel_err:.3e} (tol {SNAKE_VMC_TOL:.0e})")
+        require(rel_err <= SNAKE_VMC_TOL, "snake 3x3 relative error against ED")
+        require(all(c[k] > 0 for k in new_names if k != "B8 crnn_sample")
+                and all(c[k] > 0 for k in c if k.startswith("K")),
+                "every B5, B6 and K1-K4 counter moved")
+
+    with Phase("17 flagships: parity PRNN1D N=100 and snake PRNNSnake2D 10x10, GRU 50, "
+               "S=500, Adam lr 5e-3"):
+        crnn_flag = pkg.CRNNU1(N_FLAG, (U_FLAG,), device=dev).init(torch.Generator().manual_seed(3))
+        flagships = {
+            "parity": (pkg.PRNN1D(N_FLAG, (U_FLAG,), parity=True, device=dev),
+                       pkg.TFIM1D(N_FLAG, 1.0), "DMRG ground state of the chain -126.9618766964"),
+            "snake": (pkg.PRNNSnake2D(NX_SNAKE, NY_SNAKE, (U_FLAG,), device=dev),
+                      pkg.TFIM2D(NX_SNAKE, NY_SNAKE, BX_2D),
+                      f"{NX_SNAKE}x{NY_SNAKE}, Bx={BX_2D}"),
+        }
+        for label, (ansatz, ham, ref) in flagships.items():
+            trainer = pkg.VMCTrainer(ansatz, ham,
+                                     pkg.TrainConfig(num_samples=S_FLAG, learning_rate=5e-3))
+            state = trainer.init()
+            trainer.run_steps(state, 3)  # warm-up (allocator)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            state, ms = trainer.run_steps(state, 50)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            in_steps = counts()
+            trainer.local_energy(trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(1)))
+            crnn_flag.sample(S_FLAG, torch.Generator().manual_seed(2))
+            torch.cuda.synchronize()
+            c = counts()
+            energies = ms["mean_energy"].cpu().numpy()
+            print(f"{label}: {smi}: {50 / dt:.2f} steps/s ({1000 * dt / 50:.3f} ms/step)")
+            print(f"{label}: energy: first {energies[0]:.4f}, last {energies[-1]:.4f} ({ref})")
+            print(f"{label}: launches in the 50 steps:", in_steps)
+            print(f"{label}: launches with the samples:", c)
+            require(bool(np.isfinite(energies).all()), f"finite {label} flagship energies")
+            require(energies[-5:].mean() < energies[:5].mean(), f"{label} flagship energies falling")
+            require(c["K3 tfim_sample_and_flip_sum"] == in_steps["K3 tfim_sample_and_flip_sum"]
+                    and c["B11 j1j2_sample_and_exchange"] == 0,
+                    "PRNN1D.sample and CRNNU1.sample launch neither K3 nor B11")
+            require(c["B5 gru_sample"] == in_steps["B5 gru_sample"] + 1
+                    and c["B8 crnn_sample"] == 1, "the samples ran B5 and B8")
+            if label == "parity":
+                require(all(c[k] > 0 for k in new_names) and c["K1 gru_log_prob"] >= 100
+                        and c["K2 gru_log_prob_bwd"] >= 100,
+                        "every parity kernel launched in the parity flagship run")
+                launches.update({k: c[k] for k in new_names})
+            else:
+                require(all(c[k] > 0 for k in c if k.startswith("K")),
+                        "K1-K4 launched in the snake flagship run")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -14,6 +14,7 @@ from .hamiltonians.tfim2d import TFIM2D
 from .models.crnn_u1 import CRNNU1
 from .models.mdrnn2d import MDRNN2D
 from .models.prnn1d import PRNN1D
+from .models.prnn_snake2d import PRNNSnake2D
 from .vmc.trainer import TrainConfig, TrainState, VMCTrainer
 
 __version__ = "0.1.0"
@@ -25,6 +26,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = [
-    "CRNNU1", "J1J2", "MDRNN2D", "PRNN1D", "TFIM1D", "TFIM2D", "TrainConfig", "TrainState",
-    "VMCTrainer",
+    "CRNNU1", "J1J2", "MDRNN2D", "PRNN1D", "PRNNSnake2D", "TFIM1D", "TFIM2D", "TrainConfig",
+    "TrainState", "VMCTrainer",
 ]

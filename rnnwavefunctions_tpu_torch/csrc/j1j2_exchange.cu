@@ -3,11 +3,14 @@
 //     dRe_k + i dIm_k = log psi(sigma_b with bond k exchanged) - log psi(sigma_b),
 // over the anti-aligned bonds k, with the base (Re, Im) log psi as a
 // by-product.  B10 reads the given samples; B11 (sample mode) draws them
-// first, autoregressively, in the same base pass.
+// first, autoregressively, in the same base pass.  B8 is the stand-alone
+// U(1)-masked sampler: B11's sample-mode base pass alone, returning the
+// samples and log |psi|^2 = 2 Re log psi.
 //
 // Replaces: rnnwavefunctions_tpu/ops/j1j2_exchange_kernel.py::
 // j1j2_exchange_offdiag (B10) and ::j1j2_sample_and_exchange (B11), both
-// _make_kernel.
+// _make_kernel; and rnnwavefunctions_tpu/ops/fused_crnn.py::crnn_sample (B8,
+// _make_sample_kernel).
 //
 // Bound on the H100: the exchange suffixes.  Exchanging bond (a, b) leaves
 // sites < a untouched, so only sites a..N-1 are recomputed, from the stored
@@ -15,13 +18,17 @@
 // bonds) * N/2 cRNN site steps, ~2.5e6 at the J1-J2 flagship (B=500,
 // N=100, U=50, J2 != 0), each a 3U x U product plus two heads and the mask,
 // ~40 GFLOP per call.  The products read their weights from shared memory,
-// so the limit is shared-memory bandwidth and issue rate, not HBM.
+// so the limit is shared-memory bandwidth and issue rate, not HBM.  B8 does
+// only the B*N base steps (B7's work) and is bound, as B7, by the latency of
+// N dependent site steps per sample.
 //
 // Design: four launches.
 //   1. Base pass, one warp per sample: (in sample mode) draws each spin from
 //      a Philox uniform with the mask's clamp, and stores the hidden history
 //      h[n], the Kahan-corrected prefixes pfx_re[n], pfx_im[n] and the
-//      up-counts before each site, cup[n].
+//      up-counts before each site, cup[n].  B8 runs this launch alone in
+//      sample mode and stores no history, only the spins and log |psi|^2;
+//      the arithmetic is the same code, so B8 draws B11's spins bit for bit.
 //   2. Bond lists, one warp per bond: the samples whose bond is
 //      anti-aligned, in sample order (a ballot per 32 samples); the others
 //      get a term of exactly 0 and no work.  The TPU kernel ran every bond
@@ -93,7 +100,10 @@ __device__ __forceinline__ int bond_of_slot(const Bonds& bs, int slot) {
   return (slot & 1) ? nn + (slot >> 1) : (slot >> 1);
 }
 
-template <bool kSample>
+// kHistory: store hist, the prefixes and the up-counts for the suffix pass
+// and write (Re, Im) log psi; off (B8), only lp_re is written, as
+// log |psi|^2 = 2 Re log psi.
+template <bool kSample, bool kHistory>
 __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
                                      uint32_t offset, WeightPtrs wp, float* __restrict__ hist,
                                      float* __restrict__ pfx_re, float* __restrict__ pfx_im,
@@ -111,7 +121,7 @@ __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t see
   __syncwarp();
 
   const int64_t row = static_cast<int64_t>(b) * n_sites;
-  float* h_row = hist + row * u;
+  float* h_row = kHistory ? hist + row * u : nullptr;
   float x[1] = {0.0f}, up[1] = {0.0f}, lp0[1], lp1[1], ph0[1], ph1[1];
   float re = 0.0f, rec = 0.0f, im = 0.0f, imc = 0.0f;
   for (int n = 0; n < n_sites; ++n) {
@@ -126,20 +136,28 @@ __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t see
     }
     kadd(re, rec, 0.5f * (s > 0.5f ? lp1[0] : lp0[0]));
     kadd(im, imc, s > 0.5f ? ph1[0] : ph0[0]);
-    for (int j = lane; j < u; j += kWarp) h_row[n * u + j] = hn[j];
+    if constexpr (kHistory) {
+      for (int j = lane; j < u; j += kWarp) h_row[n * u + j] = hn[j];
+    }
     if (lane == 0) {
       if constexpr (kSample) samples[row + n] = static_cast<int32_t>(s);
-      pfx_re[row + n] = re - rec;
-      pfx_im[row + n] = im - imc;
-      cup[row + n] = up[0];
+      if constexpr (kHistory) {
+        pfx_re[row + n] = re - rec;
+        pfx_im[row + n] = im - imc;
+        cup[row + n] = up[0];
+      }
     }
     x[0] = s;
     up[0] += s;
     float* tmp = h; h = hn; hn = tmp;
   }
   if (lane == 0) {
-    lp_re[b] = re - rec;
-    lp_im[b] = im - imc;
+    if constexpr (kHistory) {
+      lp_re[b] = re - rec;
+      lp_im[b] = im - imc;
+    } else {
+      lp_re[b] = 2.0f * (re - rec);
+    }
   }
 }
 
@@ -275,6 +293,23 @@ __global__ void exchange_sum_kernel(const float* __restrict__ terms_re,
   eoff_im[b] = vi;
 }
 
+template <bool kSample, bool kHistory>
+cudaError_t launch_exchange_base(int32_t* samples, uint32_t seed, uint32_t offset,
+                                 const WeightPtrs& wp, float* hist, float* pfx_re,
+                                 float* pfx_im, float* cup, float* lp_re, float* lp_im,
+                                 int b_total, int n_sites, int u, int u1, cudaStream_t st) {
+  const size_t smem = exchange_base_smem_bytes(u);
+  cudaError_t err = cudaFuncSetAttribute(exchange_base_kernel<kSample, kHistory>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  exchange_base_kernel<kSample, kHistory><<<(b_total + kExBaseWarps - 1) / kExBaseWarps,
+                                            kExBaseWarps * kWarp, smem, st>>>(
+      samples, seed, offset, wp, hist, pfx_re, pfx_im, cup, lp_re, lp_im, b_total, n_sites, u,
+      u1);
+  return cudaGetLastError();
+}
+
 template <bool kSample>
 int launch_exchange(void* samples_v, uint32_t seed, uint32_t offset, const WeightPtrs& wp,
                     void* hist_v, void* pfx_v, void* terms_v, void* order_v, void* out_v,
@@ -299,16 +334,9 @@ int launch_exchange(void* samples_v, uint32_t seed, uint32_t offset, const Weigh
   float* lp_im = lp_re + b_total;
   const Bonds bs{n_sites, has_nnn, periodic, el_nn, el_nnn};
 
-  const size_t smem_base = exchange_base_smem_bytes(u);
-  cudaError_t err = cudaFuncSetAttribute(exchange_base_kernel<kSample>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_base));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  exchange_base_kernel<kSample><<<(b_total + kExBaseWarps - 1) / kExBaseWarps,
-                                  kExBaseWarps * kWarp, smem_base, st>>>(
+  cudaError_t err = launch_exchange_base<kSample, true>(
       samples, seed, offset, wp, hist, pfx_re, pfx_im, cup, lp_re, lp_im, b_total, n_sites, u,
-      u1);
-  err = cudaGetLastError();
+      u1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   exchange_list_kernel<<<(n_bonds + kExListWarps - 1) / kExListWarps, kExListWarps * kWarp, 0,
@@ -373,4 +401,18 @@ extern "C" int rnnwf_j1j2_sample_and_exchange(void* samples, unsigned int seed,
   return rnnwf::launch_exchange<true>(
       samples, seed, offset, rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), hist, pfx,
       terms, order, out, b_total, n_sites, u, u1, el_nn, el_nnn, has_nnn, periodic, stream);
+}
+
+// B8: samples (B*N ints) drawn from Philox keyed by (seed, offset), the same
+// draws as B11, and their log |psi|^2 (B floats); no scratch.
+extern "C" int rnnwf_crnn_sample(unsigned int seed, unsigned int offset, const void* wx,
+                                 const void* wh, const void* bx, const void* bh, const void* aw,
+                                 const void* ab, const void* pw, const void* pb, void* samples,
+                                 void* lp, int b_total, int n_sites, int u, int u1,
+                                 void* stream) {
+  return static_cast<int>(rnnwf::launch_exchange_base<true, false>(
+      static_cast<int32_t*>(samples), seed, offset,
+      rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), nullptr, nullptr, nullptr, nullptr,
+      static_cast<float*>(lp), nullptr, b_total, n_sites, u, u1,
+      static_cast<cudaStream_t>(stream)));
 }

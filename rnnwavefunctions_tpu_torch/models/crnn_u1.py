@@ -10,10 +10,8 @@ has zero magnetisation.
 Counterpart of ``rnnwavefunctions_tpu/models/crnn_u1.py`` for uniform GRU
 stacks.  log psi travels as the real pair (Re, Im).  When ``resolve_impl``
 selects the kernels, a single GRU layer's teacher-forced (Re, Im) runs B7
-forward and B9 backward (``ops/fused_crnn.py``) and its sampler runs B11
-(``ops/j1j2_exchange_kernel.py``, whose exchange sums it drops: the
-stand-alone cRNN sampler kernel is not ported yet).  Off the kernels every
-stack runs the ops-level plain loop.
+forward and B9 backward and its sampler runs B8 (``ops/fused_crnn.py``).
+Off the kernels every stack runs the ops-level plain loop.
 """
 
 from __future__ import annotations
@@ -26,7 +24,6 @@ from torch import nn
 from . import cells
 from .base import resolve_device, resolve_impl
 from ..ops import fused_crnn
-from ..ops import j1j2_exchange_kernel as jk
 
 _REQUIREMENT = "one GRU layer with local_dim=2 whose weights fit shared memory"
 
@@ -120,13 +117,10 @@ class CRNNU1(nn.Module):
         if self._use_kernels():
             seed, offset = torch.randint(
                 0, 2**32, (2,), generator=generator, dtype=torch.int64).tolist()
-            samples, _, _, lp_re, _ = jk.j1j2_sample_and_exchange(
-                self.weights(), num_samples, self.num_sites, seed, offset, u1=self.u1,
-                el_nn=0.0, el_nnn=0.0, has_nnn=False)
-            return samples, 2.0 * lp_re
+            return fused_crnn.crnn_sample(self.weights(), num_samples, self.num_sites,
+                                          seed, offset, self.u1)
         uniforms = torch.rand(num_samples, self.num_sites, generator=generator).to(self.device)
-        spins, re, _ = fused_crnn.base_pass_plain(self.weights(), self.u1, uniforms=uniforms)
-        return spins.to(torch.int32), 2.0 * re
+        return fused_crnn.sample_plain(self.weights(), uniforms, self.u1)
 
     def sample(self, num_samples: int, generator: torch.Generator) -> torch.Tensor:
         return self.sample_with_log_prob(num_samples, generator)[0]

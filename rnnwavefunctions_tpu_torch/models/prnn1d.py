@@ -1,19 +1,23 @@
 """1D positive RNN wavefunction (pRNN): psi(sigma) = sqrt(p(sigma)) with p
-autoregressive over the chain.
+autoregressive over the chain, optionally parity-symmetrized.
 
-Counterpart of ``rnnwavefunctions_tpu/models/prnn1d.py`` for the plain
-(``parity=False``) GRU stack.  The module owns its parameters; sampling
-draws its randomness from an explicit ``torch.Generator``.  When
-``resolve_impl`` selects the kernels, a single GRU layer's teacher-forced
-log p runs K1 forward and K2 backward (``ops/fused_gru.py``) and its sampler
-runs K3 (``ops/tfim_flip_kernel.py``, whose flip-ratio sum it drops: the
-stand-alone sampler kernel is not ported yet).  Off the kernels, a single
-layer runs the same plain loops as those kernels' CPU versions; the stacked
-loops below serve deeper stacks.
+Counterpart of ``rnnwavefunctions_tpu/models/prnn1d.py`` for uniform GRU
+stacks.  With ``parity=True`` the density is symmetrized under spatial
+reflection, ``p(s) = (p_ar(s) + p_ar(reversed s)) / 2``, computed as a
+``logaddexp``; as in the reference and the JAX package only the density is
+symmetrized, and the sampler stays the plain autoregressive one.  The module
+owns its parameters; sampling draws its randomness from an explicit
+``torch.Generator``.  When ``resolve_impl`` selects the kernels, a single
+GRU layer's teacher-forced log p runs K1 forward and K2 backward
+(``ops/fused_gru.py``; twice for parity, on the samples and on their
+reversal) and its sampler runs B5 (``fused_gru.gru_sample``).  Off the
+kernels, a single layer runs the same plain loops as those kernels' CPU
+versions; the stacked loops below serve deeper stacks.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -22,7 +26,6 @@ from torch import nn
 from . import cells
 from .base import resolve_device, resolve_impl
 from ..ops import fused_gru
-from ..ops import tfim_flip_kernel as tk
 from ..ops.compsum import compensated_sum
 
 _REQUIREMENT = "one GRU layer with local_dim=2 whose weights fit shared memory"
@@ -33,7 +36,7 @@ class PRNN1D(nn.Module):
       num_sites: chain length N.
       units: hidden widths per stacked GRU layer (uniform widths).
       local_dim: on-site Hilbert dimension.
-      parity: parity-symmetrized density (not ported yet).
+      parity: symmetrize the density (not the sampler) under reflection.
       cell: "gru" (LSTM and custom cells are not ported yet).
       impl: "auto", "kernel" or "plain" (``models/base.py``).
       device: where the parameters live; None means the card (raises
@@ -48,10 +51,10 @@ class PRNN1D(nn.Module):
                  impl: str = "auto", device=None):
         super().__init__()
         units = tuple(units)
-        if parity or cell != "gru" or len(set(units)) != 1:
+        if cell != "gru" or len(set(units)) != 1:
             raise NotImplementedError(
-                "not ported yet: PRNN1D supports parity=False, cell='gru' and "
-                f"uniform widths; got parity={parity}, cell={cell!r}, units={units}"
+                "not ported yet: PRNN1D supports cell='gru' and uniform widths; "
+                f"got cell={cell!r}, units={units}"
             )
         self.num_sites = num_sites
         self.units = units
@@ -68,7 +71,7 @@ class PRNN1D(nn.Module):
 
     def extra_repr(self) -> str:
         return (f"num_sites={self.num_sites}, units={self.units}, "
-                f"local_dim={self.local_dim}, impl={self.impl!r}")
+                f"local_dim={self.local_dim}, parity={self.parity}, impl={self.impl!r}")
 
     @property
     def device(self) -> torch.device:
@@ -124,20 +127,18 @@ class PRNN1D(nn.Module):
     def sample_with_log_prob(self, num_samples: int, generator: torch.Generator):
         """Draw ``(num_samples, N)`` int32 spins by inverse-CDF sampling of
         each site's conditional (s = 1 iff u >= p0 for two local states), and
-        return their log-density.  The randomness comes from ``generator``
-        (a CPU generator): the kernel gets a (seed, offset) pair drawn from
-        it, the plain loops its uniforms."""
+        return their plain (non-symmetrized) autoregressive log-density.  The
+        randomness comes from ``generator`` (a CPU generator): the kernel gets
+        a (seed, offset) pair drawn from it, the plain loops its uniforms."""
         if self._use_kernels():
             seed, offset = torch.randint(
                 0, 2**32, (2,), generator=generator, dtype=torch.int64).tolist()
-            samples, lp, _ = tk.tfim_sample_and_flip_sum(
-                self.weights(), num_samples, self.num_sites, seed, offset)
-            return samples, lp
+            return fused_gru.gru_sample(self.weights(), num_samples, self.num_sites,
+                                        seed, offset)
         d, dev = self.local_dim, self.device
         uniforms = torch.rand(num_samples, self.num_sites, generator=generator).to(dev)
         if self._single_gru():
-            spins, lp, *_ = tk.base_pass_plain(self.weights(), uniforms=uniforms)
-            return spins.to(torch.int32), lp
+            return fused_gru.sample_plain(self.weights(), uniforms)
         x = torch.zeros(num_samples, d, device=dev)  # the zero "sigma_0" input
         hs = cells.stacked_rnn_zero_state(num_samples, self.units, dev)
         draws, site_logps = [], []
@@ -175,11 +176,20 @@ class PRNN1D(nn.Module):
             site_logps.append(torch.gather(logp, 1, targets[i][:, None])[:, 0])
         return compensated_sum(torch.stack(site_logps))
 
-    def log_prob(self, samples: torch.Tensor) -> torch.Tensor:
-        """log p(sigma), through the kernels when ``resolve_impl`` picks them."""
+    def _log_prob_ar(self, samples: torch.Tensor) -> torch.Tensor:
+        """The autoregressive log p(sigma), through the kernels when
+        ``resolve_impl`` picks them."""
         if self._use_kernels():
             return fused_gru.log_prob(self.weights(), samples)
         return self._log_prob_plain(samples)
+
+    def log_prob(self, samples: torch.Tensor) -> torch.Tensor:
+        """log p(sigma); parity-symmetrized when ``parity=True``."""
+        lp = self._log_prob_ar(samples)
+        if not self.parity:
+            return lp
+        lp_rev = self._log_prob_ar(samples.flip(1).contiguous())
+        return torch.logaddexp(lp, lp_rev) - math.log(2.0)
 
     def log_amp(self, samples: torch.Tensor) -> torch.Tensor:
         """log psi = 0.5 log p (positive wavefunction)."""

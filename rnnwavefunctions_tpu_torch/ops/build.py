@@ -43,12 +43,16 @@ SIGNATURES = {
     "rnnwf_gru_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
     "rnnwf_tfim_flip_ratio_sum": ([_P] * 13 + [_I, _I, _I, _P], _I),
     "rnnwf_tfim_sample_and_flip_sum": ([_U, _U] + [_P] * 13 + [_I, _I, _I, _P], _I),
+    "rnnwf_tfim_flip_log_probs": ([_P] * 12 + [_I, _I, _I, _P], _I),
+    "rnnwf_tfim_sample_and_flip_log_probs": ([_U, _U] + [_P] * 12 + [_I, _I, _I, _P], _I),
+    "rnnwf_gru_sample": ([_U, _U] + [_P] * 8 + [_I, _I, _I, _P], _I),
     "rnnwf_crnn_log_amp_parts": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "rnnwf_crnn_log_amp_bwd": ([_P] * 14 + [_I] * 4 + [_P], _I),
     "rnnwf_crnn_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
     "rnnwf_j1j2_num_bonds": ([_I, _I, _I], _I),
     "rnnwf_j1j2_exchange_offdiag": _EXCHANGE,
     "rnnwf_j1j2_sample_and_exchange": _EXCHANGE,
+    "rnnwf_crnn_sample": ([_U, _U] + [_P] * 10 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_log_prob": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_sample": ([_U, _U] + [_P] * 9 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_log_prob_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),

@@ -1,10 +1,13 @@
-"""B7: teacher-forced (Re, Im) log psi of the complex U(1) cRNN, and the
-``autograd.Function`` whose forward is B7 and whose backward is B9.
+"""B7: teacher-forced (Re, Im) log psi of the complex U(1) cRNN, the
+``autograd.Function`` whose forward is B7 and whose backward is B9, and B8,
+the stand-alone U(1)-masked sampler.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/fused_crnn.py``
-(``crnn_log_amp_parts``, ``_crnn_site_rows`` and ``make_log_amp_parts_fn``).
-The CUDA kernel is ``csrc/fused_crnn.cu``; the plain PyTorch version below
-is the same site loop written with tensor ops.
+(``crnn_log_amp_parts``, ``_crnn_site_rows``, ``make_log_amp_parts_fn`` and
+``crnn_sample``).  B7's CUDA kernel is ``csrc/fused_crnn.cu``; B8 is the
+sample-mode base pass of ``csrc/j1j2_exchange.cu`` without its history, so
+it draws B11's spins.  The plain PyTorch version below is the same site loop
+written with tensor ops, teacher-forced or on given uniforms.
 
 Per site, in log space (no complex arithmetic): the reset-after GRU trunk,
 the amplitude head ``lp0 = -softplus(-d)``, ``lp1 = -softplus(d)`` with
@@ -42,13 +45,14 @@ from .fused_gru import (
     spin_input,
     stream_of,
 )
+from .tfim_flip_kernel import check_key, plain_uniforms
 
 LOG_ZERO = -1e9  # finite stand-in for log 0 of a masked class
 
 
 def supports(n_sites: int, units: Sequence[int], device) -> bool:
-    """True when the cRNN kernels B7, B9, B10 and B11 take this shape on
-    ``device`` (one GRU layer whose kernels fit shared memory)."""
+    """True when the cRNN kernels B7-B11 take this shape on ``device`` (one
+    GRU layer whose kernels fit shared memory)."""
     return fits_shared_memory(CRNN_FAMILY, n_sites, units, device)
 
 
@@ -188,3 +192,47 @@ class CRNNLogAmpParts(torch.autograd.Function):
 def log_amp_parts(weights: Weights, samples: torch.Tensor, u1: bool):
     """Differentiable (Re, Im) log psi through the kernels."""
     return CRNNLogAmpParts.apply(u1, samples, *weights)
+
+
+# ---------------------------------------------------------------------------
+# B8: the stand-alone sampler
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def sample_plain(weights: Weights, uniforms: torch.Tensor, u1: bool):
+    """The sampling site loop on given (B, N) uniforms: (samples (B, N)
+    int32, log |psi|^2 = 2 Re log psi (B,))."""
+    spins, re, _ = base_pass_plain(weights, u1, uniforms=uniforms)
+    return spins.to(torch.int32), 2.0 * re
+
+
+def crnn_sample(weights: Weights, num_samples: int, n_sites: int, seed: int, offset: int,
+                u1: bool):
+    """B8: draw ``num_samples`` chains of ``n_sites`` spins from |psi|^2 (a
+    masked class never drawn) and their log |psi|^2.  ``(seed, offset)``
+    (each in [0, 2^32)) keys the kernel's Philox generator, whose draws are
+    B11's for the same key.  Returns (samples (B, N) int32, log |psi|^2
+    (B,))."""
+    check_key(seed, offset)
+    if is_cpu_call(*weights):
+        return sample_plain(weights, plain_uniforms(num_samples, n_sites, seed, offset,
+                                                    weights[0].device), u1)
+    u = check_weights(weights, heads=2)
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
+    check_supported(n_sites, u, weights[0].device, CRNN_FAMILY)
+    dev = weights[0].device
+    samples = torch.empty(num_samples, n_sites, dtype=torch.int32, device=dev)
+    lp = torch.empty(num_samples, dtype=torch.float32, device=dev)
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        err = lib.rnnwf_crnn_sample(
+            seed, offset, *[w.data_ptr() for w in weights], samples.data_ptr(),
+            lp.data_ptr(), num_samples, n_sites, u, int(u1), stream_of(weights[0]),
+        )
+    check(err, "rnnwf_crnn_sample")
+    crnn_sample.launches += 1
+    return samples, lp
+
+
+crnn_sample.launches = 0

@@ -1,9 +1,13 @@
-"""K1: teacher-forced log-probability of a single-layer GRU, and the
-``autograd.Function`` whose forward is K1 and whose backward is K2.
+"""K1: teacher-forced log-probability of a single-layer GRU, the
+``autograd.Function`` whose forward is K1 and whose backward is K2, and B5,
+the stand-alone sampler.
 
-Counterpart of ``rnnwavefunctions_tpu/ops/fused_gru.py`` (``_log_prob_pallas``
-and ``make_log_prob_fn``).  The CUDA kernel is ``csrc/fused_gru.cu``; the
-plain PyTorch version below is the same site loop written with tensor ops.
+Counterpart of ``rnnwavefunctions_tpu/ops/fused_gru.py`` (``_log_prob_pallas``,
+``make_log_prob_fn`` and ``_sample_pallas``).  K1's CUDA kernel is
+``csrc/fused_gru.cu``; B5 is the sample-mode base pass of
+``csrc/tfim_flip.cu`` without its history, so it draws K3's spins.  The plain
+PyTorch versions are the same site loops written with tensor ops (B5's is
+``tfim_flip_kernel.base_pass_plain`` on ``plain_uniforms``).
 
 A kernel's weights travel as a 6-tuple in the JAX package's parameter layout:
 ``(wx (2, 3U), wh (U, 3U), bx (3U,), bh (3U,), head_w (U, 2), head_b (2,))``
@@ -229,3 +233,49 @@ class GRULogProb(torch.autograd.Function):
 def log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
     """Differentiable joint log p through the kernels."""
     return GRULogProb.apply(samples, *weights)
+
+
+# ---------------------------------------------------------------------------
+# B5: the stand-alone sampler
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def sample_plain(weights: Weights, uniforms: torch.Tensor):
+    """The sampling base pass on given (B, N) uniforms (s = 1 iff u >= p0):
+    (samples (B, N) int32, log p (B,))."""
+    from .tfim_flip_kernel import base_pass_plain
+
+    spins, lp, *_ = base_pass_plain(weights, uniforms=uniforms)
+    return spins.to(torch.int32), lp
+
+
+def gru_sample(weights: Weights, num_samples: int, n_sites: int, seed: int, offset: int):
+    """B5: draw ``num_samples`` chains of ``n_sites`` spins and their joint
+    log p.  ``(seed, offset)`` (each in [0, 2^32)) keys the kernel's Philox
+    generator, whose draws are K3's for the same key.  Returns (samples
+    (B, N) int32, log p (B,))."""
+    from .tfim_flip_kernel import check_key, plain_uniforms
+
+    check_key(seed, offset)
+    if is_cpu_call(*weights):
+        return sample_plain(weights, plain_uniforms(num_samples, n_sites, seed, offset,
+                                                    weights[0].device))
+    u = check_weights(weights)
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
+    check_supported(n_sites, u, weights[0].device)
+    dev = weights[0].device
+    samples = torch.empty(num_samples, n_sites, dtype=torch.int32, device=dev)
+    lp = torch.empty(num_samples, dtype=torch.float32, device=dev)
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        err = lib.rnnwf_gru_sample(
+            seed, offset, *[w.data_ptr() for w in weights], samples.data_ptr(),
+            lp.data_ptr(), num_samples, n_sites, u, stream_of(weights[0]),
+        )
+    check(err, "rnnwf_gru_sample")
+    gru_sample.launches += 1
+    return samples, lp
+
+
+gru_sample.launches = 0

@@ -35,7 +35,7 @@ import torch
 from .build import check, load_library
 from .compsum import kadd, kfinal
 from .fused_gru import MDRNN_FAMILY, Weights, fits_shared_memory, is_cpu_call, logp2, stream_of
-from .tfim_flip_kernel import plain_uniforms
+from .tfim_flip_kernel import check_key, plain_uniforms
 
 
 def supports(nx: int, ny: int, u: int, device) -> bool:
@@ -183,8 +183,7 @@ def check_supported(nx: int, ny: int, u: int, device) -> None:
 
 
 def check_draw(num_samples: int, nx: int, ny: int, seed: int, offset: int) -> None:
-    if not (0 <= seed < 2**32 and 0 <= offset < 2**32):
-        raise ValueError(f"seed and offset must lie in [0, 2^32); got {seed}, {offset}")
+    check_key(seed, offset)
     if min(num_samples, nx, ny) < 1:
         raise ValueError(f"num_samples, nx and ny must be >= 1; got {num_samples}, {nx}, {ny}")
 

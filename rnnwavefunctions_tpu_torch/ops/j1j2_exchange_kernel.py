@@ -36,7 +36,7 @@ from .fused_gru import (
     is_cpu_call,
     stream_of,
 )
-from .tfim_flip_kernel import plain_uniforms
+from .tfim_flip_kernel import check_key, plain_uniforms
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +127,7 @@ def j1j2_sample_and_exchange(weights: Weights, num_samples: int, n_sites: int,
     and estimate their exchange sums in one pass.  ``(seed, offset)`` (each
     in [0, 2^32)) keys the kernel's Philox generator.  Returns (samples
     (B, N) int32, eoff_re, eoff_im, lp_re, lp_im)."""
-    if not (0 <= seed < 2**32 and 0 <= offset < 2**32):
-        raise ValueError(f"seed and offset must lie in [0, 2^32); got {seed}, {offset}")
+    check_key(seed, offset)
     elements = dict(el_nn=el_nn, el_nnn=el_nnn, has_nnn=has_nnn, periodic=periodic)
     if is_cpu_call(*weights):
         uni = plain_uniforms(num_samples, n_sites, seed, offset, weights[0].device)

@@ -42,7 +42,7 @@ from .fused_mdrnn import (
     visit_order,
     weight_ptrs,
 )
-from .tfim_flip_kernel import _ratio_sum, plain_uniforms
+from .tfim_flip_kernel import ratio_sum, plain_uniforms
 
 # the base pass: (spins (B, NS), lp (B,), hist (B, NS, U), pfx (B, NS)), visit order
 base_pass_plain = sweep_plain
@@ -103,7 +103,7 @@ def flip_log_probs_plain(weights: Weights, spins: torch.Tensor, hist: torch.Tens
 def flip_ratio_sum_plain(weights: Weights, samples: torch.Tensor):
     _, nx, ny = samples.shape
     spins, lp, hist, pfx = base_pass_plain(weights, nx, ny, samples=samples)
-    return _ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, nx, ny), lp), lp
+    return ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, nx, ny), lp), lp
 
 
 @torch.no_grad()
@@ -111,7 +111,7 @@ def sample_and_flip_sum_plain(weights: Weights, uniforms: torch.Tensor, nx: int,
     """Draws with the (B, NS) visit-order ``uniforms`` (as ``sample_plain``)
     and returns (samples (B, Nx, Ny) int32, base log p (B,), ratio (B,))."""
     spins, lp, hist, pfx = base_pass_plain(weights, nx, ny, uniforms=uniforms)
-    ratio = _ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, nx, ny), lp)
+    ratio = ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, nx, ny), lp)
     return to_lattice(spins, nx, ny), lp, ratio
 
 

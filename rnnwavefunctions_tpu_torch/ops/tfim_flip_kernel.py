@@ -1,18 +1,22 @@
-"""K3 and K4: the TFIM single-flip ratio sum by prefix sharing.
+"""K3, K4 and B6: the TFIM single-flip log-probabilities by prefix sharing.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/tfim_flip_kernel.py``
-(``tfim_flip_ratio_sum`` and ``tfim_sample_and_flip_sum`` with
-``per_flip=False``).  Per sample it returns
+(``tfim_flip_ratio_sum``, ``tfim_flip_log_probs`` and
+``tfim_sample_and_flip_sum``).  Per sample, K3/K4 return
 
     ratio[b] = sum_f exp(0.5 * (log p(sigma_b with site f flipped) - log p(sigma_b)))
 
-and the base log p.  Flipping site f leaves sites < f untouched, so
-``log p(sigma^(f)) = pfx[f-1] + fl[f] + suffix_f``: only the suffix after f
-is recomputed, from the stored hidden state h_f with the flipped input.
+and the base log p; B6 returns the per-flip log p ``lpf[b, f] = log
+p(sigma_b with site f flipped)`` in place of the sum (the parity-symmetrized
+estimator combines two directions before the ratio).  Flipping site f leaves
+sites < f untouched, so ``log p(sigma^(f)) = pfx[f-1] + fl[f] + suffix_f``:
+only the suffix after f is recomputed, from the stored hidden state h_f with
+the flipped input.
 
 The CUDA kernels are ``csrc/tfim_flip.cu`` (one source, sample mode on or
-off).  The plain versions below run the same base pass and recompute the
-suffixes explicitly, all flips of a sample side by side.
+off, ratio sum or per-flip output).  The plain versions below run the same
+base pass and recompute the suffixes explicitly, all flips of a sample side
+by side.
 """
 
 from __future__ import annotations
@@ -91,7 +95,7 @@ def flip_log_probs_plain(weights: Weights, spins, hist, pfx, fl) -> torch.Tensor
     return kfinal(acc, cmp)
 
 
-def _ratio_sum(lpf: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
+def ratio_sum(lpf: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
     """Sum of exp(0.5 (lpf - lp)) over flips, in flip order."""
     terms = torch.exp(0.5 * (lpf - lp[:, None]))
     out = torch.zeros_like(lp)
@@ -103,14 +107,35 @@ def _ratio_sum(lpf: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def flip_ratio_sum_plain(weights: Weights, samples: torch.Tensor):
     spins, lp, hist, pfx, fl = base_pass_plain(weights, samples=samples)
-    return _ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, fl), lp), lp
+    return ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, fl), lp), lp
 
 
 @torch.no_grad()
 def sample_and_flip_sum_plain(weights: Weights, uniforms: torch.Tensor):
     spins, lp, hist, pfx, fl = base_pass_plain(weights, uniforms=uniforms)
-    ratio = _ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, fl), lp)
+    ratio = ratio_sum(flip_log_probs_plain(weights, spins, hist, pfx, fl), lp)
     return spins.to(torch.int32), lp, ratio
+
+
+@torch.no_grad()
+def per_flip_log_probs_plain(weights: Weights, samples: torch.Tensor):
+    """(lpf (B, N), base log p (B,)) of given samples."""
+    spins, lp, hist, pfx, fl = base_pass_plain(weights, samples=samples)
+    return flip_log_probs_plain(weights, spins, hist, pfx, fl), lp
+
+
+@torch.no_grad()
+def sample_and_per_flip_plain(weights: Weights, uniforms: torch.Tensor):
+    """(samples (B, N) int32, base log p (B,), lpf (B, N)) drawn from given
+    uniforms."""
+    spins, lp, hist, pfx, fl = base_pass_plain(weights, uniforms=uniforms)
+    return spins.to(torch.int32), lp, flip_log_probs_plain(weights, spins, hist, pfx, fl)
+
+
+def check_key(seed: int, offset: int) -> None:
+    """The samplers' Philox key: each word in [0, 2^32)."""
+    if not (0 <= seed < 2**32 and 0 <= offset < 2**32):
+        raise ValueError(f"seed and offset must lie in [0, 2^32); got {seed}, {offset}")
 
 
 def plain_uniforms(num_samples: int, n_sites: int, seed: int, offset: int,
@@ -131,9 +156,8 @@ def _scratch(b: int, n: int, u: int, dev):
         torch.empty(b * n * u, **f32),  # hidden history
         torch.empty(b * n, **f32),      # pfx
         torch.empty(b * n, **f32),      # fl
-        torch.empty(b * n, **f32),      # per-flip ratio terms
+        torch.empty(b, n, **f32),       # per-flip ratio terms, or lpf
         torch.empty(b, **f32),          # base log p
-        torch.empty(b, **f32),          # ratio sum
     )
 
 
@@ -145,7 +169,8 @@ def tfim_flip_ratio_sum(weights: Weights, samples: torch.Tensor
     u = check_weights(weights)
     b, n = check_samples(samples)
     check_supported(n, u, samples.device)
-    hist, pfx, fl, terms, lp, ratio = _scratch(b, n, u, samples.device)
+    hist, pfx, fl, terms, lp = _scratch(b, n, u, samples.device)
+    ratio = torch.empty_like(lp)
     lib = load_library().lib
     with torch.cuda.device(samples.device):
         err = lib.rnnwf_tfim_flip_ratio_sum(
@@ -161,14 +186,73 @@ def tfim_flip_ratio_sum(weights: Weights, samples: torch.Tensor
 tfim_flip_ratio_sum.launches = 0
 
 
+def tfim_flip_log_probs(weights: Weights, samples: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6, teacher-forced: (B, N) int32 samples -> (lpf (B, N), base log p
+    (B,)), ``lpf[b, f]`` the log p of sample b with site f flipped."""
+    if is_cpu_call(samples, *weights):
+        return per_flip_log_probs_plain(weights, samples)
+    u = check_weights(weights)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device)
+    hist, pfx, fl, lpf, lp = _scratch(b, n, u, samples.device)
+    lib = load_library().lib
+    with torch.cuda.device(samples.device):
+        err = lib.rnnwf_tfim_flip_log_probs(
+            samples.data_ptr(), *[w.data_ptr() for w in weights],
+            hist.data_ptr(), pfx.data_ptr(), fl.data_ptr(), lpf.data_ptr(),
+            lp.data_ptr(), b, n, u, stream_of(samples),
+        )
+    check(err, "rnnwf_tfim_flip_log_probs")
+    tfim_flip_log_probs.launches += 1
+    return lpf, lp
+
+
+tfim_flip_log_probs.launches = 0
+
+
+def tfim_sample_and_flip_log_probs(weights: Weights, num_samples: int, n_sites: int,
+                                   seed: int, offset: int):
+    """B6 in sample mode: K3's draws for ``(seed, offset)`` with their
+    per-flip log p.  Returns (samples (B, N) int32, base log p (B,), lpf
+    (B, N)).  ``tfim_sample_and_flip_sum(..., per_flip=True)`` calls it."""
+    check_key(seed, offset)
+    if is_cpu_call(*weights):
+        uni = plain_uniforms(num_samples, n_sites, seed, offset, weights[0].device)
+        return sample_and_per_flip_plain(weights, uni)
+    u = check_weights(weights)
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
+    check_supported(n_sites, u, weights[0].device)
+    b, n, dev = num_samples, n_sites, weights[0].device
+    samples = torch.empty(b, n, dtype=torch.int32, device=dev)
+    hist, pfx, fl, lpf, lp = _scratch(b, n, u, dev)
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        err = lib.rnnwf_tfim_sample_and_flip_log_probs(
+            seed, offset, *[w.data_ptr() for w in weights], samples.data_ptr(),
+            hist.data_ptr(), pfx.data_ptr(), fl.data_ptr(), lpf.data_ptr(),
+            lp.data_ptr(), b, n, u, stream_of(weights[0]),
+        )
+    check(err, "rnnwf_tfim_sample_and_flip_log_probs")
+    tfim_sample_and_flip_log_probs.launches += 1
+    return samples, lp, lpf
+
+
+tfim_sample_and_flip_log_probs.launches = 0
+
+
 def tfim_sample_and_flip_sum(weights: Weights, num_samples: int, n_sites: int,
-                             seed: int, offset: int):
+                             seed: int, offset: int, per_flip: bool = False):
     """K3: draw ``num_samples`` chains of ``n_sites`` spins and estimate their
     flip-ratio sums in one pass.  ``(seed, offset)`` (each in [0, 2^32))
     keys the kernel's Philox generator.  Returns (samples (B, N) int32,
-    base log p (B,), ratio_sum (B,))."""
-    if not (0 <= seed < 2**32 and 0 <= offset < 2**32):
-        raise ValueError(f"seed and offset must lie in [0, 2^32); got {seed}, {offset}")
+    base log p (B,), ratio_sum (B,)); with ``per_flip`` (B6 in sample mode,
+    ``tfim_sample_and_flip_log_probs``) the per-flip log p (B, N) in place
+    of the ratio sum."""
+    if per_flip:
+        return tfim_sample_and_flip_log_probs(weights, num_samples, n_sites, seed, offset)
+    check_key(seed, offset)
     if is_cpu_call(*weights):
         uni = plain_uniforms(num_samples, n_sites, seed, offset, weights[0].device)
         return sample_and_flip_sum_plain(weights, uni)
@@ -178,7 +262,8 @@ def tfim_sample_and_flip_sum(weights: Weights, num_samples: int, n_sites: int,
     check_supported(n_sites, u, weights[0].device)
     b, n, dev = num_samples, n_sites, weights[0].device
     samples = torch.empty(b, n, dtype=torch.int32, device=dev)
-    hist, pfx, fl, terms, lp, ratio = _scratch(b, n, u, dev)
+    hist, pfx, fl, terms, lp = _scratch(b, n, u, dev)
+    ratio = torch.empty_like(lp)
     lib = load_library().lib
     with torch.cuda.device(dev):
         err = lib.rnnwf_tfim_sample_and_flip_sum(

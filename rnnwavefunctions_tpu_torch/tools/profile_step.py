@@ -8,7 +8,13 @@
 * ``--model mdrnn``: ``MDRNN2D(16, 16, units=50)`` on
   ``TFIM2D(16, 16, Bx=3, encoding="grid")``; S=500; Adam at lr 5e-3
   (``profile``); ``accuracy`` trains the same model on the 4x4, Bx=3
-  lattice.
+  lattice;
+* ``--model parity``: the tfim chain with ``PRNN1D(parity=True)``, the
+  parity-symmetrized density (bench.py's ``parity_n100`` row);
+* ``--model snake``: ``PRNNSnake2D(10, 10, (50,))`` on
+  ``TFIM2D(10, 10, Bx=3, encoding="flat")``; S=500; Adam at lr 5e-3
+  (``profile``, bench.py's ``snake2d_10x10`` row); ``accuracy`` trains the
+  same model on the 4x4, Bx=3 lattice.
 
     python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--model M] [--out FILE]
     python -m rnnwavefunctions_tpu_torch.tools.profile_step accuracy [--model M] [--steps 8000]
@@ -24,7 +30,8 @@ of the profiled window).
 metrics read back every ``--block`` steps; the energy is the mean of the
 last 100 steps' mean energies (± their standard error), reported beside
 the reference energy: the DMRG ground-state energy of the chain, or for
-``mdrnn`` the Lanczos energy of the 4x4 lattice (reported, not gated).
+``mdrnn`` and ``snake`` the Lanczos energy of the 4x4 lattice (reported,
+not gated).
 
 Each mode prints the card's name and power limit first and a JSON summary
 last, and writes that summary to ``--out`` when given.
@@ -41,14 +48,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import CRNNU1, J1J2, MDRNN2D, PRNN1D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer
+from .. import (
+    CRNNU1, J1J2, MDRNN2D, PRNN1D, PRNNSnake2D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer,
+)
 from ..ed.exact import E_TFIM2D_4X4_BX3
 
 N, U = 100, 50
-NX_2D, NY_2D, BX_2D = 16, 16, 3.0  # bench.py's mdrnn_16x16 row
-# Reference ground-state energies: DMRG for the two chains (the JAX package's
-# README and BASELINE.md), Lanczos for the 4x4, Bx=3 lattice of ``accuracy``
-E_REF = {"tfim": -126.9618766964, "j1j2": -40.73881897, "mdrnn": E_TFIM2D_4X4_BX3}
+BX_2D = 3.0
+# the profiled lattices: bench.py's mdrnn_16x16 and snake2d_10x10 rows
+LATTICE = {"mdrnn": (16, 16), "snake": (10, 10)}
+# Reference ground-state energies: DMRG for the chains (the JAX package's
+# README and BASELINE.md; parity symmetrizes the same TFIM chain), Lanczos
+# for the 4x4, Bx=3 lattice of ``accuracy``
+E_REF = {"tfim": -126.9618766964, "parity": -126.9618766964, "j1j2": -40.73881897,
+         "mdrnn": E_TFIM2D_4X4_BX3, "snake": E_TFIM2D_4X4_BX3}
 
 
 def _card() -> str:
@@ -58,13 +71,19 @@ def _card() -> str:
     ).stdout.strip()
 
 
-def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False,
-             lattice=(NX_2D, NY_2D)):
-    if model == "tfim":
-        ansatz, ham = PRNN1D(N, (U,), impl=impl, device="cuda"), TFIM1D(N, 1.0)
+def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False, lattice=None):
+    """The model's trainer at the flagship size; ``lattice`` overrides the
+    2D models' lattice."""
+    lattice = lattice or LATTICE.get(model)
+    if model in ("tfim", "parity"):
+        ansatz = PRNN1D(N, (U,), parity=model == "parity", impl=impl, device="cuda")
+        ham = TFIM1D(N, 1.0)
     elif model == "mdrnn":
         ansatz = MDRNN2D(*lattice, units=U, impl=impl, device="cuda")
         ham = TFIM2D(*lattice, bx=BX_2D, encoding="grid")
+    elif model == "snake":
+        ansatz = PRNNSnake2D(*lattice, (U,), impl=impl, device="cuda")
+        ham = TFIM2D(*lattice, bx=BX_2D, encoding="flat")
     else:
         ansatz = CRNNU1(N, (U,), impl=impl, device="cuda")
         ham = J1J2(N, j2=0.2, marshall_sign=marshall_sign)
@@ -117,7 +136,8 @@ def profile(model: str, marshall_sign: bool) -> dict:
 
 
 def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
-    trainer, state = _trainer(model, marshall_sign=marshall_sign, lattice=(4, 4))
+    lattice = (4, 4) if model in LATTICE else None
+    trainer, state = _trainer(model, marshall_sign=marshall_sign, lattice=lattice)
     energies, imag = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -147,7 +167,8 @@ def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("mode", choices=("profile", "accuracy"))
-    parser.add_argument("--model", choices=("tfim", "j1j2", "mdrnn"), default="tfim")
+    parser.add_argument("--model", choices=("tfim", "parity", "j1j2", "mdrnn", "snake"),
+                        default="tfim")
     parser.add_argument("--marshall-sign", action="store_true",
                         help="j1j2: train the Marshall-rotated Hamiltonian")
     parser.add_argument("--steps", type=int, default=8000, help="accuracy: Adam steps")

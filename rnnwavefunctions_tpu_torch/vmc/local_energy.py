@@ -17,6 +17,7 @@ for real ansatze.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -49,15 +50,19 @@ def _flip_kernel_ok(ansatz, hamiltonian, encoding: str) -> bool:
 
 def _select_family(ansatz: Any, hamiltonian: Any) -> Optional[str]:
     """``"plain_flip"`` (positive pRNN + flat TFIM on the kernels),
+    ``"parity_flip"`` (parity-symmetrized pRNN + flat TFIM on the kernels),
     ``"mdrnn_flip"`` (2D MDRNN + grid TFIM on the kernels), ``"exchange"``
     (complex cRNN + J1-J2 spin exchange on the kernels) or None (the
-    generic connected-configs estimator).  The ansatz's ``_use_kernels``
-    raises for an uncovered configuration on the card."""
+    generic connected-configs estimator).  A parity pRNN is not
+    ``plain_positive``, so it never reaches ``"plain_flip"``.  The ansatz's
+    ``_use_kernels`` raises for an uncovered configuration on the card."""
     is_complex = getattr(ansatz, "is_complex", False)
     positive = getattr(ansatz, "plain_positive", False) and not is_complex
     is_mdrnn = isinstance(ansatz, MDRNN2D)
     if positive and not is_mdrnn and _flip_kernel_ok(ansatz, hamiltonian, "flat"):
         return "plain_flip"
+    if getattr(ansatz, "parity", False) and _flip_kernel_ok(ansatz, hamiltonian, "flat"):
+        return "parity_flip"
     if positive and is_mdrnn and _flip_kernel_ok(ansatz, hamiltonian, "grid"):
         return "mdrnn_flip"
     if (
@@ -68,6 +73,19 @@ def _select_family(ansatz: Any, hamiltonian: Any) -> Optional[str]:
     ):
         return "exchange"
     return None
+
+
+def _parity_energy(hamiltonian, samples, lpf1, lp1, lpf2_rev, lp2):
+    """The parity-symmetrized contraction: the forward and reversed per-flip
+    log p are combined BEFORE the ratio (the symmetrized density's ratios do
+    not decompose per direction).  A flip of site i in the chain is a flip
+    of site N-1-i in its reversal.  Returns (e_re, None, symmetrized base
+    log psi)."""
+    num = torch.logaddexp(lpf1, lpf2_rev.flip(1))  # (B, N), + log 2
+    den = torch.logaddexp(lp1, lp2)                 # the same log 2 cancels
+    ratio_sum = torch.exp(0.5 * (num - den[:, None])).sum(dim=1)
+    e = hamiltonian.diagonal(samples) + hamiltonian.uniform_flip_element * ratio_sum
+    return e, None, 0.5 * (den - math.log(2.0))
 
 
 def make_local_energy_fn(ansatz: Any, hamiltonian: Any,
@@ -91,6 +109,19 @@ def make_local_energy_fn(ansatz: Any, hamiltonian: Any,
 
         local_energy_fused.needs_log_amp = False
         return local_energy_fused
+
+    if family == "parity_flip":
+        from ..ops.tfim_flip_kernel import tfim_flip_log_probs
+
+        @torch.no_grad()
+        def local_energy_parity(samples, log_amp_samples=None):
+            w = ansatz.weights()
+            lpf1, lp1 = tfim_flip_log_probs(w, samples)
+            lpf2_rev, lp2 = tfim_flip_log_probs(w, samples.flip(1).contiguous())
+            return _parity_energy(hamiltonian, samples, lpf1, lp1, lpf2_rev, lp2)
+
+        local_energy_parity.needs_log_amp = False
+        return local_energy_parity
 
     if family == "mdrnn_flip":
         from ..ops.mdrnn_flip_kernel import mdrnn_flip_ratio_sum
@@ -168,6 +199,24 @@ def make_fused_sample_energy_fn(ansatz: Any, hamiltonian: Any):
             return samples, (lp_re, lp_im), hamiltonian.diagonal(samples) + e_re, e_im
 
         return fused_j1j2
+
+    if family == "parity_flip":
+        # B6 in sample mode covers the forward chain, teacher-forced B6 the
+        # reversed one; the sampler stays the plain autoregressive one
+        from ..ops import tfim_flip_kernel as tk
+
+        n = ansatz.num_sites
+
+        @torch.no_grad()
+        def fused_parity(num_samples, seed, offset):
+            w = ansatz.weights()
+            samples, lp1, lpf1 = tk.tfim_sample_and_flip_sum(
+                w, num_samples, n, seed, offset, per_flip=True)
+            lpf2_rev, lp2 = tk.tfim_flip_log_probs(w, samples.flip(1).contiguous())
+            e_re, e_im, la = _parity_energy(hamiltonian, samples, lpf1, lp1, lpf2_rev, lp2)
+            return samples, la, e_re, e_im
+
+        return fused_parity
 
     flip_element = hamiltonian.uniform_flip_element
     if family == "mdrnn_flip":

@@ -3,14 +3,14 @@
 Counterpart of ``rnnwavefunctions_tpu/vmc/trainer.py`` for one device, the
 Adam optimizer and a constant learning rate.  One step:
 
-1. sample + local energies: the fused kernel (K3 for the pRNN on the
-   TFIM, B16 for the 2D MDRNN on the grid TFIM, B11 for the cRNN on J1-J2)
-   when ``_select_family`` picks it, else the ansatz's sampler and the
-   generic estimator;
+1. sample + local energies: the fused kernels (K3 for the pRNN on the
+   TFIM, B6 in both modes for the parity pRNN, B16 for the 2D MDRNN on the
+   grid TFIM, B11 for the cRNN on J1-J2) when ``_select_family`` picks
+   them, else the ansatz's sampler and the generic estimator;
 2. the surrogate loss on ``ansatz.log_amp`` (kernels K1 forward and K2
-   backward for the pRNN, B12 and B14 for the MDRNN), or for a complex
-   ansatz on ``ansatz.log_amp_parts`` (B7 forward and B9 backward), when
-   the ansatz runs its kernels;
+   backward for the pRNN, twice for parity, B12 and B14 for the MDRNN), or
+   for a complex ansatz on ``ansatz.log_amp_parts`` (B7 forward and B9
+   backward), when the ansatz runs its kernels;
 3. ``torch.optim.Adam``, whose update ``lr * m_hat / (sqrt(v_hat) + eps)``
    is optax's ``adam`` with ``eps_root=0``.
 
@@ -92,12 +92,18 @@ class VMCTrainer:
 
     def _log_amp_of_batch(self, samples: torch.Tensor, logp_sampling: torch.Tensor):
         """log psi of a drawn batch, the generic estimator's ratio
-        denominators: 0.5 * the sampling log p for a positive ansatz, a
-        teacher-forced (Re, Im) pass for a complex one."""
-        if getattr(self.ansatz, "is_complex", False):
-            with torch.no_grad():
-                return self.ansatz.log_amp_parts(samples)
-        return 0.5 * logp_sampling
+        denominators.  Only for a plain positive ansatz is the sampling
+        density the wavefunction density, so 0.5 * the sampling log p is
+        free; any other real ansatz (parity: a plain sampler under a
+        symmetrized density) pays a teacher-forced ``log_amp``, and a
+        complex one a teacher-forced (Re, Im) pass."""
+        ansatz = self.ansatz
+        if getattr(ansatz, "plain_positive", False):
+            return 0.5 * logp_sampling
+        with torch.no_grad():
+            if getattr(ansatz, "is_complex", False):
+                return ansatz.log_amp_parts(samples)
+            return ansatz.log_amp(samples)
 
     def _sample_and_energy(self, state: TrainState):
         """Returns (samples, e_re, e_im); e_im is None for a real ansatz."""

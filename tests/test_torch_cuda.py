@@ -1,16 +1,18 @@
-"""PyTorch port: the CUDA kernels K1-K4, B7, B9, B10, B11 and B12-B16 against
-their plain versions on the card, at small shapes with ragged batches.  They skip without a CUDA device
-(a CUDA kernel has no CPU mode).  This file imports no JAX, so on a machine
+"""PyTorch port: the CUDA kernels K1-K4, B5-B11 and B12-B16 against their
+plain versions on the card, at small shapes with ragged batches, and the
+training steps that launch them.  They skip without a CUDA device (a CUDA
+kernel has no CPU mode).  This file imports no JAX, so on a machine
 with a card and without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from rnnwavefunctions_tpu_torch import (
-    CRNNU1, J1J2, MDRNN2D, PRNN1D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer,
+    CRNNU1, J1J2, MDRNN2D, PRNN1D, PRNNSnake2D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer,
 )
 from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_crnn_bwd, fused_gru, fused_gru_bwd
 from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
@@ -116,14 +118,90 @@ def test_auto_raises_outside_coverage_on_the_card(cuda):
 
 
 def test_sampler_runs_k3_on_the_card(cuda):
+    """The sampler runs B5 (the stand-alone sampler), no longer K3."""
     model = PRNN1D(N, (16,), device=cuda)
     model.init(torch.Generator().manual_seed(0))
-    before = tk.tfim_sample_and_flip_sum.launches
+    before = (fused_gru.gru_sample.launches, tk.tfim_sample_and_flip_sum.launches)
     s, lp = model.sample_with_log_prob(B, torch.Generator().manual_seed(4))
-    assert tk.tfim_sample_and_flip_sum.launches == before + 1
+    assert (fused_gru.gru_sample.launches, tk.tfim_sample_and_flip_sum.launches) == (
+        before[0] + 1, before[1])
     with torch.no_grad():
         want = fused_gru.log_prob_plain(model.weights(), s)
     torch.testing.assert_close(lp, want, atol=1e-5 * N, rtol=0)
+
+
+@pytest.mark.parametrize("u", [16, 50])
+def test_b5_matches_plain_and_k3(cuda, u):
+    """B5 draws K3's spins and log p bit for bit for one key; its log p is
+    the teacher-forced one; at N=3 its frequencies follow the density."""
+    w = _weights(u, cuda)
+    before = fused_gru.gru_sample.launches
+    s5, lp5 = fused_gru.gru_sample(w, B, N, 3, 5)
+    assert fused_gru.gru_sample.launches == before + 1
+    s3, lp3, _ = tk.tfim_sample_and_flip_sum(w, B, N, 3, 5)
+    assert torch.equal(s5, s3)
+    torch.testing.assert_close(lp5, lp3, atol=0, rtol=0)
+    torch.testing.assert_close(lp5, fused_gru.log_prob_plain(w, s5), atol=1e-5 * N, rtol=0)
+    assert not torch.equal(fused_gru.gru_sample(w, B, N, 3, 6)[0], s5)
+    draws = 20000
+    s, _ = fused_gru.gru_sample(w, draws, 3, 11, 0)
+    codes = s.cpu().numpy() @ (2 ** np.arange(3))
+    freq = np.bincount(codes, minlength=8) / draws
+    basis = torch.tensor([[(c >> i) & 1 for i in range(3)] for c in range(8)],
+                         dtype=torch.int32, device=cuda)
+    probs = torch.exp(fused_gru.log_prob_plain(w, basis)).cpu().numpy()
+    assert float(np.abs(freq - probs).max()) <= 0.01
+
+
+def test_b6_matches_plain_in_both_modes(cuda):
+    """B6 teacher-forced against its plain version; in sample mode K3's
+    draws, with the teacher-forced lpf bit for bit on them; the flip-order
+    sum of its terms is K4's ratio."""
+    w, s = _weights(50, cuda), _samples(cuda)
+    counts = (tk.tfim_flip_log_probs.launches, tk.tfim_sample_and_flip_log_probs.launches)
+    lpf, lp = tk.tfim_flip_log_probs(w, s)
+    lpf_p, lp_p = tk.per_flip_log_probs_plain(w, s)
+    torch.testing.assert_close(lpf, lpf_p, atol=1e-5 * N, rtol=0)
+    torch.testing.assert_close(lp, lp_p, atol=1e-5 * N, rtol=0)
+    ratio, lp4 = tk.tfim_flip_ratio_sum(w, s)
+    torch.testing.assert_close(tk.ratio_sum(lpf, lp), ratio, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lp, lp4, atol=0, rtol=0)
+    s6, lp6, lpf6 = tk.tfim_sample_and_flip_sum(w, B, N, 3, 5, per_flip=True)
+    assert torch.equal(s6, tk.tfim_sample_and_flip_sum(w, B, N, 3, 5)[0])
+    lpf_t, lp_t = tk.tfim_flip_log_probs(w, s6)
+    torch.testing.assert_close(lpf6, lpf_t, atol=0, rtol=0)
+    torch.testing.assert_close(lp6, lp_t, atol=0, rtol=0)
+    assert (tk.tfim_flip_log_probs.launches, tk.tfim_sample_and_flip_log_probs.launches) == (
+        counts[0] + 2, counts[1] + 1)
+
+
+def test_parity_training_step_launches_its_kernels(cuda):
+    trainer = VMCTrainer(PRNN1D(N, (16,), parity=True, device=cuda), TFIM1D(N, 1.0),
+                         TrainConfig(num_samples=B))
+    state = trainer.init()
+    fns = (tk.tfim_sample_and_flip_log_probs, tk.tfim_flip_log_probs, fused_gru.gru_log_prob,
+           fused_gru_bwd.gru_log_prob_bwd, tk.tfim_sample_and_flip_sum, fused_gru.gru_sample)
+    counts = [fn.launches for fn in fns]
+    state, ms = trainer.run_steps(state, 2)
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 4, 4, 0, 0]
+    assert bool(torch.isfinite(ms["mean_energy"]).all())
+    trainer.local_energy(trainer.ansatz.sample(B, torch.Generator().manual_seed(0)))
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 4, 4, 4, 0, 1]
+
+
+def test_snake_training_step_runs_k1_to_k4(cuda):
+    trainer = VMCTrainer(PRNNSnake2D(3, 4, (16,), device=cuda), TFIM2D(3, 4, 3.0),
+                         TrainConfig(num_samples=B))
+    state = trainer.init()
+    fns = (tk.tfim_sample_and_flip_sum, fused_gru.gru_log_prob, fused_gru_bwd.gru_log_prob_bwd,
+           tk.tfim_flip_ratio_sum, fused_gru.gru_sample)
+    counts = [fn.launches for fn in fns]
+    state, ms = trainer.run_steps(state, 2)
+    trainer.local_energy(trainer.ansatz.sample(B, torch.Generator().manual_seed(0)))
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 2, 1, 1]
+    assert bool(torch.isfinite(ms["mean_energy"]).all())
+    with pytest.raises(ValueError, match="impl='plain'"):
+        VMCTrainer(PRNNSnake2D(3, 4, (16, 16), device=cuda), TFIM2D(3, 4, 3.0))
 
 
 # ---- the complex U(1) cRNN kernels (B7, B9, B10, B11)
@@ -193,13 +271,40 @@ def test_j1j2_training_step_runs_every_kernel(cuda):
                          TrainConfig(num_samples=B))
     state = trainer.init()
     fns = (jk.j1j2_sample_and_exchange, fused_crnn.crnn_log_amp_parts,
-           fused_crnn_bwd.crnn_log_amp_bwd, jk.j1j2_exchange_offdiag)
+           fused_crnn_bwd.crnn_log_amp_bwd, jk.j1j2_exchange_offdiag, fused_crnn.crnn_sample)
     counts = [fn.launches for fn in fns]
     state, ms = trainer.run_steps(state, 2)
+    # CRNNU1.sample runs B8, the stand-alone sampler, and no longer B11
     trainer.local_energy(trainer.ansatz.sample(B, torch.Generator().manual_seed(0)))
-    assert [fn.launches - c for fn, c in zip(fns, counts)] == [3, 2, 2, 1]
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 2, 1, 1]
     assert bool(torch.isfinite(ms["mean_energy"]).all())
     assert ms["mean_energy_im"].shape == (2,)
+
+
+@pytest.mark.parametrize("u1", [True, False])
+def test_b8_matches_b11_and_plain(cuda, u1):
+    """B8 draws B11's spins for one key (in the sector under u1) and returns
+    2 Re log psi, B11's bit for bit and B7's to the tolerance; at N=4 with
+    u1 its frequencies follow |psi|^2."""
+    w = _crnn_weights(50, cuda)
+    info = J1J2(N, j2=0.2).exchange_kernel_info
+    before = fused_crnn.crnn_sample.launches
+    s8, lp8 = fused_crnn.crnn_sample(w, B, N, 3, 5, u1)
+    assert fused_crnn.crnn_sample.launches == before + 1
+    s11, _, _, lp_re, _ = jk.j1j2_sample_and_exchange(w, B, N, 3, 5, u1=u1, **info)
+    assert torch.equal(s8, s11)
+    torch.testing.assert_close(lp8, 2.0 * lp_re, atol=0, rtol=0)
+    re, _ = fused_crnn.log_amp_parts_plain(w, s8, u1)
+    torch.testing.assert_close(lp8, 2.0 * re, atol=2e-5 * N, rtol=0)
+    if u1:
+        assert bool((s8.sum(dim=1) == N // 2).all())
+        draws, n4 = 20000, 4
+        s, _ = fused_crnn.crnn_sample(w, draws, n4, 11, 0, True)
+        freq = np.bincount(s.cpu().numpy() @ (2 ** np.arange(n4)), minlength=16) / draws
+        basis = torch.tensor([[(c >> i) & 1 for i in range(n4)] for c in range(16)],
+                             dtype=torch.int32, device=cuda)
+        probs = torch.exp(2.0 * fused_crnn.log_amp_parts_plain(w, basis, True)[0]).cpu().numpy()
+        assert float(np.abs(freq - probs).max()) <= 0.01
 
 
 def test_crnn_coverage_on_the_card(cuda):

@@ -127,7 +127,7 @@ def test_auto_on_cuda_raises_outside_coverage(units):
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(parity=True), dict(cell="lstm"), dict(units=(4, 6))]
+    "kwargs", [dict(parity=True, cell="lstm"), dict(cell="lstm"), dict(units=(4, 6))]
 )
 def test_unported_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported yet"):
