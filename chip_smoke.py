@@ -62,11 +62,33 @@ Phases (each prints its time; any failure raises and exits non-zero):
    at lr 5e-3), after 3 warm-up steps: steps/s and the first and last
    energies, which must be finite and falling; then one sample of each
    model and of CRNNU1(100, (50,)), which run B5 and B8 and not K3 or B11.
+18. The minSR kernels against their plain versions on the card: the
+   jacobian sweep B17 at N=100, U=50, B=500 (history, gate cotangents, dl1,
+   then the per-sample rows and log p against the plain rows) and at
+   N=1000, S=64 (where the TPU kernel takes its spill variant B18); B19 and
+   B20 (both parts) on B11's in-sector samples of the J1-J2 flagship model,
+   and its rows against the plain rows; the CG solve B21 on the TFIM
+   flagship's (S, S) Gram and the J1-J2 flagship's (2S, 2S) Gram against
+   the plain CG, with its relative residual beside the Cholesky solve's.
+19. The minSR kernels, their plain versions and their library yardsticks
+   (``torch.nn.GRU``, i.e. cuDNN, for B19; Cholesky for B21) timed with CUDA
+   events, their bounds, and the widths their kernel families cover.
+20. minSR accuracy: TFIM N=20 (PRNN1D(20, (50,)), S=500, lr 5e-2) in 50-step
+   blocks until within 1e-3 of the DMRG energy, at most 600 steps; J1-J2
+   N=8 (CRNNU1(8, (12,)), J1J2(8, J2=0.2), S=256, lr 5e-2, seed 7) after 80
+   steps, within 3e-2 of exact diagonalization.  Every minSR kernel must
+   launch.
+21. minSR flagships: 50 steps each of the TFIM flagship and the J1-J2
+   flagship (S=500, minSR at lr 5e-2, the CG solve) after 3 warm-up steps,
+   and 10 steps of the N=1000, S=64 chain: steps/s and the first and last
+   energies, which must be finite and falling.
 
 The second-last line is a JSON object with one entry per kernel: its
 launches on its main path (phase 5 for K1-K4, phase 9 for B7-B11, phase 13
-for B12-B16, phase 17's parity run for B5, B6 and B8), its largest error
-against its plain version, its time and its plain version's, and
+for B12-B16, phase 17's parity run for B5, B6 and B8, phase 21's TFIM
+flagship for B17 and B21, its J1-J2 flagship for B19 and B20, its N=1000
+chain for B18), its largest error against its plain version, its time and
+its plain version's, its library yardstick's where one exists, and
 ``bound_ms``, the least time the card could take for the work on this run's
 inputs.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -117,6 +139,16 @@ SOURCES = {
                                  "rnnwavefunctions_tpu/ops/mdrnn_flip_kernel.py:556"),
     "B16 mdrnn_sample_and_flip_sum": ("rnnwavefunctions_tpu_torch/csrc/mdrnn_flip.cu",
                                       "rnnwavefunctions_tpu/ops/mdrnn_flip_kernel.py:594"),
+    "B17 jac_sweep": ("rnnwavefunctions_tpu_torch/csrc/fused_jac.cu",
+                      "rnnwavefunctions_tpu/ops/fused_jac.py:525"),
+    "B18 jac_sweep N=1000": ("rnnwavefunctions_tpu_torch/csrc/fused_jac.cu",
+                             "rnnwavefunctions_tpu/ops/fused_jac.py:559"),
+    "B19 rollout_hist": ("rnnwavefunctions_tpu_torch/csrc/fused_jac.cu",
+                         "rnnwavefunctions_tpu/ops/fused_jac.py:1042"),
+    "B20 sweep_dgates": ("rnnwavefunctions_tpu_torch/csrc/fused_jac.cu",
+                         "rnnwavefunctions_tpu/ops/fused_jac.py:1131"),
+    "B21 sr_cg_solve": ("rnnwavefunctions_tpu_torch/csrc/sr_cg.cu",
+                        "rnnwavefunctions_tpu/ops/sr_cg.py:108"),
 }
 J2_FLAG = 0.2
 E_DMRG_J1J2 = -40.73881897  # J1J2(N=100, J2=0.2), open chain (the JAX package's BASELINE.md)
@@ -132,6 +164,16 @@ MDRNN_VMC_STEPS, MDRNN_VMC_TOL = 200, 1e-3
 PARITY_VMC_STEPS, PARITY_VMC_TOL = 400, 1e-3
 SNAKE_VMC_STEPS, SNAKE_VMC_TOL = 800, 1e-3
 NX_SNAKE = NY_SNAKE = 10  # the snake flagship: bench.py's snake2d_10x10 row, Bx=3
+# minSR: bench.py's *_minsr rows (lr 5e-2, the CG solve) and its N=20
+# accuracy probe; the long chain is its 1dtfim_n1000_minsr row
+MINSR_LR = 5e-2
+N_LONG, S_LONG = 1000, 64
+E_DMRG_N20 = -25.1077971081
+# phase 20's J1-J2 probe: tests/test_minsr.py's settings (no Marshall sign).
+# From this seed's initial weights the port and the JAX package's trainer
+# both end 80 steps on the CPU within 3e-2 of ED; from seeds 4-6 both stall
+# near 1e-1 (tests/test_torch_minsr.py::test_j1j2_n8_minsr_run_matches_jax)
+J1J2_PROBE_SEED = 7
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): float32
 # outside the tensor cores, and device memory.
@@ -167,6 +209,13 @@ def mdrnn_bwd_site_flops(u: int) -> int:
     outer products for the weight cotangents (six U x U products), and the
     elementwise chains."""
     return 12 * u * u + 40 * u + 20
+
+
+def jac_bwd_site_flops(u: int) -> int:
+    """Operations of one reverse site of the jacobian sweeps: the gates
+    recomputed from h_{n-1} (a 3U x U product), the recurrent cotangent
+    (another), and the elementwise chains."""
+    return 12 * u * u + 60 * u
 
 
 def bound(flops: float, nbytes: float):
@@ -253,12 +302,14 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     import rnnwavefunctions_tpu_torch as pkg
     from rnnwavefunctions_tpu_torch.ed import exact
+    from rnnwavefunctions_tpu_torch import interop
     from rnnwavefunctions_tpu_torch.ops import build, fused_crnn, fused_crnn_bwd
-    from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd
+    from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd, fused_jac, sr_cg
     from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
     from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
     from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
     from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
+    from rnnwavefunctions_tpu_torch.vmc import jacobian, minsr
 
     dev = torch.device("cuda", 0)
     wrappers = {
@@ -279,6 +330,11 @@ def main() -> None:
         "B14 mdrnn_log_prob_bwd": fused_mdrnn_bwd.mdrnn_log_prob_bwd,
         "B15 mdrnn_flip_ratio_sum": mk.mdrnn_flip_ratio_sum,
         "B16 mdrnn_sample_and_flip_sum": mk.mdrnn_sample_and_flip_sum,
+        "B17 jac_sweep": fused_jac.jac_sweep,
+        "B18 jac_sweep N=1000": fused_jac.jac_sweep,
+        "B19 rollout_hist": fused_jac.rollout_hist,
+        "B20 sweep_dgates": fused_jac.sweep_dgates,
+        "B21 sr_cg_solve": sr_cg.sr_cg_solve,
     }
     record = {k: {} for k in wrappers}
     crnn_names = [k for k in wrappers if k.split()[0] in ("B7", "B9", "B10", "B11")]
@@ -1048,12 +1104,250 @@ def main() -> None:
                 require(all(c[k] > 0 for k in c if k.startswith("K")),
                         "K1-K4 launched in the snake flagship run")
 
+    # ---- phases 18-21: minSR.  Phase 2's and phase 6's perturbed models and
+    # weights (model, w; crnn, wc) and random chains (samples), B11's samples
+    def tree_err(got, want):
+        """(largest abs error, largest error over its leaf's largest |want|)
+        over the leaves of two row trees."""
+        pairs = list(zip(interop.tree_leaves(got), interop.tree_leaves(want)))
+        return max(max_err(a, b) for a, b in pairs), max(rel(a, b) for a, b in pairs)
+
+    def plain_twin(ansatz, cls, n):
+        twin = getattr(pkg, cls)(n, (U_FLAG,), impl="plain", device=dev)
+        twin.load_state_dict(ansatz.state_dict())
+        return twin
+
+    def relative_residual(t, c, x):
+        return float((t.double() @ x.double() - c.double()).norm() / c.double().norm())
+
+    # B21's limits per system, (against the plain CG, relative residual):
+    # read 2.8e-5 and 3.0e-6 on the TFIM Gram, 4.9e-5 and 1.4e-3 on the
+    # J1-J2 Gram (condition number ~6e4; the plain CG's residual 2.7e-3)
+    cg_tol = {"TFIM (S, S)": (1e-3, 1e-4), "J1-J2 (2S, 2S)": (1e-3, 1e-2)}
+    long_samples = (torch.rand(S_LONG, N_LONG, generator=gen) < 0.5).to(torch.int32).to(dev)
+    plain_tfim = plain_twin(model, "PRNN1D", N_FLAG)
+    plain_crnn = plain_twin(crnn, "CRNNU1", N_FLAG)
+    ham_tfim = pkg.TFIM1D(N_FLAG, 1.0)
+    s11, e11, e11_im, _, _ = jk.j1j2_sample_and_exchange(wc, S_FLAG, N_FLAG, 7, 1, u1=True,
+                                                         **flag_info)
+    e11 = configs["open, J2=0.2"].diagonal(s11) + e11
+    trunk_c = wc[:4]
+    systems = {}
+
+    with Phase("18 minSR kernels against their plain versions (B17-B21)"):
+        for name, s_in in (("B17 jac_sweep", samples), ("B18 jac_sweep N=1000", long_samples)):
+            b, n = s_in.shape
+            got, want = fused_jac.jac_sweep(w, s_in), fused_jac.jac_sweep_plain(w, s_in)
+            torch.cuda.synchronize()
+            errs = [rel(a, ref) for a, ref in zip(got, want)]
+            print(f"{name} (N={n}, B={b}): hist, dg, dl1 errors over their largest entry "
+                  f"{', '.join(f'{e:.3e}' for e in errs)} (tol {rel_tol:.0e})")
+            require(max(errs) <= rel_tol, f"{name} outputs")
+            lp_k, rows_k = fused_jac.prnn1d_rows(w, s_in)
+            lp_p, rows_p = jacobian._prnn1d_log_prob_rows(plain_tfim, s_in)
+            torch.cuda.synchronize()
+            e_lp, (e_abs, e_rows) = max_err(lp_k, lp_p), tree_err(rows_k, rows_p)
+            print(f"{name}: per-sample rows against the plain (autodiff) rows: error over the "
+                  f"leaf's largest entry {e_rows:.3e} (tol {rel_tol:.0e}), max abs {e_abs:.3e}; "
+                  f"log p max abs err {e_lp:.3e} (tol {1e-5 * n:.1e})")
+            require(e_rows <= rel_tol and e_lp <= 1e-5 * n, f"{name} rows")
+            record[name]["max_abs_err"] = max(max_err(a, ref) for a, ref in zip(got, want))
+
+        hist_k = fused_jac.rollout_hist(trunk_c, s11)
+        hist_p = fused_jac.rollout_hist_plain(trunk_c, s11)
+        sites = torch.arange(N_FLAG, device=dev)
+        dla, dlp = jacobian.crnn_head_seeds(crnn, hist_k, s11,
+                                            torch.cumsum(s11, dim=1) - s11, sites)
+        douts = torch.stack([dla @ wc[4].T, dlp @ wc[6].T])
+        dg_k = fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts)
+        dg_p = fused_jac.sweep_dgates_plain(trunk_c, s11, hist_k, douts)
+        torch.cuda.synchronize()
+        e19, e20 = rel(hist_k, hist_p), max(rel(dg_k[p], dg_p[p]) for p in range(2))
+        print(f"B19 hist: error over its largest entry {e19:.3e}; B20 dg (Re and Im parts, one "
+              f"launch): {e20:.3e} (tol {rel_tol:.0e})")
+        require(e19 <= rel_tol and e20 <= rel_tol, "B19 and B20")
+        record["B19 rollout_hist"]["max_abs_err"] = max_err(hist_k, hist_p)
+        record["B20 sweep_dgates"]["max_abs_err"] = max_err(dg_k, dg_p)
+        rows_k = jacobian._crnn_rows_fused(crnn, s11)
+        rows_p = jacobian.crnn_log_amp_rows(plain_crnn, s11)
+        torch.cuda.synchronize()
+        e_rows = max(tree_err(a, ref)[1] for a, ref in zip(rows_k, rows_p))
+        print(f"B19 + B20 (Re, Im) rows against the plain (autodiff) rows: error over the "
+              f"leaf's largest entry {e_rows:.3e} (tol {rel_tol:.0e})")
+        require(e_rows <= rel_tol, "the cRNN rows")
+
+        s3, _, ratio3 = tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 7, 1)
+        e3 = ham_tfim.diagonal(s3) + ham_tfim.uniform_flip_element * ratio3
+        systems["TFIM (S, S)"] = minsr.sample_space_system(
+            minsr.per_sample_log_amp_grad_trees(model, s3)[0], None, e3, None, e3.mean(), None,
+            1e-2)[:2]
+        rows_re, rows_im = minsr.per_sample_log_amp_grad_trees(crnn, s11)
+        systems["J1-J2 (2S, 2S)"] = minsr.sample_space_system(
+            rows_re, rows_im, e11, e11_im, e11.mean(), e11_im.mean(), 1e-2)[:2]
+        worst = 0.0
+        for label, (t, c) in systems.items():
+            x_k = sr_cg.sr_cg_solve(t, c, 64)
+            x_p = sr_cg.cg_solve_plain(t, c, 64)
+            x_c = torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t))[:, 0]
+            again = sr_cg.sr_cg_solve(t, c, 64)
+            torch.cuda.synchronize()
+            e_p = float((x_k - x_p).norm() / x_p.norm())
+            r_k, r_p, r_c = (relative_residual(t, c, x) for x in (x_k, x_p, x_c))
+            tol_p, tol_r = cg_tol[label]
+            print(f"B21 on the {label} Gram (S={t.shape[0]}): |x - x_plain| / |x_plain| {e_p:.3e} "
+                  f"(tol {tol_p:.0e}); relative residual {r_k:.3e} (tol {tol_r:.0e}), plain CG "
+                  f"{r_p:.3e}, Cholesky {r_c:.3e}; the same bits twice: "
+                  f"{bool(torch.equal(again, x_k))}")
+            require(e_p <= tol_p and r_k <= tol_r and bool(torch.equal(again, x_k)),
+                    f"B21 on the {label} Gram")
+            worst = max(worst, max_err(x_k, x_p))
+        record["B21 sr_cg_solve"]["max_abs_err"] = worst
+
+    with Phase("19 minSR kernel times (CUDA events), bounds and coverage"):
+        gru = torch.nn.GRU(2, U_FLAG, batch_first=True).to(dev)
+        with torch.no_grad():
+            for p, src in zip((gru.weight_ih_l0, gru.weight_hh_l0, gru.bias_ih_l0,
+                               gru.bias_hh_l0), (wc[0].T, wc[1].T, wc[2], wc[3])):
+                p.copy_(src)
+        x0 = fused_jac.input_onehot_rows(s11)
+
+        @torch.no_grad()
+        def cudnn_gru():
+            return gru(x0)[0]
+
+        print(f"torch.nn.GRU (cuDNN) hidden states against B19's history: max abs err "
+              f"{max_err(cudnn_gru(), hist_k):.3e}")
+        t_tfim, c_tfim = systems["TFIM (S, S)"]
+        t_j, c_j = systems["J1-J2 (2S, 2S)"]
+        pairs = {
+            "B17 jac_sweep": (lambda: fused_jac.jac_sweep(w, samples),
+                              lambda: fused_jac.jac_sweep_plain(w, samples), None),
+            "B18 jac_sweep N=1000": (lambda: fused_jac.jac_sweep(w, long_samples),
+                                     lambda: fused_jac.jac_sweep_plain(w, long_samples), None),
+            "B19 rollout_hist": (lambda: fused_jac.rollout_hist(trunk_c, s11),
+                                 lambda: fused_jac.rollout_hist_plain(trunk_c, s11), cudnn_gru),
+            "B20 sweep_dgates": (lambda: fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts),
+                                 lambda: fused_jac.sweep_dgates_plain(trunk_c, s11, hist_k, douts),
+                                 None),
+            "B21 sr_cg_solve": (
+                lambda: sr_cg.sr_cg_solve(t_tfim, c_tfim, 64),
+                lambda: sr_cg.cg_solve_plain(t_tfim, c_tfim, 64),
+                lambda: torch.cholesky_solve(c_tfim[:, None], torch.linalg.cholesky(t_tfim))),
+        }
+        for name, (kern, plain, library) in pairs.items():
+            record[name]["ms"] = cuda_ms(kern, reps=20)
+            record[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
+            record[name]["library_ms"] = None if library is None else cuda_ms(library, reps=20)
+            lib_txt = "" if library is None else f", library {record[name]['library_ms']:.4f} ms"
+            print(f"{name}: kernel {record[name]['ms']:.4f} ms, plain "
+                  f"{record[name]['plain_ms']:.4f} ms{lib_txt}")
+        print(f"B21 on the J1-J2 (2S, 2S) Gram: kernel "
+              f"{cuda_ms(lambda: sr_cg.sr_cg_solve(t_j, c_j, 64), reps=20):.4f} ms, Cholesky "
+              f"{cuda_ms(lambda: torch.cholesky_solve(c_j[:, None], torch.linalg.cholesky(t_j)), reps=20):.4f} ms")
+        b_, n_, u_ = S_FLAG, N_FLAG, U_FLAG
+        w4 = 4 * sum(t.numel() for t in trunk_c)
+        jac_site = site_flops(u_, 1) + jac_bwd_site_flops(u_)
+        s_t = t_tfim.shape[0]
+        work_minsr = {
+            "B17 jac_sweep": (b_ * n_ * jac_site, 4 * b_ * n_ + w6 + 4 * b_ * n_ * (5 * u_ + 1)),
+            "B18 jac_sweep N=1000": (S_LONG * N_LONG * jac_site,
+                                     4 * S_LONG * N_LONG + w6 + 4 * S_LONG * N_LONG * (5 * u_ + 1)),
+            "B19 rollout_hist": (b_ * n_ * site_flops(u_, 0), 4 * b_ * n_ + w4 + 4 * b_ * n_ * u_),
+            "B20 sweep_dgates": (2 * b_ * n_ * jac_bwd_site_flops(u_),
+                                 4 * b_ * n_ + w4 + 4 * b_ * n_ * u_ + 2 * 4 * b_ * n_ * 5 * u_),
+            "B21 sr_cg_solve": (64 * (2 * s_t * s_t + 10 * s_t), 4 * s_t * s_t + 8 * s_t),
+        }
+        for name, (flops, nbytes) in work_minsr.items():
+            record[name]["bound_ms"], record[name]["bound_by"] = bound(flops, nbytes)
+            print(f"{name}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
+                  f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}), "
+                  f"kernel {record[name]['ms']:.4f} ms")
+        print(f"coverage: B17 is in the K1-K4 family (U <= {gru_u} at N={N_FLAG}), B19 and B20 "
+              f"in the cRNN family (U <= {crnn_u}); their shared memory does not depend on N")
+
+    minsr_cfg = dict(num_samples=S_FLAG, learning_rate=MINSR_LR, optimizer="minsr")
+    adam_only = ("K1 gru_log_prob", "K2 gru_log_prob_bwd", "B7 crnn_log_amp_parts",
+                 "B9 crnn_log_amp_bwd")
+    tfim_kernels = ("K3 tfim_sample_and_flip_sum", "B17 jac_sweep", "B21 sr_cg_solve")
+    j1j2_kernels = ("B11 j1j2_sample_and_exchange", "B19 rollout_hist", "B20 sweep_dgates",
+                    "B21 sr_cg_solve")
+
+    def require_launches(c, names, label):
+        print(f"{label}: launches", {k: c[k] for k in names + adam_only})
+        require(all(c[k] > 0 for k in names) and all(c[k] == 0 for k in adam_only),
+                f"{label} ran its minSR kernels and no loss-gradient kernel")
+
+    with Phase("20 minSR accuracy: TFIM N=20 against DMRG, J1-J2 N=8 against ED"):
+        reset_counts()
+        trainer = pkg.VMCTrainer(pkg.PRNN1D(20, (U_FLAG,), device=dev), pkg.TFIM1D(20, 1.0),
+                                 pkg.TrainConfig(**minsr_cfg))
+        state, done, rel_err = trainer.init(), 0, float("inf")
+        while done < 600 and rel_err > 1e-3:
+            state, ms = trainer.run_steps(state, 50)
+            done += 50
+            rel_err = abs(float(ms["mean_energy"].mean()) - E_DMRG_N20) / abs(E_DMRG_N20)
+            print(f"TFIM N=20 minSR: {done} steps, block mean energy "
+                  f"{float(ms['mean_energy'].mean()):.6f}, relative error {rel_err:.3e}")
+        torch.cuda.synchronize()
+        require(rel_err <= 1e-3, "TFIM N=20 minSR within 1e-3 of DMRG in 600 steps")
+        require_launches(counts(), tfim_kernels, "TFIM N=20")
+        reset_counts()
+        n = 8
+        e_exact = exact.ground_state_energy(exact.j1j2_dense(n, 1.0, J2_FLAG))
+        trainer = pkg.VMCTrainer(pkg.CRNNU1(n, (12,), device=dev), pkg.J1J2(n, j2=J2_FLAG),
+                                 pkg.TrainConfig(num_samples=256, learning_rate=MINSR_LR,
+                                                 optimizer="minsr", seed=J1J2_PROBE_SEED))
+        state, ms = trainer.run_steps(trainer.init(), 80)
+        torch.cuda.synchronize()
+        e_vmc = float(ms["mean_energy"][-10:].mean())
+        rel_err = abs(e_vmc - e_exact) / abs(e_exact)
+        print(f"J1-J2 N=8 minSR: E_vmc (mean of the last 10 of 80 steps) {e_vmc:.6f}, E_exact "
+              f"{e_exact:.6f}, relative error {rel_err:.3e} (tol 3e-2)")
+        require(rel_err <= 3e-2, "J1-J2 N=8 minSR within 3e-2 of ED")
+        require_launches(counts(), j1j2_kernels, "J1-J2 N=8")
+
+    with Phase("21 minSR flagships: TFIM and J1-J2 at N=100, S=500, and the N=1000, S=64 "
+               "chain, lr 5e-2"):
+        # label: (ansatz, Hamiltonian, S, steps, its kernels, the kernels whose
+        # main path it is, reference)
+        flagships = {
+            "TFIM": (pkg.PRNN1D(N_FLAG, (U_FLAG,), device=dev), pkg.TFIM1D(N_FLAG, 1.0), S_FLAG,
+                     50, tfim_kernels, ("B17 jac_sweep", "B21 sr_cg_solve"),
+                     "DMRG ground state -126.9618766964"),
+            "J1-J2": (pkg.CRNNU1(N_FLAG, (U_FLAG,), device=dev), pkg.J1J2(N_FLAG, j2=J2_FLAG),
+                      S_FLAG, 50, j1j2_kernels, ("B19 rollout_hist", "B20 sweep_dgates"),
+                      f"DMRG ground state {E_DMRG_J1J2}"),
+            f"N={N_LONG}": (pkg.PRNN1D(N_LONG, (U_FLAG,), device=dev), pkg.TFIM1D(N_LONG, 1.0),
+                            S_LONG, 10, ("K3 tfim_sample_and_flip_sum", "B18 jac_sweep N=1000",
+                                         "B21 sr_cg_solve"), ("B18 jac_sweep N=1000",),
+                            "TFIM chain, Bx=1"),
+        }
+        for label, (ansatz, ham, s_num, steps, names, own, ref) in flagships.items():
+            trainer = pkg.VMCTrainer(ansatz, ham, pkg.TrainConfig(
+                **{**minsr_cfg, "num_samples": s_num}))
+            state = trainer.init()
+            trainer.run_steps(state, 3)  # warm-up (allocator)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            state, ms = trainer.run_steps(state, steps)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            c = counts()
+            energies = ms["mean_energy"].cpu().numpy()
+            print(f"minSR {label}: {smi}: {steps / dt:.2f} steps/s ({1000 * dt / steps:.3f} ms/step)")
+            print(f"minSR {label}: energy: first {energies[0]:.4f}, last {energies[-1]:.4f} ({ref})")
+            require(bool(np.isfinite(energies).all()), f"finite minSR {label} energies")
+            require(energies[-3:].mean() < energies[:3].mean(), f"minSR {label} energies falling")
+            require_launches(c, names, f"minSR {label}")
+            launches.update({k: c[k] for k in own})
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": record[name]["max_abs_err"], "ms": record[name]["ms"],
          "plain_ms": record[name]["plain_ms"], "bound_ms": record[name]["bound_ms"],
-         "bound_by": record[name]["bound_by"], "library_ms": None}
+         "bound_by": record[name]["bound_by"], "library_ms": record[name].get("library_ms")}
         for name in wrappers
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,303 @@
+// B17, B19, B20: the per-sample jacobian sweeps of minSR for a single-layer
+// GRU (the rows O of d log psi / d theta, one per sample, never reduced over
+// the batch).
+//
+// Replaces: rnnwavefunctions_tpu/ops/fused_jac.py::jac_sweep (B17, and its
+// HBM-streamed twin _jac_sweep_spill, B18), ::rollout_hist (B19) and
+// ::sweep_dgates (B20).
+//
+// What they compute, per sample s and site n, in sample-major layouts:
+//   B19  hist[s, n, :], the post-step hidden state h_n (S, N, U);
+//   B20  for each part p, from the cotangent dout[p, s, n, :] on h_n, the
+//        reverse sweep's gate cotangents dg[p, s, n, :] = [da_r | da_z | da_c |
+//        dgh_c] (S, N, 4U): da are the cotangents of the three input
+//        pre-activations, and the recurrent ones are [da_r | da_z | dgh_c]
+//        (the two share their first 2U entries, so 4U are stored, not 6U);
+//   B17  B19, then the 2-logit head's dl1[s, n] = s_n - sigmoid(l1 - l0),
+//        which seeds B20's sweep with dout = (hw[:, 1] - hw[:, 0]) dl1.
+// ops/fused_jac.py contracts them into the per-sample weight rows.
+//
+// Bound on the H100: latency of two sequential site sweeps per sample, as
+// for K2 (csrc/fused_gru_bwd.cu), each site a few dependent 3U x U products
+// out of shared memory; then the stores: hist and dg are 5U floats per
+// (sample, site), 50 MB at the flagship shape (S=500, N=100, U=50), 0.015 ms
+// at the memory rate.
+//
+// Design: K2 without its batch reduction.  One warp per trajectory, four
+// warps per block, the weights in shared memory.  The forward replay stores
+// h_n to hist in device memory; the reverse sweep reads h_{n-1} back (from
+// L2), recomputes the gates and stores each site's cotangents instead of
+// accumulating weight cotangents, so no block waits on another and nothing
+// is summed across samples.  Every output lies in device memory at every N:
+// the TPU kernel streamed history and cotangents through VMEM rings for
+// long chains (B18, "same values either way"), and this one kernel covers
+// both.  B20 runs one trajectory per (part, sample) and reads the one
+// history of its sample, where the TPU kernel copied it once per part.
+#include "gru_common.cuh"
+
+namespace rnnwf {
+
+constexpr int kJacWarps = 4;
+
+// Per-warp floats: h, hn (forward); hp, dh, zb (U each) and dgh (3U).
+__host__ __device__ inline int jac_warp_floats(int u) { return 8 * u; }
+
+size_t jac_smem_bytes(int u) {
+  return sizeof(float) * (weight_floats(u) + kJacWarps * jac_warp_floats(u));
+}
+
+// Copies the trunk (wx, wh, bx, bh) into shared memory in the layout of
+// weights_at (whole block); the head's slots stay unused.
+__device__ __forceinline__ Weights load_trunk(float* smem, const float* wx, const float* wh,
+                                              const float* bx, const float* bh, int u) {
+  const int g = 3 * u;
+  const int sizes[4] = {2 * g, u * g, g, g};
+  const float* srcs[4] = {wx, wh, bx, bh};
+  float* dst = smem;
+  for (int a = 0; a < 4; ++a) {
+    for (int i = threadIdx.x; i < sizes[a]; i += blockDim.x) dst[i] = srcs[a][i];
+    dst += sizes[a];
+  }
+  __syncthreads();
+  return weights_at(smem, u);
+}
+
+// Input pre-activation of gate column col for the previous spin xr (0/1);
+// xs is 0 at site 0 (the zero input vector) and 1 after.
+__device__ __forceinline__ float input_gate(const Weights& w, int g, int col, float xr,
+                                            float xs) {
+  return xs * ((1.0f - xr) * w.wx[col] + xr * w.wx[g + col]) + w.bx[col];
+}
+
+// Forward replay of one trajectory from the zero state: h_n for every site
+// into h_row (N*U floats); h and hn are the warp's two U-float buffers.
+__device__ void forward_history(const Weights& w, int u, const int32_t* s_row, float* h_row,
+                                float* h, float* hn, int n_sites, int lane) {
+  const int g = 3 * u;
+  for (int j = lane; j < u; j += kWarp) h[j] = 0.0f;
+  __syncwarp();
+  for (int n = 0; n < n_sites; ++n) {
+    const float xs = n > 0 ? 1.0f : 0.0f;
+    const float xr = n > 0 ? static_cast<float>(s_row[n - 1]) : 0.0f;
+    for (int j = lane; j < u; j += kWarp) {
+      float ar = 0.0f, az = 0.0f, ac = 0.0f;
+      for (int k = 0; k < u; ++k) {
+        const float* wk = w.wh + k * g;
+        const float hk = h[k];
+        ar = fmaf(hk, wk[j], ar);
+        az = fmaf(hk, wk[u + j], az);
+        ac = fmaf(hk, wk[2 * u + j], ac);
+      }
+      const float r = sigmoidf_(input_gate(w, g, j, xr, xs) + (ar + w.bh[j]));
+      const float z = sigmoidf_(input_gate(w, g, u + j, xr, xs) + (az + w.bh[u + j]));
+      const float c = tanhf(input_gate(w, g, 2 * u + j, xr, xs) + r * (ac + w.bh[2 * u + j]));
+      const float hv = z * h[j] + (1.0f - z) * c;
+      hn[j] = hv;
+      h_row[n * u + j] = hv;
+    }
+    __syncwarp();
+    float* tmp = h; h = hn; hn = tmp;
+  }
+}
+
+// One reverse site of one trajectory.  On entry dh holds the whole cotangent
+// on h_n and hp holds h_{n-1} (both U floats, shared memory).  Recomputes the
+// gates from h_{n-1}, stores [da_r | da_z | da_c | dgh_c] to out (4U floats
+// of device memory) and leaves the cotangent on h_{n-1}, dh z + wh dgh, in
+// dh (the math of ops/fused_jac.py::sweep_dgates_plain).
+__device__ void reverse_site(const Weights& w, int u, const float* hp, float xr, float xs,
+                             float* dh, float* zb, float* dgh, float* out, int lane) {
+  const int g = 3 * u;
+  for (int j = lane; j < u; j += kWarp) {
+    float ar = 0.0f, az = 0.0f, ac = 0.0f;
+    for (int k = 0; k < u; ++k) {
+      const float* wk = w.wh + k * g;
+      const float hk = hp[k];
+      ar = fmaf(hk, wk[j], ar);
+      az = fmaf(hk, wk[u + j], az);
+      ac = fmaf(hk, wk[2 * u + j], ac);
+    }
+    const float ghc = ac + w.bh[2 * u + j];
+    const float r = sigmoidf_(input_gate(w, g, j, xr, xs) + (ar + w.bh[j]));
+    const float z = sigmoidf_(input_gate(w, g, u + j, xr, xs) + (az + w.bh[u + j]));
+    const float c = tanhf(input_gate(w, g, 2 * u + j, xr, xs) + r * ghc);
+    const float dht = dh[j];
+    const float dz = dht * (hp[j] - c);
+    const float dc = dht * (1.0f - z);
+    const float dac = dc * (1.0f - c * c);
+    const float dar = dac * ghc * r * (1.0f - r);
+    const float daz = dz * z * (1.0f - z);
+    const float dghc = dac * r;
+    out[j] = dar;
+    out[u + j] = daz;
+    out[2 * u + j] = dac;
+    out[3 * u + j] = dghc;
+    dgh[j] = dar;
+    dgh[u + j] = daz;
+    dgh[2 * u + j] = dghc;
+    zb[j] = z;
+  }
+  __syncwarp();
+  for (int k = lane; k < u; k += kWarp) {
+    const float* wk = w.wh + k * g;
+    float d = 0.0f;
+    for (int q = 0; q < g; ++q) d = fmaf(wk[q], dgh[q], d);
+    dh[k] = dh[k] * zb[k] + d;
+  }
+  __syncwarp();
+}
+
+// Loads h_{n-1} (zeros at site 0) of a trajectory's history into hp.
+__device__ __forceinline__ void load_prev(const float* h_row, float* hp, int n, int u,
+                                          int lane) {
+  for (int j = lane; j < u; j += kWarp) hp[j] = n > 0 ? h_row[(n - 1) * u + j] : 0.0f;
+}
+
+__global__ void jac_sweep_kernel(const int32_t* __restrict__ samples, const float* wx,
+                                 const float* wh, const float* bx, const float* bh,
+                                 const float* hw, const float* hb, float* __restrict__ hist,
+                                 float* __restrict__ dg, float* __restrict__ dl1, int b_total,
+                                 int n_sites, int u) {
+  extern __shared__ __align__(16) float smem[];
+  const Weights w = load_weights(smem, wx, wh, bx, bh, hw, hb, u);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int b = blockIdx.x * kJacWarps + warp;
+  if (b >= b_total) return;
+  float* h = smem + weight_floats(u) + warp * jac_warp_floats(u);
+  float* hn = h + u;
+  float* hp = hn + u;
+  float* dh = hp + u;
+  float* zb = dh + u;
+  float* dgh = zb + u;
+  const int32_t* s_row = samples + static_cast<int64_t>(b) * n_sites;
+  float* h_row = hist + static_cast<int64_t>(b) * n_sites * u;
+  float* g_row = dg + static_cast<int64_t>(b) * n_sites * 4 * u;
+  float* l_row = dl1 + static_cast<int64_t>(b) * n_sites;
+
+  forward_history(w, u, s_row, h_row, h, hn, n_sites, lane);
+  for (int j = lane; j < u; j += kWarp) dh[j] = 0.0f;
+  for (int n = n_sites - 1; n >= 0; --n) {
+    load_prev(h_row, hp, n, u, lane);
+    // head on h_n: d log p_n / d l1 = s_n - p1 = -d log p_n / d l0
+    float p0 = 0.0f, p1 = 0.0f;
+    for (int j = lane; j < u; j += kWarp) {
+      const float hc = h_row[n * u + j];
+      p0 = fmaf(hc, w.hw[2 * j], p0);
+      p1 = fmaf(hc, w.hw[2 * j + 1], p1);
+    }
+    const float l0 = warp_sum(p0) + w.hb[0];
+    const float l1 = warp_sum(p1) + w.hb[1];
+    const float d1 = static_cast<float>(s_row[n]) - sigmoidf_(l1 - l0);
+    if (lane == 0) l_row[n] = d1;
+    for (int j = lane; j < u; j += kWarp) dh[j] += (w.hw[2 * j + 1] - w.hw[2 * j]) * d1;
+    __syncwarp();
+    const float xr = n > 0 ? static_cast<float>(s_row[n - 1]) : 0.0f;
+    reverse_site(w, u, hp, xr, n > 0 ? 1.0f : 0.0f, dh, zb, dgh,
+                 g_row + static_cast<int64_t>(n) * 4 * u, lane);
+  }
+}
+
+__global__ void rollout_hist_kernel(const int32_t* __restrict__ samples, const float* wx,
+                                    const float* wh, const float* bx, const float* bh,
+                                    float* __restrict__ hist, int b_total, int n_sites, int u) {
+  extern __shared__ __align__(16) float smem[];
+  const Weights w = load_trunk(smem, wx, wh, bx, bh, u);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int b = blockIdx.x * kJacWarps + warp;
+  if (b >= b_total) return;
+  float* h = smem + weight_floats(u) + warp * jac_warp_floats(u);
+  forward_history(w, u, samples + static_cast<int64_t>(b) * n_sites,
+                  hist + static_cast<int64_t>(b) * n_sites * u, h, h + u, n_sites, lane);
+}
+
+__global__ void sweep_dgates_kernel(const int32_t* __restrict__ samples, const float* wx,
+                                    const float* wh, const float* bx, const float* bh,
+                                    const float* __restrict__ hist,
+                                    const float* __restrict__ dout, float* __restrict__ dg,
+                                    int b_total, int parts, int n_sites, int u) {
+  extern __shared__ __align__(16) float smem[];
+  const Weights w = load_trunk(smem, wx, wh, bx, bh, u);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int t = blockIdx.x * kJacWarps + warp;  // trajectory = part * B + sample
+  if (t >= parts * b_total) return;
+  const int b = t % b_total;
+  float* hp = smem + weight_floats(u) + warp * jac_warp_floats(u) + 2 * u;
+  float* dh = hp + u;
+  float* zb = dh + u;
+  float* dgh = zb + u;
+  const int32_t* s_row = samples + static_cast<int64_t>(b) * n_sites;
+  const float* h_row = hist + static_cast<int64_t>(b) * n_sites * u;
+  const float* d_row = dout + static_cast<int64_t>(t) * n_sites * u;
+  float* g_row = dg + static_cast<int64_t>(t) * n_sites * 4 * u;
+
+  for (int j = lane; j < u; j += kWarp) dh[j] = 0.0f;
+  for (int n = n_sites - 1; n >= 0; --n) {
+    load_prev(h_row, hp, n, u, lane);
+    for (int j = lane; j < u; j += kWarp) dh[j] += d_row[n * u + j];
+    __syncwarp();
+    const float xr = n > 0 ? static_cast<float>(s_row[n - 1]) : 0.0f;
+    reverse_site(w, u, hp, xr, n > 0 ? 1.0f : 0.0f, dh, zb, dgh,
+                 g_row + static_cast<int64_t>(n) * 4 * u, lane);
+  }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace rnnwf
+
+// hist: B*N*U floats, dg: B*N*4U, dl1: B*N (outputs, sample-major).
+extern "C" int rnnwf_jac_sweep(const void* samples, const void* wx, const void* wh,
+                               const void* bx, const void* bh, const void* hw, const void* hb,
+                               void* hist, void* dg, void* dl1, int b_total, int n_sites,
+                               int u, void* stream) {
+  using namespace rnnwf;
+  const size_t smem = jac_smem_bytes(u);
+  cudaError_t err = set_smem(jac_sweep_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (b_total + kJacWarps - 1) / kJacWarps;
+  jac_sweep_kernel<<<blocks, kJacWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(samples), static_cast<const float*>(wx),
+      static_cast<const float*>(wh), static_cast<const float*>(bx),
+      static_cast<const float*>(bh), static_cast<const float*>(hw),
+      static_cast<const float*>(hb), static_cast<float*>(hist), static_cast<float*>(dg),
+      static_cast<float*>(dl1), b_total, n_sites, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hist: B*N*U floats (output).
+extern "C" int rnnwf_rollout_hist(const void* samples, const void* wx, const void* wh,
+                                  const void* bx, const void* bh, void* hist, int b_total,
+                                  int n_sites, int u, void* stream) {
+  using namespace rnnwf;
+  const size_t smem = jac_smem_bytes(u);
+  cudaError_t err = set_smem(rollout_hist_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (b_total + kJacWarps - 1) / kJacWarps;
+  rollout_hist_kernel<<<blocks, kJacWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(samples), static_cast<const float*>(wx),
+      static_cast<const float*>(wh), static_cast<const float*>(bx),
+      static_cast<const float*>(bh), static_cast<float*>(hist), b_total, n_sites, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hist: B*N*U floats, dout: P*B*N*U (inputs); dg: P*B*N*4U (output).
+extern "C" int rnnwf_sweep_dgates(const void* samples, const void* wx, const void* wh,
+                                  const void* bx, const void* bh, const void* hist,
+                                  const void* dout, void* dg, int b_total, int parts,
+                                  int n_sites, int u, void* stream) {
+  using namespace rnnwf;
+  const size_t smem = jac_smem_bytes(u);
+  cudaError_t err = set_smem(sweep_dgates_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (parts * b_total + kJacWarps - 1) / kJacWarps;
+  sweep_dgates_kernel<<<blocks, kJacWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(samples), static_cast<const float*>(wx),
+      static_cast<const float*>(wh), static_cast<const float*>(bx),
+      static_cast<const float*>(bh), static_cast<const float*>(hist),
+      static_cast<const float*>(dout), static_cast<float*>(dg), b_total, parts, n_sites, u);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -46,6 +46,7 @@ size_t k1_smem_bytes(int u);
 size_t k2_smem_bytes(int u);
 size_t flip_base_smem_bytes(int u);
 size_t flip_suffix_smem_bytes(int u);
+size_t jac_smem_bytes(int u);  // B17, B19, B20 (csrc/fused_jac.cu)
 
 struct Weights {
   const float* wx;  // (2, 3U)

@@ -15,7 +15,7 @@ and its heads ``head_names``.  The pytree is passed as NumPy arrays
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -57,12 +57,42 @@ def load_params(model, tree: Dict[str, Any]) -> None:
         param.copy_(src)
 
 
-def params_to_numpy(model) -> Dict[str, Any]:
-    """The model's parameters as the JAX package's pytree of NumPy arrays."""
-    as_np = lambda p: p.detach().cpu().numpy().copy()  # noqa: E731
+def param_tree(model) -> Dict[str, Any]:
+    """The model's parameters (the ``nn.Parameter`` objects themselves) in
+    the JAX package's pytree layout."""
     tree = {}
     if hasattr(model, "rnn"):
-        tree["rnn"] = [{k: as_np(getattr(layer, k)) for k in _GRU_KEYS} for layer in model.rnn]
+        tree["rnn"] = [{k: getattr(layer, k) for k in _GRU_KEYS} for layer in model.rnn]
     for name, module, keys in _entries(model):
-        tree[name] = {k: as_np(getattr(module, k)) for k in keys}
+        tree[name] = {k: getattr(module, k) for k in keys}
     return tree
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one layout (dicts, lists, tensors)."""
+    if isinstance(trees[0], dict):  # sorted keys: leaves in tree_leaves order
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in sorted(trees[0])}
+    if isinstance(trees[0], (list, tuple)):
+        return [tree_map(fn, *ts) for ts in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves in ``jax.tree.leaves`` order: dict entries by sorted key,
+    list entries in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves: List[Any]):
+    """A tree of ``tree``'s layout holding ``leaves`` (in tree_leaves order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def params_to_numpy(model) -> Dict[str, Any]:
+    """The model's parameters as the JAX package's pytree of NumPy arrays."""
+    return tree_map(lambda p: p.detach().cpu().numpy().copy(), param_tree(model))

@@ -59,6 +59,10 @@ SIGNATURES = {
     "rnnwf_mdrnn_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
     "rnnwf_mdrnn_flip_ratio_sum": ([_P] * 13 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_sample_and_flip_sum": ([_U, _U] + [_P] * 13 + [_I] * 4 + [_P], _I),
+    "rnnwf_jac_sweep": ([_P] * 10 + [_I] * 3 + [_P], _I),
+    "rnnwf_rollout_hist": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "rnnwf_sweep_dgates": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "rnnwf_sr_cg_solve": ([_P] * 4 + [_I, _I, _P], _I),
     "rnnwf_fits_shared_memory": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
 }
 

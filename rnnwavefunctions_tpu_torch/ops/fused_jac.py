@@ -1,0 +1,237 @@
+"""B17, B19, B20: the per-sample jacobian sweeps of minSR, and the
+contractions that turn their outputs into per-sample weight rows.
+
+Counterpart of ``rnnwavefunctions_tpu/ops/fused_jac.py`` for one GRU layer.
+The CUDA kernels are in ``csrc/fused_jac.cu``:
+
+* B17 ``jac_sweep`` (the JAX ``jac_sweep`` and its spill variant B18, which
+  differ only in where the TPU kernel kept its outputs): forward replay and
+  reverse sweep of a pRNN, returning ``(hist, dg, dl1)``;
+* B19 ``rollout_hist``: the forward replay alone, ``hist``;
+* B20 ``sweep_dgates``: the reverse sweep seeded by P cotangent sets on the
+  hidden states (the cRNN's Re and Im parts), ``dg`` per part, one launch.
+
+Layouts are sample-major: ``hist`` (S, N, U) holds the post-step state h_n,
+``dg`` (S, N, 4U) the gate cotangents ``[da_r | da_z | da_c | dgh_c]`` (the
+input pre-activations' ``da`` and, sharing its first 2U entries, the
+recurrent ones ``[da_r | da_z | dgh_c]``), ``dl1`` (S, N) the head's
+``s_n - sigmoid(l1 - l0)``.  Each per-sample weight row is then one batched
+matrix product with the sample as the batch (``trunk_rows_from_sweep``),
+left to the library as the JAX package leaves them to XLA.
+
+Every wrapper runs its plain version for CPU tensors and launches its
+kernel for CUDA tensors, counting launches in ``launches``.  The plain
+versions are the same site loops written with tensor ops.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .build import check, load_library
+from .fused_gru import (
+    CRNN_FAMILY,
+    GRU_FAMILY,
+    Weights,
+    check_samples,
+    check_supported,
+    check_weights,
+    gru_layer,
+    is_cpu_call,
+    logp2,
+    spin_input,
+    stream_of,
+)
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def rollout_hist_plain(trunk: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced GRU rollout of (B, N) spins from the zero state:
+    ``hist`` (B, N, U), the state after each site."""
+    wx, wh, bx, bh = trunk
+    b, n = samples.shape
+    s = samples.to(torch.float32)
+    h = torch.zeros(b, wh.shape[0], dtype=torch.float32, device=samples.device)
+    x = torch.zeros(b, dtype=torch.float32, device=samples.device)
+    hist = []
+    for i in range(n):
+        h = gru_layer(spin_input(wx, bx, x, 1.0 if i > 0 else 0.0), h, wh, bh)
+        hist.append(h)
+        x = s[:, i]
+    return torch.stack(hist, dim=1)
+
+
+def sweep_dgates_plain(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor,
+                       douts: torch.Tensor) -> torch.Tensor:
+    """The reverse sweep for P cotangent sets ``douts`` (P, B, N, U) on the
+    hidden states: ``dg`` (P, B, N, 4U), per site ``[da_r | da_z | da_c |
+    dgh_c]``, with the gates recomputed from ``hist``."""
+    wx, wh, bx, bh = trunk
+    parts, b, n, u = douts.shape
+    s = samples.to(torch.float32)
+    zero_h = torch.zeros(b, u, dtype=torch.float32, device=samples.device)
+    dh = torch.zeros(parts, b, u, dtype=torch.float32, device=samples.device)
+    out = [None] * n
+    for i in reversed(range(n)):
+        hp = hist[:, i - 1] if i > 0 else zero_h
+        x = s[:, i - 1] if i > 0 else zero_h[:, 0]
+        gx = spin_input(wx, bx, x, 1.0 if i > 0 else 0.0)
+        gh = hp @ wh + bh
+        ghc = gh[:, 2 * u:]
+        r = torch.sigmoid(gx[:, :u] + gh[:, :u])
+        z = torch.sigmoid(gx[:, u:2 * u] + gh[:, u:2 * u])
+        c = torch.tanh(gx[:, 2 * u:] + r * ghc)
+        dht = dh + douts[:, :, i]
+        dz = dht * (hp - c)
+        dc = dht * (1.0 - z)
+        dac = dc * (1.0 - c * c)
+        dar = dac * ghc * r * (1.0 - r)
+        daz = dz * z * (1.0 - z)
+        dghc = dac * r
+        out[i] = torch.cat([dar, daz, dac, dghc], dim=-1)
+        dh = dht * z + torch.cat([dar, daz, dghc], dim=-1) @ wh.T
+    return torch.stack(out, dim=2)
+
+
+def jac_sweep_plain(weights: Weights, samples: torch.Tensor):
+    """B17's function: ``(hist, dg, dl1)`` of the pRNN's log p.  The head's
+    d log p_n / d l1 = s_n - sigmoid(l1 - l0) = -d log p_n / d l0 seeds the
+    reverse sweep with ``dout = (hw[:, 1] - hw[:, 0]) dl1``."""
+    trunk, (hw, hb) = weights[:4], weights[4:]
+    hist = rollout_hist_plain(trunk, samples)
+    logits = hist @ hw + hb
+    dl1 = samples.to(torch.float32) - torch.sigmoid(logits[..., 1] - logits[..., 0])
+    dout = dl1[..., None] * (hw[:, 1] - hw[:, 0])
+    return hist, sweep_dgates_plain(trunk, samples, hist, dout[None])[0], dl1
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def jac_sweep(weights: Weights, samples: torch.Tensor):
+    """B17: ``(hist (B, N, U), dg (B, N, 4U), dl1 (B, N))`` of the pRNN's
+    log p for (B, N) int32 samples and the 6-tuple of kernel weights."""
+    if is_cpu_call(samples, *weights):
+        return jac_sweep_plain(weights, samples)
+    u = check_weights(weights)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device, GRU_FAMILY)
+    dev = samples.device
+    hist = torch.empty(b, n, u, dtype=torch.float32, device=dev)
+    dg = torch.empty(b, n, 4 * u, dtype=torch.float32, device=dev)
+    dl1 = torch.empty(b, n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = load_library().lib.rnnwf_jac_sweep(
+            samples.data_ptr(), *[w.data_ptr() for w in weights], hist.data_ptr(),
+            dg.data_ptr(), dl1.data_ptr(), b, n, u, stream_of(samples),
+        )
+    check(err, "rnnwf_jac_sweep")
+    jac_sweep.launches += 1
+    return hist, dg, dl1
+
+
+jac_sweep.launches = 0
+
+
+def rollout_hist(trunk: Weights, samples: torch.Tensor) -> torch.Tensor:
+    """B19: ``hist`` (B, N, U) for (B, N) int32 samples and the trunk
+    (wx, wh, bx, bh)."""
+    if is_cpu_call(samples, *trunk):
+        return rollout_hist_plain(trunk, samples)
+    u = check_weights(trunk, heads=0)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device, CRNN_FAMILY)
+    hist = torch.empty(b, n, u, dtype=torch.float32, device=samples.device)
+    with torch.cuda.device(samples.device):
+        err = load_library().lib.rnnwf_rollout_hist(
+            samples.data_ptr(), *[w.data_ptr() for w in trunk], hist.data_ptr(), b, n, u,
+            stream_of(samples),
+        )
+    check(err, "rnnwf_rollout_hist")
+    rollout_hist.launches += 1
+    return hist
+
+
+rollout_hist.launches = 0
+
+
+def sweep_dgates(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor,
+                 douts: torch.Tensor) -> torch.Tensor:
+    """B20: ``dg`` (P, B, N, 4U) for the cotangent sets ``douts`` (P, B, N, U)
+    on the states ``hist`` (B, N, U), all parts in one launch."""
+    if is_cpu_call(samples, hist, douts, *trunk):
+        return sweep_dgates_plain(trunk, samples, hist, douts)
+    u = check_weights(trunk, heads=0)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device, CRNN_FAMILY)
+    parts = douts.shape[0] if douts.dim() == 4 else 0
+    for name, t, shape in (("hist", hist, (b, n, u)), ("douts", douts, (parts, b, n, u))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 (P, B, N, U) / (B, N, U) "
+                             f"tensor; got {tuple(t.shape)} {t.dtype}")
+    if parts < 1:
+        raise ValueError("douts needs at least one part")
+    dg = torch.empty(parts, b, n, 4 * u, dtype=torch.float32, device=samples.device)
+    with torch.cuda.device(samples.device):
+        err = load_library().lib.rnnwf_sweep_dgates(
+            samples.data_ptr(), *[w.data_ptr() for w in trunk], hist.data_ptr(),
+            douts.data_ptr(), dg.data_ptr(), b, parts, n, u, stream_of(samples),
+        )
+    check(err, "rnnwf_sweep_dgates")
+    sweep_dgates.launches += 1
+    return dg
+
+
+sweep_dgates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# contractions: sweep outputs -> per-sample rows (library matrix products)
+# ---------------------------------------------------------------------------
+
+
+def input_onehot_rows(samples: torch.Tensor) -> torch.Tensor:
+    """The layer's inputs (B, N, 2): the one-hot of the previous spin, zeros
+    at site 0."""
+    prev = samples[:, :-1].to(torch.float32)
+    onehot = torch.stack([1.0 - prev, prev], dim=-1)
+    return torch.cat([onehot.new_zeros(samples.shape[0], 1, 2), onehot], dim=1)
+
+
+def trunk_rows_from_sweep(hist: torch.Tensor, dg: torch.Tensor, x0: torch.Tensor):
+    """Per-sample rows of the GRU layer's weights from one sweep's ``hist``
+    (B, N, U), ``dg`` (B, N, 4U) and inputs ``x0`` (B, N, 2), in the layout
+    of the JAX package's ``{"wx", "wh", "bx", "bh"}``.  The recurrent
+    weights see h_{n-1}, which is zero at site 0, so their products run over
+    sites 1..N-1 of views, with no shifted copy."""
+    u = hist.shape[-1]
+    da, dghc = dg[..., :3 * u], dg[..., 3 * u:]
+    hp = hist[:, :-1].transpose(1, 2)  # (B, U, N-1)
+    return {
+        "wx": x0.transpose(1, 2) @ da,
+        "wh": torch.cat([hp @ da[:, 1:, :2 * u], hp @ dghc[:, 1:]], dim=-1),
+        "bx": da.sum(dim=1),
+        "bh": torch.cat([da[..., :2 * u].sum(dim=1), dghc.sum(dim=1)], dim=-1),
+    }
+
+
+def prnn1d_rows(weights: Weights, samples: torch.Tensor):
+    """The single-layer pRNN's ``(log p (B,), per-sample rows of log p)``
+    through one B17 launch, the rows a tree ``{"rnn": [layer], "head":
+    {"w", "b"}}`` of (B, ...) leaves (the JAX package's
+    ``fused_jac.prnn1d_rows``)."""
+    hw, hb = weights[4:]
+    hist, dg, dl1 = jac_sweep(weights, samples)
+    dlogits = torch.stack([-dl1, dl1], dim=-1)  # (B, N, 2)
+    rows = {
+        "rnn": [trunk_rows_from_sweep(hist, dg, input_onehot_rows(samples))],
+        "head": {"w": hist.transpose(1, 2) @ dlogits, "b": dlogits.sum(dim=1)},
+    }
+    logits = hist @ hw + hb
+    log_prob = logp2(logits[..., 0], logits[..., 1], samples.to(torch.float32)).sum(dim=1)
+    return log_prob, rows

@@ -1,0 +1,64 @@
+"""B21: the minSR sample-space solve ``t @ x = c`` by a fixed number of
+conjugate-gradient steps in one kernel launch.
+
+Counterpart of ``rnnwavefunctions_tpu/ops/sr_cg.py::sr_cg_solve``.  The CUDA
+kernel is ``csrc/sr_cg.cu`` (a cooperative launch, one grid-wide barrier per
+step, dot products summed in a fixed order so that one input always gives
+the same x).  The plain version ``cg_solve_plain`` is the JAX package's
+``cg_solve_jnp``: the same steps, the same guards ``max(., 1e-30)`` that
+freeze an exactly converged iterate, and no early exit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .build import check, load_library
+from .fused_gru import is_cpu_call, stream_of
+
+
+def cg_solve_plain(t: torch.Tensor, c: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` CG steps on the symmetric positive definite ``t`` (S, S)
+    from x = 0; returns x (S,)."""
+    x = torch.zeros_like(c)
+    r = c.clone()
+    p = c.clone()
+    rs = torch.dot(c, c)
+    for _ in range(iters):
+        tp = t @ p
+        alpha = rs / torch.clamp_min(torch.dot(p, tp), 1e-30)
+        x = x + alpha * p
+        r = r - alpha * tp
+        rs_new = torch.dot(r, r)
+        p = r + rs_new / torch.clamp_min(rs, 1e-30) * p
+        rs = rs_new
+    return x
+
+
+def sr_cg_solve(t: torch.Tensor, c: torch.Tensor, iters: int = 64) -> torch.Tensor:
+    """Solves ``t @ x = c`` by ``iters`` CG steps: ``t`` (S, S) float32,
+    symmetric positive definite (the damped SR Gram), ``c`` (S,) float32."""
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1; got {iters}")
+    if is_cpu_call(t, c):
+        return cg_solve_plain(t, c, iters)
+    s = c.shape[0] if c.dim() == 1 else -1
+    if (t.dtype != torch.float32 or c.dtype != torch.float32 or tuple(t.shape) != (s, s)
+            or s < 1 or not t.is_contiguous() or not c.is_contiguous()):
+        raise ValueError(
+            f"the CG kernel takes a contiguous float32 (S, S) matrix and (S,) vector; got "
+            f"{tuple(t.shape)} {t.dtype} and {tuple(c.shape)} {c.dtype}"
+        )
+    x = torch.empty_like(c)
+    scratch = torch.empty(2 * s, dtype=torch.float32, device=c.device)
+    with torch.cuda.device(c.device):
+        err = load_library().lib.rnnwf_sr_cg_solve(
+            t.data_ptr(), c.data_ptr(), x.data_ptr(), scratch.data_ptr(), s, iters,
+            stream_of(c),
+        )
+    check(err, "rnnwf_sr_cg_solve")
+    sr_cg_solve.launches += 1
+    return x
+
+
+sr_cg_solve.launches = 0

@@ -14,24 +14,42 @@
 * ``--model snake``: ``PRNNSnake2D(10, 10, (50,))`` on
   ``TFIM2D(10, 10, Bx=3, encoding="flat")``; S=500; Adam at lr 5e-3
   (``profile``, bench.py's ``snake2d_10x10`` row); ``accuracy`` trains the
-  same model on the 4x4, Bx=3 lattice.
+  same model on the 4x4, Bx=3 lattice;
+* ``--model chain1000``: the tfim model on the N=1000 chain with S=64
+  (bench.py's ``1dtfim_n1000_minsr`` row; ``profile`` only).
 
-    python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--model M] [--out FILE]
+``--optimizer minsr`` trains with minSR at lr 5e-2 (bench.py's ``*_minsr``
+rows: ``sr_damping=1e-2``, the CG solve of 64 steps) in place of Adam.
+
+    python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--model M] [--optimizer O] [--out FILE]
     python -m rnnwavefunctions_tpu_torch.tools.profile_step accuracy [--model M] [--steps 8000]
+    python -m rnnwavefunctions_tpu_torch.tools.profile_step system --model j1j2 --at 150,250
 
 ``profile``: steps/s of the kernel path over three repeats of 50 steps
 (host clock, ending in a synchronize, after 3 warm-up steps), and of the
-plain path (``impl="plain"``) over two repeats of 5 steps; then
+plain path (``impl="plain"``) over two repeats of 5 steps (1 for
+``chain1000``, whose plain step takes seconds); then
 ``torch.profiler`` over 20 kernel-path steps: device time per step of each
 kernel, and the device's idle share, 1 - (summed kernel time) / (wall time
 of the profiled window).
 
-``accuracy``: ``--steps`` Adam steps from ``TrainConfig()``'s seed, the
-metrics read back every ``--block`` steps; the energy is the mean of the
+``accuracy``: ``--steps`` steps from ``--seed`` (``TrainConfig()``'s by
+default) with ``--samples`` samples per step (500), the metrics read back
+every ``--block`` steps; the energy is the mean of the
 last 100 steps' mean energies (± their standard error), reported beside
 the reference energy: the DMRG ground-state energy of the chain, or for
 ``mdrnn`` and ``snake`` the Lanczos energy of the 4x4 lattice (reported,
-not gated).
+not gated).  Also reported: each block's mean energy, and the first step
+whose mean energy is not finite (None when every step's is).  For J1-J2
+minSR, ``tests/jax_minsr_reference_run.py`` runs the JAX package's trainer
+on the CPU from the same seed's initial weights.
+
+``system``: minSR training from ``--seed`` with ``--samples`` samples; at
+each step of ``--at`` it reads the sample-space system the next step
+solves (on a draw that leaves the training run's random stream as it
+was): the extreme eigenvalues of the damped Gram, and the CG kernel's
+relative residual and its distance from a float64 solve of the same
+system.
 
 Each mode prints the card's name and power limit first and a JSON summary
 last, and writes that summary to ``--out`` when given.
@@ -57,6 +75,9 @@ N, U = 100, 50
 BX_2D = 3.0
 # the profiled lattices: bench.py's mdrnn_16x16 and snake2d_10x10 rows
 LATTICE = {"mdrnn": (16, 16), "snake": (10, 10)}
+# optimizer -> learning rate: the reference's Adam rate, bench.py's minSR rate
+LEARNING_RATE = {"adam": 5e-3, "minsr": 5e-2}
+PLAIN_STEPS = {"chain1000": 1}  # steps per timed plain repeat; 5 for the others
 # Reference ground-state energies: DMRG for the chains (the JAX package's
 # README and BASELINE.md; parity symmetrizes the same TFIM chain), Lanczos
 # for the 4x4, Bx=3 lattice of ``accuracy``
@@ -71,13 +92,16 @@ def _card() -> str:
     ).stdout.strip()
 
 
-def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False, lattice=None):
+def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False, lattice=None,
+             optimizer: str = "adam", samples: int = 500, seed: int = TrainConfig.seed):
     """The model's trainer at the flagship size; ``lattice`` overrides the
     2D models' lattice."""
     lattice = lattice or LATTICE.get(model)
     if model in ("tfim", "parity"):
         ansatz = PRNN1D(N, (U,), parity=model == "parity", impl=impl, device="cuda")
         ham = TFIM1D(N, 1.0)
+    elif model == "chain1000":
+        ansatz, ham, samples = PRNN1D(1000, (U,), impl=impl, device="cuda"), TFIM1D(1000, 1.0), 64
     elif model == "mdrnn":
         ansatz = MDRNN2D(*lattice, units=U, impl=impl, device="cuda")
         ham = TFIM2D(*lattice, bx=BX_2D, encoding="grid")
@@ -87,7 +111,9 @@ def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False, lattic
     else:
         ansatz = CRNNU1(N, (U,), impl=impl, device="cuda")
         ham = J1J2(N, j2=0.2, marshall_sign=marshall_sign)
-    trainer = VMCTrainer(ansatz, ham, TrainConfig(num_samples=500, learning_rate=5e-3))
+    trainer = VMCTrainer(ansatz, ham, TrainConfig(
+        num_samples=samples, learning_rate=LEARNING_RATE[optimizer], optimizer=optimizer,
+        seed=seed))
     return trainer, trainer.init()
 
 
@@ -99,16 +125,17 @@ def _steps_per_second(trainer, state, steps: int) -> float:
     return steps / (time.perf_counter() - t0)
 
 
-def profile(model: str, marshall_sign: bool) -> dict:
+def profile(model: str, marshall_sign: bool, optimizer: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    trainer, state = _trainer(model, marshall_sign=marshall_sign)
+    trainer, state = _trainer(model, marshall_sign=marshall_sign, optimizer=optimizer)
     trainer.run_steps(state, 3)  # warm-up: build, allocator
     kernel_rates = [_steps_per_second(trainer, state, 50) for _ in range(3)]
-    plain, plain_state = _trainer(model, "plain", marshall_sign)
+    plain, plain_state = _trainer(model, "plain", marshall_sign, optimizer=optimizer)
     plain.run_steps(plain_state, 1)
-    plain_rates = [_steps_per_second(plain, plain_state, 5) for _ in range(2)]
+    plain_rates = [_steps_per_second(plain, plain_state, PLAIN_STEPS.get(model, 5))
+                   for _ in range(2)]
 
     steps = 20
     torch.cuda.synchronize()
@@ -124,6 +151,7 @@ def profile(model: str, marshall_sign: bool) -> dict:
     busy_ms = steps * sum(per_step.values())
     return {
         "model": model,
+        "optimizer": optimizer,
         "marshall_sign": marshall_sign,
         "kernel_steps_per_s": kernel_rates,
         "plain_steps_per_s": plain_rates,
@@ -135,9 +163,11 @@ def profile(model: str, marshall_sign: bool) -> dict:
     }
 
 
-def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
+def accuracy(model: str, marshall_sign: bool, steps: int, block: int, optimizer: str,
+             samples: int, seed: int) -> dict:
     lattice = (4, 4) if model in LATTICE else None
-    trainer, state = _trainer(model, marshall_sign=marshall_sign, lattice=lattice)
+    trainer, state = _trainer(model, marshall_sign=marshall_sign, lattice=lattice,
+                              optimizer=optimizer, samples=samples, seed=seed)
     energies, imag = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -147,12 +177,16 @@ def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
         if "mean_energy_im" in ms:
             imag.append(ms["mean_energy_im"].cpu().numpy())
     seconds = time.perf_counter() - t0
+    nonfinite = np.flatnonzero(~np.isfinite(np.concatenate(energies)))
     last = np.concatenate(energies)[-100:]
     energy = float(last.mean())
     e_ref = E_REF[model]
     return {
         "model": model,
+        "optimizer": optimizer,
         "marshall_sign": marshall_sign,
+        "samples": samples,
+        "seed": seed,
         "steps": steps,
         "seconds": seconds,
         "steps_per_s": steps / seconds,
@@ -161,17 +195,58 @@ def accuracy(model: str, marshall_sign: bool, steps: int, block: int) -> dict:
         "energy_im": float(np.concatenate(imag)[-100:].mean()) if imag else None,
         "e_ref": e_ref,
         "relative_error": abs(energy - e_ref) / abs(e_ref),
+        "block_energies": [float(e.mean()) for e in energies],
+        "first_nonfinite_step": int(nonfinite[0]) if nonfinite.size else None,
     }
+
+
+def system(model: str, marshall_sign: bool, at, samples: int, seed: int) -> dict:
+    from ..ops import sr_cg
+    from ..vmc import minsr
+
+    trainer, state = _trainer(model, marshall_sign=marshall_sign, optimizer="minsr",
+                              samples=samples, seed=seed)
+    cfg, done, reads = trainer.config, 0, []
+    for step in at:
+        state, ms = trainer.run_steps(state, step - done)
+        done = step
+        stream = state.generator.get_state()
+        draw, e_re, e_im = trainer._sample_and_energy(state)
+        state.generator.set_state(stream)
+        rows_re, rows_im = minsr.per_sample_log_amp_grad_trees(trainer.ansatz, draw)
+        t, c, _ = minsr.sample_space_system(
+            rows_re, rows_im, e_re, e_im, e_re.mean(), None if e_im is None else e_im.mean(),
+            cfg.sr_damping)
+        read = {"step": step, "mean_energy": float(ms["mean_energy"][-1])}
+        if bool(torch.isfinite(t).all() and torch.isfinite(c).all()):
+            x = sr_cg.sr_cg_solve(t, c, cfg.sr_cg_iters).double()
+            t64, c64 = t.double(), c.double()
+            eig, vec = torch.linalg.eigh(t64)  # solves where LU calls the system singular
+            x64 = vec @ ((vec.T @ c64) / eig)
+            read.update({
+                "gram_eig_min": float(eig[0]), "gram_eig_max": float(eig[-1]),
+                "cg_relative_residual": float((t64 @ x - c64).norm() / c64.norm()),
+                "cg_vs_float64_solve": float((x - x64).norm() / x64.norm()),
+            })
+        reads.append(read)
+    return {"model": model, "optimizer": "minsr", "marshall_sign": marshall_sign,
+            "samples": samples, "seed": seed, "sr_cg_iters": cfg.sr_cg_iters, "reads": reads}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("profile", "accuracy"))
-    parser.add_argument("--model", choices=("tfim", "parity", "j1j2", "mdrnn", "snake"),
-                        default="tfim")
+    parser.add_argument("mode", choices=("profile", "accuracy", "system"))
+    parser.add_argument("--model", default="tfim",
+                        choices=("tfim", "parity", "j1j2", "mdrnn", "snake", "chain1000"))
+    parser.add_argument("--optimizer", choices=tuple(LEARNING_RATE), default="adam")
     parser.add_argument("--marshall-sign", action="store_true",
                         help="j1j2: train the Marshall-rotated Hamiltonian")
-    parser.add_argument("--steps", type=int, default=8000, help="accuracy: Adam steps")
+    parser.add_argument("--steps", type=int, default=8000, help="accuracy: training steps")
+    parser.add_argument("--samples", type=int, default=500,
+                        help="accuracy, system: samples per step")
+    parser.add_argument("--seed", type=int, default=TrainConfig.seed, help="accuracy, system: seed")
+    parser.add_argument("--at", default="100,200",
+                        help="system: steps at which to read the system (ascending)")
     parser.add_argument("--block", type=int, default=500,
                         help="accuracy: steps between metric reads")
     parser.add_argument("--out", type=Path, help="also write the summary here")
@@ -180,9 +255,15 @@ def main() -> None:
         raise SystemExit("profile_step needs a CUDA device")
     print(_card(), flush=True)
     if args.mode == "profile":
-        result = profile(args.model, args.marshall_sign)
+        result = profile(args.model, args.marshall_sign, args.optimizer)
+    elif args.mode == "system":
+        result = system(args.model, args.marshall_sign, [int(k) for k in args.at.split(",")],
+                        args.samples, args.seed)
     else:
-        result = accuracy(args.model, args.marshall_sign, args.steps, args.block)
+        if args.model == "chain1000":
+            parser.error("accuracy has no reference energy for the N=1000 chain")
+        result = accuracy(args.model, args.marshall_sign, args.steps, args.block,
+                          args.optimizer, args.samples, args.seed)
     result["card"] = _card()
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

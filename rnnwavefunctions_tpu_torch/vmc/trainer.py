@@ -1,7 +1,7 @@
-"""The VMC trainer: sampling, local energies, gradient and Adam update.
+"""The VMC trainer: sampling, local energies, and an Adam or minSR update.
 
-Counterpart of ``rnnwavefunctions_tpu/vmc/trainer.py`` for one device, the
-Adam optimizer and a constant learning rate.  One step:
+Counterpart of ``rnnwavefunctions_tpu/vmc/trainer.py`` for one device and a
+constant learning rate.  One step:
 
 1. sample + local energies: the fused kernels (K3 for the pRNN on the
    TFIM, B6 in both modes for the parity pRNN, B16 for the 2D MDRNN on the
@@ -13,6 +13,13 @@ Adam optimizer and a constant learning rate.  One step:
    backward), when the ansatz runs its kernels;
 3. ``torch.optim.Adam``, whose update ``lr * m_hat / (sqrt(v_hat) + eps)``
    is optax's ``adam`` with ``eps_root=0``.
+
+With ``optimizer="minsr"`` steps 2 and 3 become: the per-sample rows of
+d log psi (``vmc/jacobian.py``; on the card the kernels B17, or B19 and B20
+for the cRNN), the sample-space SR direction (``vmc/minsr.py``: Gram and
+back-contraction by ``torch.matmul``, the solve by the CG kernel B21 or a
+Cholesky), written into the parameters' ``.grad`` and applied by
+``torch.optim.SGD`` (optax's ``sgd``: ``p -= lr * direction``).
 
 The parameters live in the ansatz module and are updated in place.  Per-step
 randomness comes from a CPU ``torch.Generator`` seeded with ``config.seed``:
@@ -28,15 +35,36 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..interop import param_tree, tree_leaves
+from . import minsr
 from .local_energy import make_fused_sample_energy_fn, make_local_energy_fn
 from .loss import surrogate_loss
+
+
+def _check_optimizer(config: "TrainConfig") -> None:
+    """The JAX package's checks of the optimizer settings."""
+    if config.optimizer not in ("adam", "minsr"):
+        raise ValueError(
+            f"unknown optimizer {config.optimizer!r} (expected 'adam' or 'minsr')"
+        )
+    if config.optimizer != "minsr":
+        return
+    if not config.sr_damping > 0.0:
+        raise ValueError(
+            "sr_damping must be > 0 (the push-through identity needs a positive "
+            f"diagonal shift); got {config.sr_damping}"
+        )
+    if config.sr_solver not in minsr.SOLVERS:
+        raise ValueError(f"unknown sr_solver {config.sr_solver!r} (expected 'chol' or 'cg')")
+    if config.sr_solver == "cg" and config.sr_cg_iters < 1:
+        raise ValueError(f"sr_cg_iters must be >= 1; got {config.sr_cg_iters}")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Hyperparameters; defaults mirror the reference trainer signature
-    (500 samples, lr 5e-3, Adam).  The optimizer is Adam; minSR and the
-    other schedules are not ported yet."""
+    (500 samples, lr 5e-3, Adam) and the JAX package's minSR settings.  The
+    schedules other than "constant" are not ported yet."""
 
     num_samples: int = 500
     learning_rate: float = 5e-3
@@ -44,6 +72,16 @@ class TrainConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    # "adam" or "minsr" (stochastic reconfiguration in sample space)
+    optimizer: str = "adam"
+    # minSR's diagonal shift lam in (S + lam I)^{-1} F (absolute)
+    sr_damping: float = 1e-2
+    # the JAX package's MXU precision of the Gram and back-contraction; on
+    # the card both are float32 matmuls with TF32 off, whatever it says
+    sr_precision: str = "high"
+    # "chol" (Cholesky) or "cg" (sr_cg_iters steps of the CG kernel B21)
+    sr_solver: str = "cg"
+    sr_cg_iters: int = 64
     # cap on rows per log-amplitude evaluation batch of the generic estimator
     chunk_size: Optional[int] = None
     seed: int = 111
@@ -68,6 +106,7 @@ class VMCTrainer:
             raise ValueError(
                 f"schedule {config.schedule!r} is not ported yet (only 'constant')"
             )
+        _check_optimizer(config)
         self.ansatz = ansatz
         self.hamiltonian = hamiltonian
         self.config = config
@@ -83,9 +122,12 @@ class VMCTrainer:
         returns a fresh optimizer state."""
         self.ansatz.init(torch.Generator().manual_seed(self.config.seed))
         c = self.config
-        optimizer = torch.optim.Adam(
-            self.ansatz.parameters(), lr=c.learning_rate, betas=(c.b1, c.b2), eps=c.eps
-        )
+        if c.optimizer == "minsr":
+            optimizer = torch.optim.SGD(self.ansatz.parameters(), lr=c.learning_rate)
+        else:
+            optimizer = torch.optim.Adam(
+                self.ansatz.parameters(), lr=c.learning_rate, betas=(c.b1, c.b2), eps=c.eps
+            )
         return TrainState(optimizer, torch.Generator().manual_seed(c.seed))
 
     # -- one step -----------------------------------------------------------
@@ -121,27 +163,44 @@ class VMCTrainer:
 
     def _update(self, state: TrainState, samples: torch.Tensor, e_loc: torch.Tensor,
                 e_im: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """Surrogate-loss gradient and one Adam step on given samples and
-        local energies (``e_im`` for a complex ansatz); returns the step's
-        metrics (0-dim tensors).  A complex ansatz's loss runs on its own
-        teacher-forced ``log_amp_parts`` of the samples."""
+        """One optimizer step on given samples and local energies (``e_im``
+        for a complex ansatz): the surrogate-loss gradient and Adam, or the
+        minSR direction and SGD; returns the step's metrics (0-dim tensors).
+        A complex ansatz's loss runs on its own teacher-forced
+        ``log_amp_parts`` of the samples."""
         e_loc = e_loc.detach()
         e_mean = e_loc.mean()
         var_e = ((e_loc - e_mean) ** 2).mean()
         metrics = {"mean_energy": e_mean, "var_energy": var_e}
         state.optimizer.zero_grad(set_to_none=True)
-        if getattr(self.ansatz, "is_complex", False):
+        is_complex = getattr(self.ansatz, "is_complex", False)
+        e_im_mean = None
+        if is_complex:
             e_im = e_im.detach()
             e_im_mean = e_im.mean()
-            la_re, la_im = self.ansatz.log_amp_parts(samples)
-            loss = surrogate_loss(la_re, la_im, e_loc, e_im, e_mean, e_im_mean)
             metrics["mean_energy_im"] = e_im_mean
+        if self.config.optimizer == "minsr":
+            self._set_minsr_direction(samples, e_loc, e_im, e_mean, e_im_mean)
         else:
-            loss = surrogate_loss(self.ansatz.log_amp(samples), None, e_loc, None, e_mean, None)
-        loss.backward()
+            la_re, la_im = (self.ansatz.log_amp_parts(samples) if is_complex
+                            else (self.ansatz.log_amp(samples), None))
+            surrogate_loss(la_re, la_im, e_loc, e_im, e_mean, e_im_mean).backward()
         state.optimizer.step()
         state.step += 1
         return metrics
+
+    @torch.no_grad()
+    def _set_minsr_direction(self, samples, e_loc, e_im, e_mean, e_im_mean) -> None:
+        """The minSR direction of these samples into every parameter's
+        ``.grad``."""
+        c = self.config
+        rows_re, rows_im = minsr.per_sample_log_amp_grad_trees(self.ansatz, samples)
+        direction = minsr.minsr_direction_tree(
+            rows_re, rows_im, e_loc, e_im, e_mean, e_im_mean, c.sr_damping,
+            solver=c.sr_solver, cg_iters=c.sr_cg_iters,
+        )
+        for p, d in zip(tree_leaves(param_tree(self.ansatz)), tree_leaves(direction)):
+            p.grad = d
 
     def step(self, state: TrainState):
         """One VMC update.  Returns (state, metrics dict of 0-dim tensors)."""

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels K1-K4, B5-B11 and B12-B16 against their
-plain versions on the card, at small shapes with ragged batches, and the
+"""PyTorch port: the CUDA kernels K1-K4, B5-B11, B12-B16 and B17-B21 against
+their plain versions on the card, at small shapes with ragged batches, and the
 training steps that launch them.  They skip without a CUDA device (a CUDA
 kernel has no CPU mode).  This file imports no JAX, so on a machine
 with a card and without JAX it runs as
@@ -12,13 +12,15 @@ import pytest
 import torch
 
 from rnnwavefunctions_tpu_torch import (
-    CRNNU1, J1J2, MDRNN2D, PRNN1D, PRNNSnake2D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer,
+    CRNNU1, J1J2, MDRNN2D, PRNN1D, PRNNSnake2D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer, interop,
 )
 from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_crnn_bwd, fused_gru, fused_gru_bwd
+from rnnwavefunctions_tpu_torch.ops import fused_jac, sr_cg
 from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
 from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
 from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
 from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
+from rnnwavefunctions_tpu_torch.vmc import minsr
 
 pytestmark = pytest.mark.cuda
 
@@ -393,3 +395,124 @@ def test_mdrnn_coverage_on_the_card(cuda):
         VMCTrainer(wide, TFIM2D(4, 4, 3.0, encoding="grid"))
     plain = MDRNN2D(4, 4, 256, impl="plain", device=cuda)
     assert plain.log_prob(_lattices(4, 4, cuda)).shape == (B,)
+
+
+# ---- minSR: the jacobian sweeps B17, B19, B20 and the CG solve B21
+
+
+def _close_to_max(got, want, rel=1e-4):
+    """Within ``rel`` of the largest |want| entry (f32 recurrences and sums
+    taken in another order)."""
+    torch.testing.assert_close(got, want, atol=rel * max(1.0, float(want.abs().max())), rtol=0)
+
+
+@pytest.mark.parametrize("n,b", [(100, B), (1000, 16)], ids=["n100", "n1000"])
+def test_b17_matches_plain(cuda, n, b):
+    """B17 at the flagship chain length and at N=1000, where the TPU kernel
+    takes its spill variant B18; then the rows and log p through it."""
+    w = _weights(50, cuda)
+    s = (torch.rand(b, n, generator=torch.Generator().manual_seed(3)) < 0.5).to(
+        torch.int32).to(cuda)
+    before = fused_jac.jac_sweep.launches
+    got = fused_jac.jac_sweep(w, s)
+    assert fused_jac.jac_sweep.launches == before + 1
+    for a, ref in zip(got, fused_jac.jac_sweep_plain(w, s)):
+        _close_to_max(a, ref)
+    lp, rows = fused_jac.prnn1d_rows(w, s)
+    torch.testing.assert_close(lp, fused_gru.log_prob_plain(w, s), atol=1e-5 * n, rtol=0)
+    assert rows["rnn"][0]["wh"].shape == (b, 50, 150) and rows["head"]["w"].shape == (b, 50, 2)
+
+
+def test_b19_b20_match_plain(cuda):
+    w, s = _crnn_weights(50, cuda), _sector(cuda)
+    trunk = w[:4]
+    before = (fused_jac.rollout_hist.launches, fused_jac.sweep_dgates.launches)
+    hist = fused_jac.rollout_hist(trunk, s)
+    _close_to_max(hist, fused_jac.rollout_hist_plain(trunk, s))
+    douts = torch.randn(2, B, N, 50, generator=torch.Generator().manual_seed(4)).to(cuda)
+    dg = fused_jac.sweep_dgates(trunk, s, hist, douts)
+    assert dg.shape == (2, B, N, 200)
+    _close_to_max(dg, fused_jac.sweep_dgates_plain(trunk, s, hist, douts))
+    assert (fused_jac.rollout_hist.launches, fused_jac.sweep_dgates.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def _spd(s, device, seed=0):
+    """A symmetric positive definite (S, S) system of an SR Gram's form,
+    A A^T / (2S) + 1e-2 I with A (S, 2S), and a right-hand side."""
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(s, 2 * s, generator=gen, dtype=torch.float64)
+    t = (a @ a.T / (2 * s) + 1e-2 * torch.eye(s, dtype=torch.float64)).float()
+    return t.to(device), torch.randn(s, generator=gen).to(device)
+
+
+@pytest.mark.parametrize("s", [500, 1000, 3000])
+def test_b21_matches_plain_and_is_deterministic(cuda, s):
+    """B21 at the TFIM (S=500) and J1-J2 (2S=1000) system sizes, where each
+    block holds its rows of T in shared memory, and at S=3000, where they do
+    not fit and are read from L2: against the plain CG and the Cholesky
+    solve, and the same bits on a second run."""
+    t, c = _spd(s, cuda)
+    before = sr_cg.sr_cg_solve.launches
+    x = sr_cg.sr_cg_solve(t, c, 64)
+    assert sr_cg.sr_cg_solve.launches == before + 1
+    assert torch.equal(sr_cg.sr_cg_solve(t, c, 64), x)
+    plain = sr_cg.cg_solve_plain(t, c, 64)
+    exact = torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t))[:, 0]
+    for ref in (plain, exact):
+        assert float((x - ref).norm() / ref.norm()) < 1e-4
+
+
+def test_b21_exact_convergence_guard(cuda):
+    """2 I x = 1 converges in one step; the 1e-30 guards then freeze the
+    iterate instead of dividing 0 by 0."""
+    x = sr_cg.sr_cg_solve(2.0 * torch.eye(8, device=cuda), torch.ones(8, device=cuda), 64)
+    assert torch.equal(x, torch.full((8,), 0.5, device=cuda))
+
+
+def test_minsr_training_steps_launch_their_kernels(cuda):
+    """minSR on the card: the TFIM step runs K3, B17 and B21 (no K1/K2), the
+    J1-J2 step B11, B19, B20 and B21 (no B7/B9), once per step each."""
+    cfg = TrainConfig(num_samples=B, optimizer="minsr", learning_rate=5e-2)
+    for ansatz, ham, fns in (
+            (PRNN1D(N, (16,), device=cuda), TFIM1D(N, 1.0),
+             (tk.tfim_sample_and_flip_sum, fused_jac.jac_sweep, sr_cg.sr_cg_solve,
+              fused_gru.gru_log_prob, fused_gru_bwd.gru_log_prob_bwd)),
+            (CRNNU1(N, (16,), device=cuda), J1J2(N, j2=0.2),
+             (jk.j1j2_sample_and_exchange, fused_jac.rollout_hist, fused_jac.sweep_dgates,
+              sr_cg.sr_cg_solve, fused_crnn.crnn_log_amp_parts,
+              fused_crnn_bwd.crnn_log_amp_bwd))):
+        trainer = VMCTrainer(ansatz, ham, cfg)
+        state = trainer.init()
+        counts = [fn.launches for fn in fns]
+        state, ms = trainer.run_steps(state, 2)
+        want = [2] * (len(fns) - 2) + [0, 0]
+        assert [fn.launches - c for fn, c in zip(fns, counts)] == want
+        assert bool(torch.isfinite(ms["mean_energy"]).all())
+
+
+@pytest.mark.parametrize("kind", ["tfim", "parity", "j1j2"])
+def test_minsr_direction_on_the_kernels_matches_plain(cuda, kind):
+    """The rows and the minSR direction through the kernels against the
+    plain rows and a Cholesky solve, both on the card."""
+    if kind == "j1j2":
+        models = [CRNNU1(N, (16,), impl=impl, device=cuda) for impl in ("auto", "plain")]
+        s = _sector(cuda)
+    else:
+        models = [PRNN1D(N, (16,), parity=kind == "parity", impl=impl, device=cuda)
+                  for impl in ("auto", "plain")]
+        s = _samples(cuda)
+    models[0].init(torch.Generator().manual_seed(5))
+    models[1].load_state_dict(models[0].state_dict())
+    gen = torch.Generator().manual_seed(6)
+    e_re, e_im = (torch.randn(B, generator=gen).to(cuda) for _ in range(2))
+    if kind != "j1j2":
+        e_im = None
+    dirs = []
+    for model, solver in zip(models, ("cg", "chol")):
+        rows_re, rows_im = minsr.per_sample_log_amp_grad_trees(model, s)
+        dirs.append(minsr.minsr_direction_tree(
+            rows_re, rows_im, e_re, e_im, e_re.mean(), None if e_im is None else e_im.mean(),
+            1e-2, solver=solver))
+    for a, b in zip(interop.tree_leaves(dirs[0]), interop.tree_leaves(dirs[1])):
+        _close_to_max(a, b, rel=1e-3)

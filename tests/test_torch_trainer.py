@@ -170,5 +170,7 @@ def test_j1j2_steps_are_reproducible_from_the_seed():
 def test_config_rejects_what_is_not_ported(schedule):
     with pytest.raises(ValueError, match="not ported yet"):
         VMCTrainer(PRNN1D(5, (8,), device="cpu"), TFIM1D(5, 1.0), TrainConfig(schedule=schedule))
-    with pytest.raises(TypeError):
-        TrainConfig(optimizer="minsr")
+    # minSR is ported; an optimizer of neither kind raises as in the JAX package
+    assert TrainConfig(optimizer="minsr").optimizer == "minsr"
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        VMCTrainer(PRNN1D(5, (8,), device="cpu"), TFIM1D(5, 1.0), TrainConfig(optimizer="sgd"))
