@@ -10,7 +10,9 @@ Phases (each prints its time; any failure raises and exits non-zero):
    shapes (N=100, U=50, B=500; parameters drawn from a seeded generator),
    every max error printed beside its tolerance; the K3 sampler's
    frequencies at N=3 against the exact density.
-3. Each kernel and its plain version timed with CUDA events.
+3. Each kernel and its plain version timed with CUDA events; K3's three
+   launches (base pass, suffix pass, ratio sum) timed apart by
+   ``torch.profiler``, beside its FP32 and tensor-core bounds.
 4. VMC training of the 1D TFIM at N=10 (300 steps, impl "auto") against
    exact diagonalization; all four kernels must have launched.
 5. 50 steps of the flagship (N=100, one GRU layer of 50 units, S=500, Adam
@@ -72,7 +74,8 @@ Phases (each prints its time; any failure raises and exits non-zero):
    the plain CG, with its relative residual beside the Cholesky solve's.
 19. The minSR kernels, their plain versions and their library yardsticks
    (``torch.nn.GRU``, i.e. cuDNN, for B19; Cholesky for B21) timed with CUDA
-   events, their bounds, and the widths their kernel families cover.
+   events, B19 beside cuDNN, their bounds, and the widths their kernel
+   families cover.
 20. minSR accuracy: TFIM N=20 (PRNN1D(20, (50,)), S=500, lr 5e-2) in 50-step
    blocks until within 1e-3 of the DMRG energy, at most 600 steps; J1-J2
    N=8 (CRNNU1(8, (12,)), J1J2(8, J2=0.2), S=256, lr 5e-2, seed 7) after 80
@@ -88,9 +91,12 @@ launches on its main path (phase 5 for K1-K4, phase 9 for B7-B11, phase 13
 for B12-B16, phase 17's parity run for B5, B6 and B8, phase 21's TFIM
 flagship for B17 and B21, its J1-J2 flagship for B19 and B20, its N=1000
 chain for B18), its largest error against its plain version, its time and
-its plain version's, its library yardstick's where one exists, and
+its plain version's, its library yardstick's where one exists,
 ``bound_ms``, the least time the card could take for the work on this run's
-inputs.  The last line is ``{"ok": true, "device": {...}}``.
+inputs in FP32, and ``tc_bound_ms``, that least time with the recurrent
+products on the tensor cores, for the kernels that run them there (K3, K4,
+B6a, B6b; null for the others).  The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -176,8 +182,10 @@ E_DMRG_N20 = -25.1077971081
 J1J2_PROBE_SEED = 7
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): float32
-# outside the tensor cores, and device memory.
+# outside the tensor cores, TF32 on the tensor cores (dense), and device
+# memory.
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -223,6 +231,19 @@ def bound(flops: float, nbytes: float):
     and the bytes over the memory rate."""
     t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tc_bound(steps: int, u: int, nbytes: float) -> float:
+    """The least time, in ms, of a flip kernel whose recurrent products run
+    on the tensor cores (K3, K4, B6; csrc/tfim_flip.cu) for ``steps`` GRU
+    site steps with one head: the 6U^2 operations of each step's 3U x U
+    product counted once at the TF32 peak, the other 30U + 4U + 10 (input
+    gates, activations, update, the head and its log-softmax) at the FP32
+    peak, or the bytes over the memory rate where that is larger.  The
+    3xTF32 split issues each product three times; the bound counts the
+    work, not the scheme."""
+    t_ops = steps * (6 * u * u / TF32_FLOPS + (30 * u + 4 * u + 10) / FP32_FLOPS)
+    return 1e3 * max(t_ops, nbytes / HBM_BYTES_PER_S)
 
 
 def exchange_site_steps(samples: torch.Tensor, ham) -> int:
@@ -452,6 +473,27 @@ def main() -> None:
             record[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
                   f"plain {record[name]['plain_ms']:.4f} ms")
+        # K3's launches apart: device time per call of each, by torch.profiler
+        from torch.profiler import ProfilerActivity, profile
+        calls = 10
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 3, 4)
+            torch.cuda.synchronize()
+        parts = {"base pass": "flip_base_kernel", "suffix pass": "flip_suffix_kernel",
+                 "ratio sum": "flip_sum_kernel"}
+        split = {label: sum(e.self_device_time_total for e in prof.key_averages()
+                            if key in e.key) / 1e3 / calls for label, key in parts.items()}
+        print("K3 launches (torch.profiler, ms per call): " + ", ".join(
+            f"{label} {ms:.4f}" if ms > 0 else f"{label} not measured"
+            for label, ms in split.items()))
+        steps_k3 = S_FLAG * N_FLAG + S_FLAG * N_FLAG * (N_FLAG - 1) // 2
+        k3_bytes = 4 * sum(t.numel() for t in w) + 4 * S_FLAG * N_FLAG + 8 * S_FLAG
+        for name in ("K3 tfim_sample_and_flip_sum", "K4 tfim_flip_ratio_sum"):
+            record[name]["tc_bound_ms"] = tc_bound(steps_k3, U_FLAG, k3_bytes)
+        t3 = record["K3 tfim_sample_and_flip_sum"]
+        print(f"K3: {t3['ms']:.4f} ms; tensor-core bound {t3['tc_bound_ms']:.4f} ms "
+              f"(share {t3['tc_bound_ms'] / t3['ms']:.1%}); FP32 bound in phase 7's print")
 
     def reset_counts():
         for fn in wrappers.values():
@@ -642,9 +684,13 @@ def main() -> None:
           f"({steps_exchange / (b_ * n_ * n_):.3f} of B N^2)")
     for name, (flops, nbytes) in work.items():
         record[name]["bound_ms"], record[name]["bound_by"] = bound(flops, nbytes)
+        tc = record[name].get("tc_bound_ms")
+        tc_txt = "" if tc is None else (f"; tensor-core bound {tc:.4f} ms, share "
+                                        f"{tc / record[name]['ms']:.1%}")
         print(f"{name}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
-              f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}), "
-              f"kernel {record[name]['ms']:.4f} ms")
+              f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}, share "
+              f"{record[name]['bound_ms'] / record[name]['ms']:.1%}), "
+              f"kernel {record[name]['ms']:.4f} ms{tc_txt}")
 
     with Phase("8 J1-J2 VMC at N=10 (J2=0.2, Marshall sign) against exact diagonalization"):
         n = 10
@@ -999,9 +1045,14 @@ def main() -> None:
         }
         for name, (flops, nbytes) in work_new.items():
             record[name]["bound_ms"], record[name]["bound_by"] = bound(flops, nbytes)
+            tc_txt = ""
+            if name.startswith("B6"):
+                record[name]["tc_bound_ms"] = tc_bound(steps_chain, u_, nbytes)
+                tc_txt = (f"; tensor-core bound {record[name]['tc_bound_ms']:.4f} ms, share "
+                          f"{record[name]['tc_bound_ms'] / record[name]['ms']:.1%}")
             print(f"{name}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
                   f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}), "
-                  f"kernel {record[name]['ms']:.4f} ms")
+                  f"kernel {record[name]['ms']:.4f} ms{tc_txt}")
         gru_u = max(u for u in range(1, 257) if fused_gru.supports(N_FLAG, (u,), dev))
         crnn_u = max(u for u in range(1, 257) if fused_crnn.supports(N_FLAG, (u,), dev))
         print(f"coverage at N={N_FLAG}: B5 and B6 run K3/K4's base and suffix launches, covered "
@@ -1241,6 +1292,9 @@ def main() -> None:
             lib_txt = "" if library is None else f", library {record[name]['library_ms']:.4f} ms"
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, plain "
                   f"{record[name]['plain_ms']:.4f} ms{lib_txt}")
+        t19, t_cudnn = record["B19 rollout_hist"]["ms"], record["B19 rollout_hist"]["library_ms"]
+        print(f"B19 {t19:.4f} ms against torch.nn.GRU (cuDNN) {t_cudnn:.4f} ms in this call: "
+              f"{'faster' if t19 < t_cudnn else 'slower'}, ratio {t_cudnn / t19:.2f}")
         print(f"B21 on the J1-J2 (2S, 2S) Gram: kernel "
               f"{cuda_ms(lambda: sr_cg.sr_cg_solve(t_j, c_j, 64), reps=20):.4f} ms, Cholesky "
               f"{cuda_ms(lambda: torch.cholesky_solve(c_j[:, None], torch.linalg.cholesky(t_j)), reps=20):.4f} ms")
@@ -1347,7 +1401,8 @@ def main() -> None:
          "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": record[name]["max_abs_err"], "ms": record[name]["ms"],
          "plain_ms": record[name]["plain_ms"], "bound_ms": record[name]["bound_ms"],
-         "bound_by": record[name]["bound_by"], "library_ms": record[name].get("library_ms")}
+         "bound_by": record[name]["bound_by"], "tc_bound_ms": record[name].get("tc_bound_ms"),
+         "library_ms": record[name].get("library_ms")}
         for name in wrappers
     ]
     print(json.dumps({"kernels": kernels}))

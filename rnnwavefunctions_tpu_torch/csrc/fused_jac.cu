@@ -23,12 +23,20 @@
 // (sample, site), 50 MB at the flagship shape (S=500, N=100, U=50), 0.015 ms
 // at the memory rate.
 //
-// Design: K2 without its batch reduction.  One warp per trajectory, four
-// warps per block, the weights in shared memory.  The forward replay stores
-// h_n to hist in device memory; the reverse sweep reads h_{n-1} back (from
-// L2), recomputes the gates and stores each site's cotangents instead of
-// accumulating weight cotangents, so no block waits on another and nothing
-// is summed across samples.  Every output lies in device memory at every N:
+// B19's forward replay alone is bound by the latency of N dependent sites
+// per sample.  It is built as K3's base pass (csrc/tfim_flip.cu): a block
+// per kRollP samples whose kSlices x U32 threads split each site's 3U x U
+// product by unit and by quarter of k (slice_product, gru_common.cuh), the
+// first kRollP slices update one sample each, two barriers per site, and
+// h_n stored coalesced along the sample's row.
+//
+// Design of B17 and B20: K2 without its batch reduction.  One warp per
+// trajectory, four warps per block, the weights in shared memory.  The
+// forward replay stores h_n to hist in device memory; the reverse sweep
+// reads h_{n-1} back (from L2), recomputes the gates and stores each site's
+// cotangents instead of accumulating weight cotangents, so no block waits on
+// another and nothing is summed across samples.  Every output lies in
+// device memory at every N:
 // the TPU kernel streamed history and cotangents through VMEM rings for
 // long chains (B18, "same values either way"), and this one kernel covers
 // both.  B20 runs one trajectory per (part, sample) and reads the one
@@ -38,12 +46,18 @@
 namespace rnnwf {
 
 constexpr int kJacWarps = 4;
+constexpr int kRollP = 2;  // samples per B19 block
+static_assert(kRollP <= kSlices, "a B19 block's first slices update one sample each");
 
 // Per-warp floats: h, hn (forward); hp, dh, zb (U each) and dgh (3U).
 __host__ __device__ inline int jac_warp_floats(int u) { return 8 * u; }
 
 size_t jac_smem_bytes(int u) {
   return sizeof(float) * (weight_floats(u) + kJacWarps * jac_warp_floats(u));
+}
+// B19: the weights, h and hn (kRollP*U floats each), the slices' sums.
+size_t rollout_smem_bytes(int u) {
+  return sizeof(float) * (weight_floats(u) + 2 * kRollP * u + slice_part_floats(u, kRollP));
 }
 
 // Copies the trunk (wx, wh, bx, bh) into shared memory in the layout of
@@ -202,12 +216,30 @@ __global__ void rollout_hist_kernel(const int32_t* __restrict__ samples, const f
                                     float* __restrict__ hist, int b_total, int n_sites, int u) {
   extern __shared__ __align__(16) float smem[];
   const Weights w = load_trunk(smem, wx, wh, bx, bh, u);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int b = blockIdx.x * kJacWarps + warp;
-  if (b >= b_total) return;
-  float* h = smem + weight_floats(u) + warp * jac_warp_floats(u);
-  forward_history(w, u, samples + static_cast<int64_t>(b) * n_sites,
-                  hist + static_cast<int64_t>(b) * n_sites * u, h, h + u, n_sites, lane);
+  const int u32 = warp_round(u), ks = threadIdx.x / u32, j = threadIdx.x - ks * u32;
+  float* h = smem + weight_floats(u);
+  float* hn = h + kRollP * u;
+  float* part = hn + kRollP * u;
+  for (int i = threadIdx.x; i < kRollP * u; i += blockDim.x) h[i] = 0.0f;
+  // thread (p, j) of the first kRollP slices updates unit j of sample p; a
+  // padding slot past the batch repeats the last sample and stores nothing
+  const int b = blockIdx.x * kRollP + min(ks, kRollP - 1);
+  const int64_t my_row = static_cast<int64_t>(min(b, b_total - 1)) * n_sites;
+  const bool mine = ks < kRollP && j < u && b < b_total;
+  __syncthreads();
+  float x = 0.0f;
+  for (int n = 0; n < n_sites; ++n) {
+    if (j < u) slice_product<kRollP>(w, u, ks, j, h, part);
+    __syncthreads();
+    if (ks < kRollP && j < u) {
+      const float hv = slice_update<kRollP>(w, u, j, ks, h, part, x, n > 0 ? 1.0f : 0.0f);
+      hn[j * kRollP + ks] = hv;
+      if (mine) hist[(my_row + n) * u + j] = hv;
+      x = static_cast<float>(samples[my_row + n]);
+    }
+    __syncthreads();
+    float* tmp = h; h = hn; hn = tmp;
+  }
 }
 
 __global__ void sweep_dgates_kernel(const int32_t* __restrict__ samples, const float* wx,
@@ -273,11 +305,12 @@ extern "C" int rnnwf_rollout_hist(const void* samples, const void* wx, const voi
                                   const void* bx, const void* bh, void* hist, int b_total,
                                   int n_sites, int u, void* stream) {
   using namespace rnnwf;
-  const size_t smem = jac_smem_bytes(u);
+  const size_t smem = rollout_smem_bytes(u);
   cudaError_t err = set_smem(rollout_hist_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (b_total + kJacWarps - 1) / kJacWarps;
-  rollout_hist_kernel<<<blocks, kJacWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (b_total + kRollP - 1) / kRollP;
+  rollout_hist_kernel<<<blocks, kSlices * warp_round(u), smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(samples), static_cast<const float*>(wx),
       static_cast<const float*>(wh), static_cast<const float*>(bx),
       static_cast<const float*>(bh), static_cast<float*>(hist), b_total, n_sites, u);

@@ -6,14 +6,16 @@
 // memory in exactly this order, so the gradient kernel can accumulate into a
 // buffer of the same layout and hand back one flat weight-shaped vector.
 //
-// Work split: one warp advances T trajectories (samples, or flipped-sample
-// suffixes) through one site at a time.  Lane j owns hidden units
-// j, j+32, ...; the hidden state of the warp's T trajectories sits in shared
-// memory as h[k*T + t], so one (broadcast) load of h[k] serves T trajectories
-// while each wh row entry is loaded once per site.  The 2-logit head is a
-// butterfly shuffle reduction, which leaves bitwise-identical logits on every
-// lane (float addition commutes), so every lane takes the same sampling
-// decision without another exchange.
+// Work split (K1, K2, the cRNN kernels): one warp advances T trajectories
+// (samples, or exchanged-sample suffixes) through one site at a time; the
+// latency kernels' block-wide split is slice_product below, and the flip
+// suffixes run on the tensor cores (csrc/tfim_flip.cu).  Lane j owns
+// hidden units j, j+32, ...; the hidden state of the warp's T trajectories
+// sits in shared memory as h[k*T + t], so one (broadcast) load of h[k]
+// serves T trajectories while each wh row entry is loaded once per site.
+// The 2-logit head is a butterfly shuffle reduction, which leaves
+// bitwise-identical logits on every lane (float addition commutes), so
+// every lane takes the same sampling decision without another exchange.
 //
 // Numerics: precise expf/tanhf/logf (never built with --use_fast_math); the
 // Kahan pairs are written so that no reassociation applies.
@@ -46,7 +48,8 @@ size_t k1_smem_bytes(int u);
 size_t k2_smem_bytes(int u);
 size_t flip_base_smem_bytes(int u);
 size_t flip_suffix_smem_bytes(int u);
-size_t jac_smem_bytes(int u);  // B17, B19, B20 (csrc/fused_jac.cu)
+size_t jac_smem_bytes(int u);      // B17, B20 (csrc/fused_jac.cu)
+size_t rollout_smem_bytes(int u);  // B19 (csrc/fused_jac.cu)
 
 struct Weights {
   const float* wx;  // (2, 3U)
@@ -111,12 +114,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Loads h[k*T + t] for t < T (one 16-byte broadcast load when T == 4).
+// Loads h[k*T + t] for t < T (one 8- or 16-byte broadcast load when T is 2
+// or 4).
 template <int T>
 __device__ __forceinline__ void load_h(const float* h, int k, float (&out)[T]) {
   if constexpr (T == 4) {
     const float4 v = reinterpret_cast<const float4*>(h)[k];
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else if constexpr (T == 2) {
+    const float2 v = reinterpret_cast<const float2*>(h)[k];
+    out[0] = v.x; out[1] = v.y;
   } else {
 #pragma unroll
     for (int t = 0; t < T; ++t) out[t] = h[k * T + t];
@@ -197,6 +204,86 @@ __device__ __forceinline__ void gru_site(const Weights& w, int u, const float* h
   gru_site_heads<T, 1>(w, u, h, hn, x, xscale, hw, hb, lg, lane);
 #pragma unroll
   for (int t = 0; t < T; ++t) { l0[t] = lg[0][0][t]; l1[t] = lg[0][1][t]; }
+}
+
+// ---- The latency kernels (B19 in csrc/fused_jac.cu; K3's base pass and B5
+// in csrc/tfim_flip.cu) advance the P samples of a block one site at a time
+// with the site's 3U x U product spread over the whole block: thread (ks, j)
+// of kSlices x U32 threads (U32 = U rounded up to a warp) sums the terms of
+// hidden unit j over the ks-th quarter of k for the P samples (a chain a
+// quarter as deep as one thread's would be), the partial sums meet in shared
+// memory, and after a barrier thread (p, j) of the first P slices adds
+// them in slice order and updates unit j of sample p.  The states sit in
+// shared memory as h[k*P + p] (one broadcast load of h[k] feeds P
+// samples); a warp's loads wh[k, j], wh[k, U+j], wh[k, 2U+j] are
+// consecutive (conflict-free).
+constexpr int kSlices = 4;
+
+__host__ __device__ inline int warp_round(int u) { return (u + kWarp - 1) / kWarp * kWarp; }
+
+// Floats of the partial sums: [slice][gate][U32][P].
+__host__ __device__ inline int slice_part_floats(int u, int p) {
+  return kSlices * 3 * warp_round(u) * p;
+}
+
+// The logistic function as 0.5 tanh(x/2) + 0.5 (precise tanhf): the same
+// value as 1 / (1 + exp(-x)) to float32 rounding, and without the division's
+// slow-path branch, which would keep the compiler from interleaving
+// independent gates.
+__device__ __forceinline__ float sigmoid_tanh(float x) {
+  return fmaf(0.5f, tanhf(0.5f * x), 0.5f);
+}
+
+// Slice ks of unit j's three gate sums for the P samples into part.
+template <int P>
+__device__ __forceinline__ void slice_product(const Weights& w, int u, int ks, int j,
+                                              const float* h, float* part) {
+  const int g = 3 * u, u32 = warp_round(u);
+  const int kc = (u + kSlices - 1) / kSlices, k1 = min(u, (ks + 1) * kc);
+  float a[3][P];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int p = 0; p < P; ++p) a[q][p] = 0.0f;
+#pragma unroll 4
+  for (int k = ks * kc; k < k1; ++k) {
+    const float* wk = w.wh + k * g;
+    const float wq[3] = {wk[j], wk[u + j], wk[2 * u + j]};
+    float hk[P];
+    load_h<P>(h, k, hk);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int p = 0; p < P; ++p) a[q][p] = fmaf(hk[p], wq[q], a[q][p]);
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int p = 0; p < P; ++p) part[((ks * 3 + q) * u32 + j) * P + p] = a[q][p];
+}
+
+// Unit j's update for sample p from the slices' sums (added in slice
+// order); xt is the sample's previous spin (0/1) and xscale is 0 at site 0.
+template <int P>
+__device__ __forceinline__ float slice_update(const Weights& w, int u, int j, int p,
+                                              const float* h, const float* part, float xt,
+                                              float xscale) {
+  const int g = 3 * u, u32 = warp_round(u);
+  float a[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    a[q] = part[(q * u32 + j) * P + p];
+#pragma unroll
+    for (int ks = 1; ks < kSlices; ++ks) a[q] += part[((ks * 3 + q) * u32 + j) * P + p];
+  }
+  const float gxr = xscale * ((1.0f - xt) * w.wx[j] + xt * w.wx[g + j]) + w.bx[j];
+  const float gxz = xscale * ((1.0f - xt) * w.wx[u + j] + xt * w.wx[g + u + j]) + w.bx[u + j];
+  const float gxc =
+      xscale * ((1.0f - xt) * w.wx[2 * u + j] + xt * w.wx[g + 2 * u + j]) + w.bx[2 * u + j];
+  const float r = sigmoid_tanh(gxr + (a[0] + w.bh[j]));
+  const float z = sigmoid_tanh(gxz + (a[1] + w.bh[u + j]));
+  const float c = tanhf(gxc + r * (a[2] + w.bh[2 * u + j]));
+  return z * h[j * P + p] + (1.0f - z) * c;
 }
 
 // Sums per-block partial gradients (blocks x wfx floats) in block order into

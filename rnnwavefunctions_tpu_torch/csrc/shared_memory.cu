@@ -25,7 +25,8 @@ extern "C" int rnnwf_fits_shared_memory(int family, int nx, int u, int device, i
                      flip_suffix_smem_bytes(u), jac_smem_bytes(u)});
   } else if (family == 1) {
     need = std::max({b7_smem_bytes(u), b9_smem_bytes(u), exchange_base_smem_bytes(u),
-                     exchange_suffix_smem_bytes(u), jac_smem_bytes(u)});
+                     exchange_suffix_smem_bytes(u), jac_smem_bytes(u),
+                     rollout_smem_bytes(u)});
   } else {
     // the suffix pass takes fewer warps per block where four do not fit
     need = std::max({mdrnn_sweep_smem_bytes(nx, u), mdrnn_bwd_smem_bytes(nx, u),

@@ -18,43 +18,97 @@
 // untouched, so only sites f+1..N-1 are recomputed, starting from the stored
 // hidden state h_f with the flipped input (prefix sharing): B*N*(N-1)/2
 // GRU site steps, about 37 GFLOP per flagship step (B=500, N=100, U=50),
-// over 90% of the step's arithmetic.  Each step is a 3U x U product out of
-// shared memory, so the limit is shared-memory load bandwidth and issue
-// rate, not HBM.  B5 does only the B*N base steps (K1's work) and is bound,
-// as K1, by the latency of N dependent site steps per sample.
+// over 90% of the step's arithmetic, 6U^2 of every site's 6U^2 + 34U + 10
+// operations in the 3U x U recurrent product.  The base pass (and B5) does
+// only the B*N base steps, N dependent sites per sample: it is bound by
+// latency, not by work.
 //
 // Design: three launches.
-//   1. Base pass, one warp per sample: (in sample mode) draws each spin from
-//      a Philox uniform, and stores the hidden history h_n, the corrected
-//      prefix pfx[n] = log p(sites <= n), the flipped-site log-prob fl[n] and
-//      the base log p.  B5 runs this launch alone and stores no history
-//      (10 MB at the flagship), only the spins and log p; the arithmetic is
-//      the same code, so B5 draws K3's spins and log p bit for bit.
-//   2. Suffix pass, one warp per (flip f, group of 4 samples): the 4
-//      trajectories of a warp share the flip site, so they have the same
-//      length and run in lockstep, and each weight load feeds 4 products.
-//      Warps are ordered by flip, longest suffix first.  Flip f starts from
-//      h_hist[f] with input 1 - s_f and acc = pfx[f-1] + fl[f], then
-//      Kahan-adds sites f+1..N-1; the last flip has an empty suffix.  K3/K4
-//      write the ratio term exp(0.5 (lpf - lp)); B6 writes lpf itself (the
-//      log of a term would be -inf where the term underflows).
+//   1. Base pass, a block per kBaseP samples: its kSlices x U32 threads
+//      split each site's product by unit and by quarter of k
+//      (slice_product, gru_common.cuh), and after a barrier the first
+//      kBaseP slices update one sample each, store h_n to the history and
+//      reduce their head terms by shuffles per warp; after a second barrier
+//      every thread sums the warps' head terms in warp order, so all hold
+//      the same logits and (in sample mode) take the same decision from a
+//      Philox uniform.  One more warp keeps the samples' books off that
+//      path: it draws the uniforms of 32 sites at once (a lane per site)
+//      ahead of the decisions, Kahan-adds log p and stores the spins, the
+//      corrected prefix pfx[n] = log p(sites <= n), the flipped-site
+//      log-prob fl[n] and the base log p.  B5 runs
+//      this launch alone and stores no history, only the spins and log p;
+//      the arithmetic is the same code, so B5 draws K3's spins bit for bit.
+//   2. Suffix pass on the tensor cores, a block (one warpgroup) per 32
+//      trajectories that share flip f (so they have one length), blocks
+//      ordered by flip, longest suffix first.  Each site is the product
+//      W_h^T (3U x U) . H^T (U x 32) by wgmma m64n32k8 in TF32, made
+//      float32-accurate by the 3xTF32 split: each operand x = hi + lo with
+//      hi = x with its low 13 mantissa bits cleared and lo = (x - hi) cleared
+//      the same way, and hi.hi + hi.lo + lo.hi accumulated in float32
+//      (lo.hi first, then hi.lo, then hi.hi, each k-step of 8 in turn).
+//      A = W_h^T comes from registers, split there from W_h in shared
+//      memory; B = the states, from shared memory as two operands (the
+//      state, whose TF32 part the tensor cores read, and its remainder lo),
+//      written by the gate update in wgmma's core-matrix layout.  Every gate
+//      is padded to 64 rows (U rounded up to 64), so the r, z and c of a
+//      unit land in the same thread's accumulators and the gate update runs
+//      on them in registers; the accumulators start from b_h.  The head's
+//      two logits are shuffle sums over each warp's units, added over the
+//      warps in order.  Flip f starts from h_hist[f] with input 1 - s_f and
+//      acc = pfx[f-1] + fl[f], then Kahan-adds sites f+1..N-1; the last
+//      flip has an empty suffix.  K3/K4 write the ratio term exp(0.5 (lpf -
+//      lp)); B6 writes lpf itself (the log of a term would be -inf where it
+//      underflows).  Every column of a tile runs the same arithmetic, so a
+//      trajectory's result does not depend on the block or column it lands
+//      in.
 //   3. (K3/K4) A per-sample sum of the N ratio terms in flip order, so the
-//      result does not depend on how warps were scheduled.
+//      result does not depend on how blocks were scheduled.
 // The TPU kernel's wavefront groups, lane packing and VMEM spill rings are
 // TPU-only and have no counterpart here.
 #include "gru_common.cuh"
 
 namespace rnnwf {
 
-constexpr int kBaseWarps = 4;
-constexpr int kSufWarps = 8;
-constexpr int kSufT = 4;
+constexpr int kBaseP = 2;      // samples per base-pass block
+static_assert(kBaseP <= kSlices, "a base block's first slices update one sample each");
+constexpr int kGateRows = 64;  // gate columns per wgmma tile (its M)
+constexpr int kTraj = 32;      // trajectories per suffix block (its N)
+
+__host__ __device__ inline int pad8(int u) { return (u + 7) & ~7; }
+__host__ __device__ inline int pad64(int u) {
+  return (u + kGateRows - 1) / kGateRows * kGateRows;
+}
+// The slices' threads and the bookkeeping warp.
+__host__ __device__ inline int base_threads(int u) { return kSlices * warp_round(u) + kWarp; }
+
+// Base pass, after the weights: h and hn (kBaseP*U each), the slices' sums,
+// the head partials [sample][warp of its slice][2] and two blocks of
+// uniforms [block parity][site % 32][sample].
+__host__ __device__ inline int base_buffer_floats(int u) {
+  return 2 * kBaseP * u + slice_part_floats(u, kBaseP) + (warp_round(u) / kWarp) * kBaseP * 2 +
+         2 * kWarp * kBaseP;
+}
+
+// Suffix pass, in this order: the states of the block's trajectories as
+// the product's B operand, in two parts (the state and its remainder below
+// TF32, lo), each kTraj x Kp in the 8 x 4 core-matrix layout of wgmma
+// (Kp = U rounded up to 8); W_h^T in the A-fragment order of wgmma
+// (Kp/8 k-steps x 3 Ug/64 tiles x 4 warps x 32 lanes x 4, Ug = U rounded
+// up to 64); the input gates wx[x] + bx for x = 0, 1 (2 x 3 x Ug), b_h
+// (3 x Ug), the head (Ug x 2) and its bias (2, padded to 4), every padded
+// entry zero; the head partials [site parity][warp][trajectory][2].
+__host__ __device__ inline int suffix_state_floats(int u) { return kTraj * pad8(u); }
+__host__ __device__ inline int suffix_table_floats(int u) {
+  const int ug = pad64(u);
+  return (pad8(u) / 8) * (3 * ug / kGateRows) * 4 * kWarp * 4 + 6 * ug + 3 * ug + 2 * ug + 4;
+}
 
 size_t flip_base_smem_bytes(int u) {
-  return sizeof(float) * (weight_floats(u) + kBaseWarps * 2 * u);
+  return sizeof(float) * (weight_floats(u) + base_buffer_floats(u));
 }
 size_t flip_suffix_smem_bytes(int u) {
-  return sizeof(float) * (weight_floats(u) + kSufWarps * 2 * u * kSufT);
+  return sizeof(float) * (2 * suffix_state_floats(u) + suffix_table_floats(u) +
+                          2 * 4 * kTraj * 2);
 }
 
 // kHistory: store hist, pfx and fl for the suffix pass (off for B5).
@@ -67,99 +121,388 @@ __global__ void flip_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
                                  float* __restrict__ lp, int b_total, int n_sites, int u) {
   extern __shared__ __align__(16) float smem[];
   const Weights w = load_weights(smem, wx, wh, bx, bh, hw, hb, u);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int b = blockIdx.x * kBaseWarps + warp;
-  if (b >= b_total) return;
-  float* h = smem + weight_floats(u) + warp * 2 * u;
-  float* hn = h + u;
-  for (int j = lane; j < u; j += kWarp) h[j] = 0.0f;
-  __syncwarp();
+  const int u32 = warp_round(u), nw = u32 / kWarp;
+  const int ks = threadIdx.x / u32, j = threadIdx.x - ks * u32;
+  const int lane = threadIdx.x % kWarp;
+  const bool books = ks == kSlices;  // the last warp: lane p keeps sample p
+  float* h = smem + weight_floats(u);
+  float* hn = h + kBaseP * u;
+  float* part = hn + kBaseP * u;
+  float* red = part + slice_part_floats(u, kBaseP);
+  float* uni = red + nw * kBaseP * 2;
+  for (int i = threadIdx.x; i < kBaseP * u; i += blockDim.x) h[i] = 0.0f;
+  // padding slots past the batch repeat the last sample and store nothing
+  int bs[kBaseP];
+  int64_t row[kBaseP];
+  bool own[kBaseP];
+#pragma unroll
+  for (int p = 0; p < kBaseP; ++p) {
+    const int b = blockIdx.x * kBaseP + p;
+    own[p] = b < b_total;
+    bs[p] = min(b, b_total - 1);
+    row[p] = static_cast<int64_t>(bs[p]) * n_sites;
+  }
+  // thread (p, j) of the first kBaseP slices updates unit j of sample p
+  const int b_mine = blockIdx.x * kBaseP + min(ks, kBaseP - 1);
+  const int64_t row_mine = static_cast<int64_t>(min(b_mine, b_total - 1)) * n_sites;
+  __syncthreads();
 
-  const int64_t row = static_cast<int64_t>(b) * n_sites;
-  float* h_row = kHistory ? hist + row * u : nullptr;
-  float x[1] = {0.0f}, l0[1], l1[1];
-  float acc = 0.0f, cmp = 0.0f;
+  float x[kBaseP], acc = 0.0f, cmp = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kBaseP; ++p) x[p] = 0.0f;
   for (int n = 0; n < n_sites; ++n) {
-    gru_site<1>(w, u, h, hn, x, n > 0 ? 1.0f : 0.0f, l0, l1, lane);
-    float s;
-    if constexpr (kSample) {
-      const float p0 = sigmoidf_(l0[0] - l1[0]);
-      s = uniform23(seed, offset, static_cast<uint32_t>(b), static_cast<uint32_t>(n)) >= p0
-              ? 1.0f : 0.0f;
-    } else {
-      s = static_cast<float>(samples[row + n]);
+    // the uniforms of sites n..n+31, drawn at once, lane = site - n
+    float* uni_n = uni + ((n / kWarp) & 1) * kWarp * kBaseP + (n % kWarp) * kBaseP;
+    if (books) {
+      if constexpr (kSample) {
+        if (n % kWarp == 0) {
+#pragma unroll
+          for (int p = 0; p < kBaseP; ++p)
+            uni_n[lane * kBaseP + p] = uniform23(seed, offset, static_cast<uint32_t>(bs[p]),
+                                                 static_cast<uint32_t>(n + lane));
+        }
+      }
+    } else if (j < u) {
+      slice_product<kBaseP>(w, u, ks, j, h, part);
     }
-    kadd(acc, cmp, logp2(l0[0], l1[0], s));
-    if constexpr (kHistory) {
-      for (int j = lane; j < u; j += kWarp) h_row[n * u + j] = hn[j];
-    }
-    if (lane == 0) {
-      if constexpr (kSample) samples[row + n] = static_cast<int32_t>(s);
-      if constexpr (kHistory) {
-        pfx[row + n] = acc - cmp;
-        fl[row + n] = logp2(l0[0], l1[0], 1.0f - s);
+    __syncthreads();
+    if (ks < kBaseP) {
+      float q0 = 0.0f, q1 = 0.0f;
+      if (j < u) {
+        float xt = x[0];
+#pragma unroll
+        for (int p = 1; p < kBaseP; ++p) xt = ks == p ? x[p] : xt;
+        const float hv = slice_update<kBaseP>(w, u, j, ks, h, part, xt, n > 0 ? 1.0f : 0.0f);
+        hn[j * kBaseP + ks] = hv;
+        if constexpr (kHistory) {
+          if (b_mine < b_total) hist[(row_mine + n) * u + j] = hv;
+        }
+        q0 = hv * w.hw[2 * j];
+        q1 = hv * w.hw[2 * j + 1];
+      }
+      q0 = warp_sum(q0);
+      q1 = warp_sum(q1);
+      if (lane == 0) {
+        red[(ks * nw + j / kWarp) * 2] = q0;
+        red[(ks * nw + j / kWarp) * 2 + 1] = q1;
       }
     }
-    x[0] = s;
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < kBaseP; ++p) {
+      float l0 = 0.0f, l1 = 0.0f;
+      for (int v = 0; v < nw; ++v) {
+        l0 += red[(p * nw + v) * 2];
+        l1 += red[(p * nw + v) * 2 + 1];
+      }
+      l0 += w.hb[0];
+      l1 += w.hb[1];
+      float s;
+      if constexpr (kSample) {
+        s = uni_n[p] >= sigmoid_tanh(l0 - l1) ? 1.0f : 0.0f;
+      } else {
+        s = static_cast<float>(samples[row[p] + n]);
+      }
+      if (books && lane == p) {
+        // logp2 of both targets from one log-sum-exp
+        const float m = fmaxf(l0, l1);
+        const float lse = m + logf(expf(l0 - m) + expf(l1 - m));
+        kadd(acc, cmp, (s > 0.5f ? l1 : l0) - lse);
+        if (own[p]) {
+          if constexpr (kSample) samples[row[p] + n] = static_cast<int32_t>(s);
+          if constexpr (kHistory) {
+            pfx[row[p] + n] = acc - cmp;
+            fl[row[p] + n] = (s > 0.5f ? l0 : l1) - lse;
+          }
+        }
+      }
+      x[p] = s;
+    }
     float* tmp = h; h = hn; hn = tmp;
   }
-  if (lane == 0) lp[b] = acc - cmp;
+  if (books) {
+#pragma unroll
+    for (int p = 0; p < kBaseP; ++p)
+      if (lane == p && own[p]) lp[bs[p]] = acc - cmp;
+  }
+}
+
+// x = hi + lo, each a TF32 value (the low 13 of float32's 23 mantissa bits
+// cleared): hi is x cut to TF32, lo the rest cut the same way.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// Shared-memory matrix descriptor of wgmma for a K-major operand without
+// swizzle: start address, the byte step between 8 x 16-byte core matrices
+// along K (lbo) and along the 8-row groups (sbo).
+__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// d += a . b for the warpgroup's 64 x kTraj tile: a (64 x 8, TF32) in
+// registers, the m16n8k8 A fragment of each warp's 16 rows; b (8 x kTraj)
+// in shared memory; d as the m16n8 accumulators of each warp's rows for
+// the four 8-column blocks.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Keeps the compiler from moving an access to r across an asynchronous
+// wgmma that reads or writes it.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// Offset of (trajectory n, unit k) in a state buffer: 8 x 4 core matrices,
+// contiguous along k (lbo = 128 bytes), groups of 8 trajectories kp * 8
+// floats apart (sbo).
+__device__ __forceinline__ int state_at(int n, int k, int kp) {
+  return (n >> 3) * (kp * 8) + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// The A fragments (W_h^T) of k-step ks for the MT tiles, one 16-byte load
+// per tile, split in registers.
+template <int MT>
+__device__ __forceinline__ void load_a(const float* wfrag, int ks, int warp, int lane,
+                                       uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const float4 a =
+        reinterpret_cast<const float4*>(wfrag)[((ks * MT + m) * 4 + warp) * kWarp + lane];
+    split_tf32(a.x, hi[m][0], lo[m][0]);
+    split_tf32(a.y, hi[m][1], lo[m][1]);
+    split_tf32(a.z, hi[m][2], lo[m][2]);
+    split_tf32(a.w, hi[m][3], lo[m][3]);
+  }
+}
+
+// One k-step's three products for the MT tiles as one wgmma group: lo.hi,
+// then hi.lo, then hi.hi (B = the states and their remainders at k-step ks).
+template <int MT>
+__device__ __forceinline__ void issue_k_step(float (&d)[MT][16], const uint32_t (&hi)[MT][4],
+                                             const uint32_t (&lo)[MT][4], const float* states,
+                                             int sf, int kp, int ks) {
+  const uint64_t b_hi = smem_desc(states + ks * 64, 128, kp * 32);
+  const uint64_t b_lo = smem_desc(states + sf + ks * 64, 128, kp * 32);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int m = 0; m < MT; ++m) wgmma_tf32(d[m], lo[m], b_hi);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) wgmma_tf32(d[m], hi[m], b_lo);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) wgmma_tf32(d[m], hi[m], b_hi);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N wgmma groups are pending; the fragments of the
+// groups that finished stay live up to here.
+template <int N, int MT>
+__device__ __forceinline__ void wait_groups(uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { pin(hi[m][i]); pin(lo[m][i]); }
 }
 
 // kPerFlip: out[b, f] is the flipped configuration's log p (B6), else its
-// ratio term exp(0.5 (lpf - lp)) (K3/K4).
-template <bool kPerFlip>
-__global__ void flip_suffix_kernel(const int32_t* __restrict__ samples, const float* wx,
-                                   const float* wh, const float* bx, const float* bh,
-                                   const float* hw, const float* hb,
-                                   const float* __restrict__ hist,
-                                   const float* __restrict__ pfx,
-                                   const float* __restrict__ fl,
-                                   const float* __restrict__ lp,
-                                   float* __restrict__ out, int b_total, int n_sites,
-                                   int u) {
+// ratio term exp(0.5 (lpf - lp)) (K3/K4).  MG: 64-row tiles per gate, U
+// rounded up to 64 MG.
+template <bool kPerFlip, int MG>
+__global__ void __launch_bounds__(4 * kWarp)
+flip_suffix_kernel(const int32_t* __restrict__ samples, const float* wx, const float* wh,
+                   const float* bx, const float* bh, const float* hw, const float* hb,
+                   const float* __restrict__ hist, const float* __restrict__ pfx,
+                   const float* __restrict__ fl, const float* __restrict__ lp,
+                   float* __restrict__ out, int b_total, int n_sites, int u) {
+  constexpr int MT = 3 * MG, UG = MG * kGateRows;
   extern __shared__ __align__(16) float smem[];
-  const Weights w = load_weights(smem, wx, wh, bx, bh, hw, hb, u);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int groups = (b_total + kSufT - 1) / kSufT;
-  const int gw = blockIdx.x * kSufWarps + warp;
-  const int f = gw / groups;
-  if (f >= n_sites) return;
-  const int grp = gw - f * groups;
-  float* h = smem + weight_floats(u) + warp * 2 * u * kSufT;
-  float* hn = h + u * kSufT;
+  const int kp = pad8(u), ks_n = kp / 8, g3 = 3 * u, sf = suffix_state_floats(u);
+  float* states = smem;                   // [state, lo][kTraj x kp]
+  float* wfrag = states + 2 * sf;         // [k-step][tile][warp][lane][4]
+  float* gxs = wfrag + ks_n * MT * 4 * kWarp * 4;  // [x][gate][unit]
+  float* bhs = gxs + 6 * UG;              // [gate][unit]
+  float* hws = bhs + 3 * UG;              // [unit][2]
+  float* hbs = hws + 2 * UG;
+  float* red = hbs + 4;                   // [parity][warp][trajectory][2]
+  // A fragment i of lane (g, t) in warp w: rows 16 w + g (+8 for odd i),
+  // columns t (+4 for i >= 2) of the tile; row (gate m / MG, unit
+  // 64 (m % MG) + row) of W_h^T is W_h's column
+  for (int i = threadIdx.x; i < ks_n * MT * 4 * kWarp * 4; i += blockDim.x) {
+    const int e = i & 3, l = (i >> 2) & (kWarp - 1), w = (i >> 7) & 3, tile = i >> 9;
+    const int ks = tile / MT, m = tile - ks * MT;
+    const int k = 8 * ks + (l & 3) + 4 * (e >> 1);
+    const int uu = (m % MG) * kGateRows + 16 * w + (l >> 2) + 8 * (e & 1);
+    wfrag[i] = (k < u && uu < u) ? wh[k * g3 + (m / MG) * u + uu] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < 3 * UG; i += blockDim.x) {
+    const int gate = i / UG, unit = i - gate * UG, col = gate * u + unit;
+    gxs[i] = unit < u ? wx[col] + bx[col] : 0.0f;
+    gxs[3 * UG + i] = unit < u ? wx[g3 + col] + bx[col] : 0.0f;
+    bhs[i] = unit < u ? bh[col] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < 2 * UG; i += blockDim.x) hws[i] = i < 2 * u ? hw[i] : 0.0f;
+  if (threadIdx.x < 2) hbs[threadIdx.x] = hb[threadIdx.x];
 
-  int64_t rows[kSufT];
-  float x[kSufT], acc[kSufT], cmp[kSufT], l0[kSufT], l1[kSufT];
-#pragma unroll
-  for (int t = 0; t < kSufT; ++t) {
-    const int b = min(grp * kSufT + t, b_total - 1);  // padding rows repeat the last sample
-    rows[t] = static_cast<int64_t>(b) * n_sites;
-    const float* hf = hist + (rows[t] + f) * u;
-    for (int j = lane; j < u; j += kWarp) h[j * kSufT + t] = hf[j];
-    x[t] = 1.0f - static_cast<float>(samples[rows[t] + f]);
-    acc[t] = (f > 0 ? pfx[rows[t] + f - 1] : 0.0f) + fl[rows[t] + f];
-    cmp[t] = 0.0f;
+  const int groups = (b_total + kTraj - 1) / kTraj;
+  const int f = blockIdx.x / groups;
+  const int bt0 = (blockIdx.x - f * groups) * kTraj;
+  // the trajectories' states h_f and their remainders below TF32,
+  // zero-padded to kp units; padding trajectories repeat the last sample
+  for (int i = threadIdx.x; i < kTraj * kp; i += blockDim.x) {
+    const int n = i / kp, k = i - n * kp;
+    const int b = min(bt0 + n, b_total - 1);
+    const float v = k < u ? hist[(static_cast<int64_t>(b) * n_sites + f) * u + k] : 0.0f;
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    states[state_at(n, k, kp)] = v;
+    states[sf + state_at(n, k, kp)] = __uint_as_float(lo);
   }
-  __syncwarp();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  // the thread's trajectories 8 cb + 2 t + v (e = 2 cb + v), their rows
+  // and previous spins
+  int64_t rows[8];
+  float x[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int n = 8 * (e >> 1) + 2 * t + (e & 1);
+    rows[e] = static_cast<int64_t>(min(bt0 + n, b_total - 1)) * n_sites;
+    x[e] = 1.0f - static_cast<float>(samples[rows[e] + f]);
+  }
+  // lane n of warp 3 (whose rows hold the padding units, so it updates the
+  // fewest) keeps trajectory n's Kahan pair
+  const int64_t my_row = static_cast<int64_t>(min(bt0 + lane, b_total - 1)) * n_sites;
+  float acc = 0.0f, cmp = 0.0f;
+  if (warp == 3) acc = (f > 0 ? pfx[my_row + f - 1] : 0.0f) + fl[my_row + f];
+
   for (int n = f + 1; n < n_sites; ++n) {
-    gru_site<kSufT>(w, u, h, hn, x, 1.0f, l0, l1, lane);
+    const int par = (n - f - 1) & 1;
+    // accumulators from b_h: tile m holds gate m / MG, units 64 (m % MG) + row
+    float d[MT][16];
 #pragma unroll
-    for (int t = 0; t < kSufT; ++t) {
-      const float s = static_cast<float>(samples[rows[t] + n]);
-      kadd(acc[t], cmp[t], logp2(l0[t], l1[t], s));
-      x[t] = s;
+    for (int m = 0; m < MT; ++m) {
+      const int base = (m / MG) * UG + (m % MG) * kGateRows + 16 * warp + g;
+      const float b0 = bhs[base], b1 = bhs[base + 8];
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb) {
+        d[m][4 * cb] = b0; d[m][4 * cb + 1] = b0;
+        d[m][4 * cb + 2] = b1; d[m][4 * cb + 3] = b1;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pin(d[m][i]);
     }
-    float* tmp = h; h = hn; hn = tmp;
+    // k-steps in pairs, two fragment sets: the loads of one k-step overlap
+    // the previous k-step's products
+    uint32_t hi0[MT][4], lo0[MT][4], hi1[MT][4] = {}, lo1[MT][4] = {};
+    load_a<MT>(wfrag, 0, warp, lane, hi0, lo0);
+    for (int ks = 0; ks < ks_n; ks += 2) {
+      issue_k_step<MT>(d, hi0, lo0, states, sf, kp, ks);
+      if (ks + 1 < ks_n) {
+        wait_groups<1, MT>(hi1, lo1);
+        load_a<MT>(wfrag, ks + 1, warp, lane, hi1, lo1);
+        issue_k_step<MT>(d, hi1, lo1, states, sf, kp, ks + 1);
+      }
+      if (ks + 2 < ks_n) {
+        wait_groups<1, MT>(hi0, lo0);
+        load_a<MT>(wfrag, ks + 2, warp, lane, hi0, lo0);
+      }
+    }
+    wait_groups<0, MT>(hi0, lo0);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) { pin(hi1[m][i]); pin(lo1[m][i]); }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pin(d[m][i]);
+    }
+    // the gate update on the accumulators: the r, z, c of a unit are the
+    // same register of tiles mg, MG + mg, 2 MG + mg
+    float q0[8], q1[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) { q0[e] = 0.0f; q1[e] = 0.0f; }
+#pragma unroll
+    for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int unit = mg * kGateRows + 16 * warp + g + 8 * rh;
+        if (unit >= kp) continue;
+        const float hw0 = hws[2 * unit], hw1 = hws[2 * unit + 1];
+        const float* gx = gxs + unit;
+        const float gx0[3] = {gx[0], gx[UG], gx[2 * UG]};
+        const float gx1[3] = {gx[3 * UG], gx[4 * UG], gx[5 * UG]};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = 4 * (e >> 1) + 2 * rh + (e & 1);
+          const int at = state_at(8 * (e >> 1) + 2 * t + (e & 1), unit, kp);
+          const bool up_spin = x[e] > 0.5f;
+          const float rg = sigmoid_tanh((up_spin ? gx1[0] : gx0[0]) + d[mg][i]);
+          const float zg = sigmoid_tanh((up_spin ? gx1[1] : gx0[1]) + d[MG + mg][i]);
+          const float cg = tanhf((up_spin ? gx1[2] : gx0[2]) + rg * d[2 * MG + mg][i]);
+          // in place: only this thread reads or writes the element here
+          const float hu = zg * states[at] + (1.0f - zg) * cg;
+          const float hv = unit < u ? hu : 0.0f;
+          uint32_t hi, lo;
+          split_tf32(hv, hi, lo);
+          states[at] = hv;
+          states[sf + at] = __uint_as_float(lo);
+          q0[e] = fmaf(hv, hw0, q0[e]);
+          q1[e] = fmaf(hv, hw1, q1[e]);
+        }
+      }
+    // the head: sums over the warp's units (the lanes of one t), then over
+    // the warps in order
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int off = 4; off < kWarp; off <<= 1) {
+        q0[e] += __shfl_xor_sync(0xffffffffu, q0[e], off);
+        q1[e] += __shfl_xor_sync(0xffffffffu, q1[e], off);
+      }
+    float* red_n = red + (par * 4 + warp) * kTraj * 2;
+    if (g == 0) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int traj = 8 * (e >> 1) + 2 * t + (e & 1);
+        red_n[2 * traj] = q0[e];
+        red_n[2 * traj + 1] = q1[e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = static_cast<float>(samples[rows[e] + n]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (warp == 3) {
+      const float* red_p = red + par * 4 * kTraj * 2;
+      float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        l0 += red_p[w * kTraj * 2 + 2 * lane];
+        l1 += red_p[w * kTraj * 2 + 2 * lane + 1];
+      }
+      kadd(acc, cmp, logp2(l0 + hbs[0], l1 + hbs[1],
+                           static_cast<float>(samples[my_row + n])));
+    }
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int t = 0; t < kSufT; ++t) {
-      const int b = grp * kSufT + t;
-      if (b >= b_total) continue;
-      const float lpf = acc[t] - cmp[t];
-      out[rows[t] + f] = kPerFlip ? lpf : expf(0.5f * (lpf - lp[b]));
-    }
+  if (warp == 3 && bt0 + lane < b_total) {
+    const float lpf = acc - cmp;
+    out[my_row + f] = kPerFlip ? lpf : expf(0.5f * (lpf - lp[bt0 + lane]));
   }
 }
 
@@ -182,10 +525,30 @@ cudaError_t launch_base(int32_t* samples, uint32_t seed, uint32_t offset, const 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flip_base_kernel<kSample, kHistory><<<(b_total + kBaseWarps - 1) / kBaseWarps,
-                                        kBaseWarps * kWarp, smem, st>>>(
+  flip_base_kernel<kSample, kHistory><<<(b_total + kBaseP - 1) / kBaseP, base_threads(u),
+                                        smem, st>>>(
       samples, seed, offset, W[0], W[1], W[2], W[3], W[4], W[5], hist, pfx, fl, lp, b_total,
       n_sites, u);
+  return cudaGetLastError();
+}
+
+// The suffix pass for MG 64-row tiles per gate (U <= 128; the GRU family's
+// shared memory stops well below).
+template <bool kPerFlip, int MG>
+cudaError_t launch_suffix(void* samples, const float* const* W, void* hist, void* pfx,
+                          void* fl, void* lp, void* out, int b_total, int n_sites, int u,
+                          cudaStream_t st) {
+  const size_t smem = flip_suffix_smem_bytes(u);
+  cudaError_t err = cudaFuncSetAttribute(flip_suffix_kernel<kPerFlip, MG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks = n_sites * ((b_total + kTraj - 1) / kTraj);
+  flip_suffix_kernel<kPerFlip, MG><<<blocks, 4 * kWarp, smem, st>>>(
+      static_cast<const int32_t*>(samples), W[0], W[1], W[2], W[3], W[4], W[5],
+      static_cast<const float*>(hist), static_cast<const float*>(pfx),
+      static_cast<const float*>(fl), static_cast<const float*>(lp), static_cast<float*>(out),
+      b_total, n_sites, u);
   return cudaGetLastError();
 }
 
@@ -206,19 +569,11 @@ int launch_flip(void* samples, uint32_t seed, uint32_t offset, const void* wx,
       n_sites, u, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem_suf = flip_suffix_smem_bytes(u);
-  err = cudaFuncSetAttribute(flip_suffix_kernel<kPerFlip>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_suf));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t warps = static_cast<int64_t>(n_sites) * ((b_total + kSufT - 1) / kSufT);
-  const int blocks = static_cast<int>((warps + kSufWarps - 1) / kSufWarps);
-  flip_suffix_kernel<kPerFlip><<<blocks, kSufWarps * kWarp, smem_suf, st>>>(
-      static_cast<const int32_t*>(samples), W[0], W[1], W[2], W[3], W[4], W[5],
-      static_cast<const float*>(hist), static_cast<const float*>(pfx),
-      static_cast<const float*>(fl), static_cast<const float*>(lp),
-      static_cast<float*>(out), b_total, n_sites, u);
-  err = cudaGetLastError();
+  err = pad64(u) == kGateRows
+            ? launch_suffix<kPerFlip, 1>(samples, W, hist, pfx, fl, lp, out, b_total, n_sites,
+                                         u, st)
+            : launch_suffix<kPerFlip, 2>(samples, W, hist, pfx, fl, lp, out, b_total, n_sites,
+                                         u, st);
   if (err != cudaSuccess || kPerFlip) return static_cast<int>(err);
 
   flip_sum_kernel<<<(b_total + 127) / 128, 128, 0, st>>>(

@@ -1,0 +1,98 @@
+"""Times the flip-estimator and rollout kernels on one CUDA card, for A/B
+comparisons of kernel designs within one call:
+
+    python -m rnnwavefunctions_tpu_torch.tools.kernel_times [--label L]
+
+Run it from the root of each checkout to compare (the package is imported
+from the working directory), in turns: a, b, b, a.  At the flagship shapes
+(N=100, U=50, B=500; weights from PRNN1D/CRNNU1 seeds 1234/4321 with
+seeded noise, as ``chip_smoke.py``'s) it reports, in ms per call with CUDA
+events over 20 launches after 2 warm-ups: K3, K4, B5, B6a, B6b, K3 at
+N=1000 with B=64 (5 launches), B19 and ``torch.nn.GRU`` (cuDNN) on the
+same inputs; then K3's launches apart (base pass, suffix pass, ratio sum)
+by ``torch.profiler`` over 10 calls.  The card's name and power limit
+come first, a JSON line last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+
+def _model(pkg, cls: str, n: int, u: int, seed: int, dev):
+    gen = torch.Generator().manual_seed(seed)
+    model = getattr(pkg, cls)(n, (u,), impl="kernel", device=dev).init(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen).to(dev))
+    return tuple(t.detach() for t in model.weights())
+
+
+def _cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--label", default="", help="a name printed with the results")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    import rnnwavefunctions_tpu_torch as pkg
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import fused_gru, fused_jac
+    from ..ops import tfim_flip_kernel as tk
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+    w = _model(pkg, "PRNN1D", 100, 50, 1234, dev)
+    trunk = _model(pkg, "CRNNU1", 100, 50, 4321, dev)[:4]
+    gen = torch.Generator().manual_seed(99)
+    s = (torch.rand(500, 100, generator=gen) < 0.5).to(torch.int32).to(dev)
+    gru = torch.nn.GRU(2, 50, batch_first=True).to(dev)
+    with torch.no_grad():
+        for p, src in zip((gru.weight_ih_l0, gru.weight_hh_l0, gru.bias_ih_l0, gru.bias_hh_l0),
+                          (trunk[0].T, trunk[1].T, trunk[2], trunk[3])):
+            p.copy_(src)
+    x0 = fused_jac.input_onehot_rows(s)
+    times = {
+        "K3": _cuda_ms(lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4)),
+        "K4": _cuda_ms(lambda: tk.tfim_flip_ratio_sum(w, s)),
+        "B5": _cuda_ms(lambda: fused_gru.gru_sample(w, 500, 100, 3, 4)),
+        "B6a": _cuda_ms(lambda: tk.tfim_flip_log_probs(w, s)),
+        "B6b": _cuda_ms(lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4, per_flip=True)),
+        "K3 N=1000 S=64": _cuda_ms(lambda: tk.tfim_sample_and_flip_sum(w, 64, 1000, 3, 4),
+                                   reps=5),
+        "B19": _cuda_ms(lambda: fused_jac.rollout_hist(trunk, s)),
+        "cuDNN GRU": _cuda_ms(lambda: gru(x0)),
+    }
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4)
+        torch.cuda.synchronize()
+    for label, key in (("K3 base pass", "flip_base_kernel"),
+                       ("K3 suffix pass", "flip_suffix_kernel"),
+                       ("K3 ratio sum", "flip_sum_kernel")):
+        times[label] = sum(e.self_device_time_total for e in prof.key_averages()
+                           if key in e.key) / 1e3 / calls
+    print(json.dumps({"label": args.label, "ms": times}))
+
+
+if __name__ == "__main__":
+    main()

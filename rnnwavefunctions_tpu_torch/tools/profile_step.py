@@ -19,10 +19,13 @@
   (bench.py's ``1dtfim_n1000_minsr`` row; ``profile`` only).
 
 ``--optimizer minsr`` trains with minSR at lr 5e-2 (bench.py's ``*_minsr``
-rows: ``sr_damping=1e-2``, the CG solve of 64 steps) in place of Adam.
+rows: ``sr_damping=1e-2``, the CG solve of 64 steps) in place of Adam;
+``--sr-solver chol`` solves its system by Cholesky (``TrainConfig.sr_solver``)
+in place of the CG kernel.
 
     python -m rnnwavefunctions_tpu_torch.tools.profile_step profile [--model M] [--optimizer O] [--out FILE]
     python -m rnnwavefunctions_tpu_torch.tools.profile_step accuracy [--model M] [--steps 8000]
+        [--optimizer minsr] [--sr-solver cg|chol]
     python -m rnnwavefunctions_tpu_torch.tools.profile_step system --model j1j2 --at 150,250
 
 ``profile``: steps/s of the kernel path over three repeats of 50 steps
@@ -39,8 +42,10 @@ every ``--block`` steps; the energy is the mean of the
 last 100 steps' mean energies (± their standard error), reported beside
 the reference energy: the DMRG ground-state energy of the chain, or for
 ``mdrnn`` and ``snake`` the Lanczos energy of the 4x4 lattice (reported,
-not gated).  Also reported: each block's mean energy, and the first step
-whose mean energy is not finite (None when every step's is).  For J1-J2
+not gated).  Also reported: each block's mean energy, the first step
+whose mean energy is not finite (None when every step's is), and, where a
+Cholesky solve (``--sr-solver chol``) found its Gram not positive definite,
+the block of steps where it did (training stops there).  For J1-J2
 minSR, ``tests/jax_minsr_reference_run.py`` runs the JAX package's trainer
 on the CPU from the same seed's initial weights.
 
@@ -93,7 +98,8 @@ def _card() -> str:
 
 
 def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False, lattice=None,
-             optimizer: str = "adam", samples: int = 500, seed: int = TrainConfig.seed):
+             optimizer: str = "adam", samples: int = 500, seed: int = TrainConfig.seed,
+             sr_solver: str = TrainConfig.sr_solver):
     """The model's trainer at the flagship size; ``lattice`` overrides the
     2D models' lattice."""
     lattice = lattice or LATTICE.get(model)
@@ -113,7 +119,7 @@ def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False, lattic
         ham = J1J2(N, j2=0.2, marshall_sign=marshall_sign)
     trainer = VMCTrainer(ansatz, ham, TrainConfig(
         num_samples=samples, learning_rate=LEARNING_RATE[optimizer], optimizer=optimizer,
-        seed=seed))
+        seed=seed, sr_solver=sr_solver))
     return trainer, trainer.init()
 
 
@@ -164,22 +170,29 @@ def profile(model: str, marshall_sign: bool, optimizer: str) -> dict:
 
 
 def accuracy(model: str, marshall_sign: bool, steps: int, block: int, optimizer: str,
-             samples: int, seed: int) -> dict:
+             samples: int, seed: int, sr_solver: str = TrainConfig.sr_solver) -> dict:
     lattice = (4, 4) if model in LATTICE else None
     trainer, state = _trainer(model, marshall_sign=marshall_sign, lattice=lattice,
-                              optimizer=optimizer, samples=samples, seed=seed)
-    energies, imag = [], []
+                              optimizer=optimizer, samples=samples, seed=seed,
+                              sr_solver=sr_solver)
+    energies, imag, failed = [], [], None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for done in range(0, steps, block):
-        state, ms = trainer.run_steps(state, min(block, steps - done))
+        try:
+            state, ms = trainer.run_steps(state, min(block, steps - done))
+        except torch.linalg.LinAlgError as exc:  # a Cholesky solve of a Gram not positive definite
+            failed = {"steps": [done + 1, min(done + block, steps)], "error": str(exc)}
+            break
         energies.append(ms["mean_energy"].cpu().numpy())
         if "mean_energy_im" in ms:
             imag.append(ms["mean_energy_im"].cpu().numpy())
     seconds = time.perf_counter() - t0
-    nonfinite = np.flatnonzero(~np.isfinite(np.concatenate(energies)))
-    last = np.concatenate(energies)[-100:]
-    energy = float(last.mean())
+    trained = np.concatenate(energies) if energies else np.zeros(0, np.float32)
+    steps = trained.size
+    nonfinite = np.flatnonzero(~np.isfinite(trained))
+    last = trained[-100:]
+    energy = float(last.mean()) if last.size else float("nan")
     e_ref = E_REF[model]
     return {
         "model": model,
@@ -187,16 +200,18 @@ def accuracy(model: str, marshall_sign: bool, steps: int, block: int, optimizer:
         "marshall_sign": marshall_sign,
         "samples": samples,
         "seed": seed,
+        "sr_solver": sr_solver if optimizer == "minsr" else None,
         "steps": steps,
         "seconds": seconds,
         "steps_per_s": steps / seconds,
         "energy": energy,
-        "energy_stderr": float(last.std(ddof=1) / np.sqrt(last.size)),
+        "energy_stderr": float(last.std(ddof=1) / np.sqrt(last.size)) if last.size > 1 else None,
         "energy_im": float(np.concatenate(imag)[-100:].mean()) if imag else None,
         "e_ref": e_ref,
         "relative_error": abs(energy - e_ref) / abs(e_ref),
         "block_energies": [float(e.mean()) for e in energies],
         "first_nonfinite_step": int(nonfinite[0]) if nonfinite.size else None,
+        "solve_failed": failed,
     }
 
 
@@ -239,6 +254,8 @@ def main() -> None:
     parser.add_argument("--model", default="tfim",
                         choices=("tfim", "parity", "j1j2", "mdrnn", "snake", "chain1000"))
     parser.add_argument("--optimizer", choices=tuple(LEARNING_RATE), default="adam")
+    parser.add_argument("--sr-solver", choices=("cg", "chol"), default=TrainConfig.sr_solver,
+                        help="accuracy with --optimizer minsr: the sample-space solve")
     parser.add_argument("--marshall-sign", action="store_true",
                         help="j1j2: train the Marshall-rotated Hamiltonian")
     parser.add_argument("--steps", type=int, default=8000, help="accuracy: training steps")
@@ -263,7 +280,7 @@ def main() -> None:
         if args.model == "chain1000":
             parser.error("accuracy has no reference energy for the N=1000 chain")
         result = accuracy(args.model, args.marshall_sign, args.steps, args.block,
-                          args.optimizer, args.samples, args.seed)
+                          args.optimizer, args.samples, args.seed, args.sr_solver)
     result["card"] = _card()
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -24,7 +24,7 @@ from rnnwavefunctions_tpu_torch.vmc import minsr
 
 pytestmark = pytest.mark.cuda
 
-N, B = 12, 37  # B is not a multiple of the 4 samples a block takes
+N, B = 12, 37  # B is not a multiple of the samples a block or tile takes
 
 
 @pytest.fixture
@@ -66,16 +66,39 @@ def test_k2_matches_plain(cuda, u):
         torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
 
 
-def test_k4_and_k3_match_plain(cuda):
-    w, s = _weights(50, cuda), _samples(cuda)
+# the flip kernels' tile edges: one sample, a ragged 17 (a base block takes
+# 2 samples, a suffix tile 16 trajectories, a suffix block 64), the flagship
+# 500; one site (an empty suffix), two, a hundred; widths below, at and past
+# one 8-unit group, the flagship's, and the widest the GRU family admits
+FLIP_EDGES = [(b, n, u) for b in (1, 17, 500) for n in (1, 2, 100)
+              for u in (7, 16, 50, "widest")]
+
+
+def _flip_case(cuda, b, n, u):
+    """Weights of width u ("widest": the largest U the K1-K4 family takes at
+    N=n on this card) and (b, n) random chains."""
+    if u == "widest":
+        u = max(v for v in range(1, 257) if fused_gru.supports(n, (v,), cuda))
+    gen = torch.Generator().manual_seed(b * 1000 + n)
+    s = (torch.rand(b, n, generator=gen) < 0.5).to(torch.int32).to(cuda)
+    return _weights(u, cuda), s
+
+
+@pytest.mark.parametrize("b,n,u", FLIP_EDGES)
+def test_k4_and_k3_match_plain(cuda, b, n, u):
+    w, s = _flip_case(cuda, b, n, u)
     ratio, lp = tk.tfim_flip_ratio_sum(w, s)
     ratio_p, lp_p = tk.flip_ratio_sum_plain(w, s)
     torch.testing.assert_close(ratio, ratio_p, rtol=1e-4, atol=0)
-    torch.testing.assert_close(lp, lp_p, atol=1e-5 * N, rtol=0)
-    s3, lp3, ratio3 = tk.tfim_sample_and_flip_sum(w, B, N, 3, 5)
-    assert s3.shape == (B, N) and bool(((s3 == 0) | (s3 == 1)).all())
-    torch.testing.assert_close(lp3, fused_gru.log_prob_plain(w, s3), atol=1e-5 * N, rtol=0)
+    torch.testing.assert_close(lp, lp_p, atol=1e-5 * n, rtol=0)
+    again = tk.tfim_flip_ratio_sum(w, s)
+    assert torch.equal(again[0], ratio) and torch.equal(again[1], lp)
+    s3, lp3, ratio3 = tk.tfim_sample_and_flip_sum(w, b, n, 3, 5)
+    assert s3.shape == (b, n) and bool(((s3 == 0) | (s3 == 1)).all())
+    torch.testing.assert_close(lp3, fused_gru.log_prob_plain(w, s3), atol=1e-5 * n, rtol=0)
     torch.testing.assert_close(ratio3, tk.flip_ratio_sum_plain(w, s3)[0], rtol=1e-4, atol=0)
+    assert all(torch.equal(x, y) for x, y in
+               zip(tk.tfim_sample_and_flip_sum(w, b, n, 3, 5), (s3, lp3, ratio3)))
 
 
 def test_wrappers_reject_cpu_cuda_mix(cuda):
@@ -155,26 +178,29 @@ def test_b5_matches_plain_and_k3(cuda, u):
     assert float(np.abs(freq - probs).max()) <= 0.01
 
 
-def test_b6_matches_plain_in_both_modes(cuda):
+@pytest.mark.parametrize("b,n,u", FLIP_EDGES)
+def test_b6_matches_plain_in_both_modes(cuda, b, n, u):
     """B6 teacher-forced against its plain version; in sample mode K3's
     draws, with the teacher-forced lpf bit for bit on them; the flip-order
-    sum of its terms is K4's ratio."""
-    w, s = _weights(50, cuda), _samples(cuda)
+    sum of its terms is K4's ratio; each the same bits twice."""
+    w, s = _flip_case(cuda, b, n, u)
     counts = (tk.tfim_flip_log_probs.launches, tk.tfim_sample_and_flip_log_probs.launches)
     lpf, lp = tk.tfim_flip_log_probs(w, s)
     lpf_p, lp_p = tk.per_flip_log_probs_plain(w, s)
-    torch.testing.assert_close(lpf, lpf_p, atol=1e-5 * N, rtol=0)
-    torch.testing.assert_close(lp, lp_p, atol=1e-5 * N, rtol=0)
+    torch.testing.assert_close(lpf, lpf_p, atol=1e-5 * n, rtol=0)
+    torch.testing.assert_close(lp, lp_p, atol=1e-5 * n, rtol=0)
     ratio, lp4 = tk.tfim_flip_ratio_sum(w, s)
     torch.testing.assert_close(tk.ratio_sum(lpf, lp), ratio, rtol=1e-5, atol=0)
     torch.testing.assert_close(lp, lp4, atol=0, rtol=0)
-    s6, lp6, lpf6 = tk.tfim_sample_and_flip_sum(w, B, N, 3, 5, per_flip=True)
-    assert torch.equal(s6, tk.tfim_sample_and_flip_sum(w, B, N, 3, 5)[0])
+    s6, lp6, lpf6 = tk.tfim_sample_and_flip_sum(w, b, n, 3, 5, per_flip=True)
+    assert torch.equal(s6, tk.tfim_sample_and_flip_sum(w, b, n, 3, 5)[0])
     lpf_t, lp_t = tk.tfim_flip_log_probs(w, s6)
     torch.testing.assert_close(lpf6, lpf_t, atol=0, rtol=0)
     torch.testing.assert_close(lp6, lp_t, atol=0, rtol=0)
+    again = tk.tfim_sample_and_flip_sum(w, b, n, 3, 5, per_flip=True)
+    assert all(torch.equal(x, y) for x, y in zip(again, (s6, lp6, lpf6)))
     assert (tk.tfim_flip_log_probs.launches, tk.tfim_sample_and_flip_log_probs.launches) == (
-        counts[0] + 2, counts[1] + 1)
+        counts[0] + 2, counts[1] + 2)
 
 
 def test_parity_training_step_launches_its_kernels(cuda):
@@ -423,18 +449,24 @@ def test_b17_matches_plain(cuda, n, b):
     assert rows["rnn"][0]["wh"].shape == (b, 50, 150) and rows["head"]["w"].shape == (b, 50, 2)
 
 
-def test_b19_b20_match_plain(cuda):
-    w, s = _crnn_weights(50, cuda), _sector(cuda)
+@pytest.mark.parametrize("b,u", [(b, u) for b in (1, 5, 500) for u in (12, 50)])
+def test_b19_b20_match_plain(cuda, b, u):
+    """B19 at one sample, a ragged 5 (a block takes 2) and the flagship 500,
+    and B20 on its history; B19 gives the same bits twice."""
+    w = _crnn_weights(u, cuda)
+    keys = torch.rand(b, N, generator=torch.Generator().manual_seed(b))
+    s = (keys.argsort(dim=1) < N // 2).to(torch.int32).to(cuda)
     trunk = w[:4]
     before = (fused_jac.rollout_hist.launches, fused_jac.sweep_dgates.launches)
     hist = fused_jac.rollout_hist(trunk, s)
     _close_to_max(hist, fused_jac.rollout_hist_plain(trunk, s))
-    douts = torch.randn(2, B, N, 50, generator=torch.Generator().manual_seed(4)).to(cuda)
+    assert torch.equal(fused_jac.rollout_hist(trunk, s), hist)
+    douts = torch.randn(2, b, N, u, generator=torch.Generator().manual_seed(4)).to(cuda)
     dg = fused_jac.sweep_dgates(trunk, s, hist, douts)
-    assert dg.shape == (2, B, N, 200)
+    assert dg.shape == (2, b, N, 4 * u)
     _close_to_max(dg, fused_jac.sweep_dgates_plain(trunk, s, hist, douts))
     assert (fused_jac.rollout_hist.launches, fused_jac.sweep_dgates.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 1)
 
 
 def _spd(s, device, seed=0):
