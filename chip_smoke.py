@@ -11,8 +11,10 @@ Phases (each prints its time; any failure raises and exits non-zero):
    every max error printed beside its tolerance; the K3 sampler's
    frequencies at N=3 against the exact density.
 3. Each kernel and its plain version timed with CUDA events; K3's three
-   launches (base pass, suffix pass, ratio sum) timed apart by
-   ``torch.profiler``, beside its FP32 and tensor-core bounds.
+   launches (base pass, suffix pass, ratio sum) and K2's four (the replay,
+   the reverse sweep, the weight cotangent, the chunk sum) timed apart by
+   ``torch.profiler``, beside their FP32 and (K3) tensor-core bounds; K2
+   from K1's stored replay, as the training step runs it.
 4. VMC training of the 1D TFIM at N=10 (300 steps, impl "auto") against
    exact diagonalization; all four kernels must have launched.
 5. 50 steps of the flagship (N=100, one GRU layer of 50 units, S=500, Adam
@@ -111,7 +113,7 @@ import torch
 
 N_FLAG, U_FLAG, S_FLAG = 100, 50, 500
 SOURCES = {
-    "K1 gru_log_prob": ("rnnwavefunctions_tpu_torch/csrc/fused_gru.cu",
+    "K1 gru_log_prob": ("rnnwavefunctions_tpu_torch/csrc/tfim_flip.cu",
                         "rnnwavefunctions_tpu/ops/fused_gru.py:250"),
     "K2 gru_log_prob_bwd": ("rnnwavefunctions_tpu_torch/csrc/fused_gru_bwd.cu",
                             "rnnwavefunctions_tpu/ops/fused_gru_bwd.py:681"),
@@ -293,6 +295,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def print_launches(name: str, fn, parts, calls: int = 10) -> None:
+    """Prints the device ms per call of fn of each launch whose kernel name
+    holds parts[label], by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {label: sum(e.self_device_time_total for e in prof.key_averages()
+                        if key in e.key) / 1e3 / calls for label, key in parts.items()}
+    print(f"{name} launches (torch.profiler, ms per call): " + ", ".join(
+        f"{label} {ms:.4f}" if ms > 0 else f"{label} not measured"
+        for label, ms in split.items()))
+
+
 def perturbed_model(pkg, n, u, seed, device, cls="PRNN1D"):
     """A model with Glorot weights plus seeded noise on every tensor, so the
     biases are not zero and the bias paths of the kernels are exercised."""
@@ -416,6 +434,14 @@ def main() -> None:
             require(r <= rel_tol, f"K2 d{name}")
             worst = max(worst, max_err(a, b))
         record["K2 gru_log_prob_bwd"]["max_abs_err"] = worst
+        again = fused_gru_bwd.gru_log_prob_bwd(w, samples, g)
+        replay = fused_gru.gru_log_prob(w, samples, store=True)
+        fused = fused_gru_bwd.gru_log_prob_bwd(w, samples, g, replay=replay)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(again, gk)), "K2 gives the same bits twice")
+        require(all(torch.equal(a, b) for a, b in zip(fused, gk)) and torch.equal(replay.lp, lp_k),
+                "K2 from K1's stored replay gives K2's bits, K1 storing gives K1's")
+        print("K2: two calls, and a call from K1's stored replay, give identical bits")
 
         ratio_k, lp4_k = tk.tfim_flip_ratio_sum(w, samples)
         ratio_p, lp4_p = tk.flip_ratio_sum_plain(w, samples)
@@ -473,20 +499,14 @@ def main() -> None:
             record[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
                   f"plain {record[name]['plain_ms']:.4f} ms")
-        # K3's launches apart: device time per call of each, by torch.profiler
-        from torch.profiler import ProfilerActivity, profile
-        calls = 10
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 3, 4)
-            torch.cuda.synchronize()
-        parts = {"base pass": "flip_base_kernel", "suffix pass": "flip_suffix_kernel",
-                 "ratio sum": "flip_sum_kernel"}
-        split = {label: sum(e.self_device_time_total for e in prof.key_averages()
-                            if key in e.key) / 1e3 / calls for label, key in parts.items()}
-        print("K3 launches (torch.profiler, ms per call): " + ", ".join(
-            f"{label} {ms:.4f}" if ms > 0 else f"{label} not measured"
-            for label, ms in split.items()))
+        # K3's and K2's launches apart: device time per call of each
+        print_launches("K3", lambda: tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 3, 4),
+                       {"base pass": "flip_base_kernel", "suffix pass": "flip_suffix_kernel",
+                        "ratio sum": "flip_sum_kernel"})
+        print_launches("K2", lambda: fused_gru_bwd.gru_log_prob_bwd(w, samples, g),
+                       {"replay": "flip_base_kernel", "reverse sweep": "bwd_sweep_kernel",
+                        "weight cotangent": "bwd_weights_kernel",
+                        "chunk sum": "sum_partials_kernel"})
         steps_k3 = S_FLAG * N_FLAG + S_FLAG * N_FLAG * (N_FLAG - 1) // 2
         k3_bytes = 4 * sum(t.numel() for t in w) + 4 * S_FLAG * N_FLAG + 8 * S_FLAG
         for name in ("K3 tfim_sample_and_flip_sum", "K4 tfim_flip_ratio_sum"):
@@ -494,6 +514,15 @@ def main() -> None:
         t3 = record["K3 tfim_sample_and_flip_sum"]
         print(f"K3: {t3['ms']:.4f} ms; tensor-core bound {t3['tc_bound_ms']:.4f} ms "
               f"(share {t3['tc_bound_ms'] / t3['ms']:.1%}); FP32 bound in phase 7's print")
+        # K2 from K1's stored replay (GRULogProb's backward in the training step)
+        replay = fused_gru.gru_log_prob(w, samples, store=True)
+        t_store = cuda_ms(lambda: fused_gru.gru_log_prob(w, samples, store=True), reps=20)
+        t_from = cuda_ms(lambda: fused_gru_bwd.gru_log_prob_bwd(w, samples, g, replay=replay),
+                         reps=20)
+        print(f"K1 storing K2's replay {t_store:.4f} ms, K2 from it {t_from:.4f} ms "
+              f"(sum {t_store + t_from:.4f}; K1 + K2 "
+              f"{record['K1 gru_log_prob']['ms'] + record['K2 gru_log_prob_bwd']['ms']:.4f}); "
+              f"bounds in phase 7's print")
 
     def reset_counts():
         for fn in wrappers.values():
@@ -1059,6 +1088,7 @@ def main() -> None:
               f"by the K1-K4 family to U={gru_u}; B8 runs B11's base launch, covered by the cRNN "
               f"family to U={crnn_u}")
         require(gru_u >= U_FLAG and crnn_u >= U_FLAG, "the flagships are covered")
+        require(gru_u >= 91, "the K1-K4 family takes every width to U=91 on an H100")
         wide = tuple(t.detach() for t in perturbed_model(pkg, 4, gru_u + 1, 3, dev).weights())
         wide_c = tuple(t.detach() for t in
                        perturbed_model(pkg, 4, crnn_u + 1, 3, dev, cls="CRNNU1").weights())

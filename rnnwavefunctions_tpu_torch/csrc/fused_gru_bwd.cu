@@ -5,197 +5,340 @@
 // (_make_bwd_kernel, run_history_bptt, gru_trunk_bwd_site), the backward
 // half of the loss gradient.
 //
-// Bound on the H100: latency of the two sequential site sweeps (forward
-// replay, then the reverse sweep), each site a few dependent 3U x U
-// products out of shared memory, plus the per-site outer-product updates
-// of the 3U x U weight cotangent.  The history the reverse sweep reads is
-// B*N*U floats (10 MB at B=500, N=100, U=50): it stays in L2.
+// Bound on the H100: latency.  The work is three 3U x U products per
+// (sample, site), about 2.4 GFLOP at the flagship shape (B=500, N=100,
+// U=50): 36 us at the FP32 peak.  But a sample's sites form two dependent
+// chains of N steps (the forward replay and the reverse sweep), and the
+// TPU kernel's body, which recomputes the gates, carries dh_{n-1} and adds
+// the weight cotangent at every site, would put all three products on the
+// reverse chain.
 //
-// Design: one warp per sample, four samples per block.  The forward replay
-// writes the (N, U) hidden history of each sample to device memory.  The
-// reverse sweep recomputes the gates from h[n-1] per site (math in
-// fused_gru_bwd.py:29-39).  The per-site cotangents of the block's samples
-// meet in shared memory, and every thread of the block owns a fixed set of
-// weight-cotangent entries that it updates in a fixed sample order: no
-// atomics, so the result is the same on every run.  Where the TPU grid
-// added every tile into one output in turn (fused_gru_bwd.py:542-553), GPU
-// blocks run in parallel, so each block writes its partial gradient and a
-// second kernel sums the partials in block order.
+// Design: three stages, one 3U x U product per site on each chain.
+//   a. The forward replay is K1's teacher-forced base pass storing, per
+//      (sample, site), the gates r, z, c and ghc = (h_{n-1} W_h)_c + bh_c,
+//      the head's p1 = p(s_n = 1), and the rows of A below (the states and
+//      inputs) (csrc/tfim_flip.cu, Store::kGates).  GRULogProb runs it as
+//      its forward when a gradient follows, so that the backward starts at
+//      stage b.
+//   b. The reverse sweep (bwd_sweep_kernel), a block per kBwdP samples as
+//      the base pass: at each site thread (p, j) of the first kBwdP slices
+//      forms unit j's cotangents from the stored values (math in
+//      fused_gru_bwd.py:29-39; the values of site n-1 are loaded while
+//      site n computes), writes them as the row of C below and dgh =
+//      [da_r | da_z | dac r] to shared memory; then kSlices x U threads
+//      sum dh_{n-1} = dht z + W_h dgh, thread (ks, j) the terms of unit j
+//      over the ks-th quarter of each gate's U columns (three chains a
+//      quarter of U deep, added r + z, then + c) with its 3 U/4 entries of
+//      W_h in registers for the whole sweep (so a term costs one broadcast
+//      load of dgh for the block's samples), and thread (p, j) adds the
+//      quarters in order.  No weight cotangent is accumulated on this
+//      chain.
+//   c. The weight cotangent (bwd_weights_kernel), a throughput kernel: one
+//      product G = A^T C over B (N + 1) rows, row (b, n) for n = 0..N holding
+//          A = [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]   (U + 3; [0 | 1 | 0 | 0] at n = 0)
+//          C = [dgh_n | dac_n | dl1_{n-1}]             (4U + 1; zero at n = N but dl1)
+//      so G holds dW_h and db_h (rows h and 1 against dgh), dW_x and db_x
+//      (rows x and 1 against da: dgh in the r and z columns, dac in the c
+//      columns) and the head's cotangents (rows h and 1 against dl1 =
+//      g (s - p1): row (b, n+1) carries h_n and dl1_n, and row (b, N) the
+//      last site).  Stages a and b write A and C in this row-major layout,
+//      so a block of stage c sums one 64 x 64 tile of G over a chunk of
+//      kChunkRows rows with plain coalesced loads: 32 rows at a time
+//      through shared memory (the next 32 rows' loads in flight while
+//      these are multiplied), a 4 x 4 register tile per thread, in row
+//      order; then launch_sum_partials adds the chunks' partials in chunk
+//      order.  No atomics: the same bits on every run.
+// The scratch (about 9U floats per (sample, site): 90 MB at the flagship)
+// comes from the caller; rnnwf_gru_bwd_partial_floats sizes the partials.
 #include "gru_common.cuh"
 
 namespace rnnwf {
 
-constexpr int kK2Warps = 4;
+constexpr int kBwdP = 2;          // samples per reverse-sweep block
+static_assert(kBwdP <= kSlices, "the first slices update one sample each");
+constexpr int kChunkRows = 512;   // rows of G per stage-c block (ops/fused_gru_bwd.py)
+constexpr int kTileG = 64;        // G's tile edge
+constexpr int kRowTile = 32;      // rows staged at a time
+constexpr int kGThreads = 256;    // 16 x 16 threads, 4 x 4 entries each
+constexpr int kStage = kRowTile * kTileG / kGThreads;  // staged values per thread and tile
 
-__host__ __device__ inline int k2_warp_floats(int u) { return 13 * u + 4; }
+// Reverse sweep, in this order: hw[:, 1] - hw[:, 0] (U), padded to 4; dgh
+// [3U][P]; the slices' sums [slice][U32][P].
+__host__ __device__ inline int sweep_head_floats(int u) { return (u + 3) & ~3; }
 
 size_t k2_smem_bytes(int u) {
-  return sizeof(float) * (2 * weight_floats(u) + kK2Warps * k2_warp_floats(u));
+  return sizeof(float) *
+         (sweep_head_floats(u) + 3 * u * kBwdP + kSlices * warp_round(u) * kBwdP);
 }
 
-__global__ void gru_bwd_kernel(const int32_t* __restrict__ samples,
-                               const float* __restrict__ g_in, const float* wx,
-                               const float* wh, const float* bx, const float* bh,
-                               const float* hw, const float* hb,
-                               float* __restrict__ hist, float* __restrict__ partial,
-                               int b_total, int n_sites, int u) {
+// The widest quarter of U the reverse sweep's register tiles take (U <= 128).
+constexpr int kMaxQuarter = 32;
+
+// Unit j's stored values at one site of one sample.
+struct SiteValues {
+  float r, z, c, ghc, hp, p1, s;  // hp = h_{n-1}[j]
+};
+
+// Site n of the sample whose sites start at row (b N) and whose A rows at
+// arow (b (N + 1)).
+__device__ __forceinline__ SiteValues load_site(const int32_t* samples, const float* rows,
+                                                const float* gates, const float* p1,
+                                                int64_t row, int64_t arow, int n, int j,
+                                                int u) {
+  const float* gt = gates + (row + n) * 4 * u;
+  SiteValues v;
+  v.r = gt[j];
+  v.z = gt[u + j];
+  v.c = gt[2 * u + j];
+  v.ghc = gt[3 * u + j];
+  v.hp = rows[(arow + n) * (u + 3) + j];
+  v.p1 = p1[row + n];
+  v.s = static_cast<float>(samples[row + n]);
+  return v;
+}
+
+// KQ: the quarter of U rounded up to 8 (a thread's W_h entries per gate).
+// At most kSlices x 128 threads: registers for 4 warps of each SM
+// sub-partition (16,384 / (4 x 32) = 128 a thread).
+template <int KQ>
+__global__ void __launch_bounds__(kSlices * 128)
+bwd_sweep_kernel(const int32_t* __restrict__ samples, const float* __restrict__ g,
+                 const float* __restrict__ wh, const float* __restrict__ hw,
+                 const float* __restrict__ rows, const float* __restrict__ gates,
+                 const float* __restrict__ p1, float* __restrict__ cot, int b_total,
+                 int n_sites, int u) {
   extern __shared__ __align__(16) float smem[];
-  const Weights w = load_weights(smem, wx, wh, bx, bh, hw, hb, u);
-  const int g3 = 3 * u;
-  const int wf = weight_floats(u), wfx = weight_floats_exact(u);
-  float* acc = smem + wf;
-  for (int e = threadIdx.x; e < wfx; e += blockDim.x) acc[e] = 0.0f;
-
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int b = blockIdx.x * kK2Warps + warp;
-  const bool valid = b < b_total;
-  float* pw = smem + 2 * wf + warp * k2_warp_floats(u);
-  float* h = pw;
-  float* hn = h + u;
-  float* hp = hn + u;
-  float* hc = hp + u;
-  float* dh = hc + u;
-  float* dhs = dh + u;
-  float* zb = dhs + u;
-  float* da = zb + u;
-  float* dgh = da + g3;
-  float* sc = dgh + g3;
-  const float gb = valid ? g_in[b] : 0.0f;
-  const int32_t* s_row = samples + static_cast<int64_t>(valid ? b : 0) * n_sites;
-  float* h_row = hist + static_cast<int64_t>(valid ? b : 0) * n_sites * u;
-
-  // ---- forward replay: store h_n for every site
-  if (valid) {
-    for (int j = lane; j < u; j += kWarp) h[j] = 0.0f;
-    __syncwarp();
-    float x[1] = {0.0f}, l0[1], l1[1];
-    for (int n = 0; n < n_sites; ++n) {
-      gru_site<1>(w, u, h, hn, x, n > 0 ? 1.0f : 0.0f, l0, l1, lane);
-      for (int j = lane; j < u; j += kWarp) h_row[n * u + j] = hn[j];
-      x[0] = static_cast<float>(s_row[n]);
-      float* tmp = h; h = hn; hn = tmp;
-    }
+  const int u32 = warp_round(u), rc = 4 * u + 1;
+  float* hwd = smem;
+  float* dgh = smem + sweep_head_floats(u);  // [q][p]
+  float* part = dgh + 3 * u * kBwdP;         // [slice][k][p]
+  for (int k = threadIdx.x; k < u; k += blockDim.x) hwd[k] = hw[2 * k + 1] - hw[2 * k];
+  const int ks = threadIdx.x / u32, j = threadIdx.x - ks * u32;
+  // thread (ks, j) sums W_h[j, gate U + i] dgh[gate U + i] for i in the
+  // ks-th quarter of U [i0, i0 + len): its W_h entries, in registers
+  const int kc = (u + kSlices - 1) / kSlices, i0 = ks * kc, len = max(0, min(u, i0 + kc) - i0);
+  float wq[3][KQ];
+#pragma unroll
+  for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+    for (int t = 0; t < KQ; ++t)
+      wq[gt][t] = j < u && t < len ? wh[static_cast<int64_t>(j) * 3 * u + gt * u + i0 + t] : 0.0f;
+  // thread (p, j) of the first kBwdP slices carries unit j of sample p; a
+  // padding slot past the batch repeats the last sample and stores nothing
+  const int b = blockIdx.x * kBwdP + min(ks, kBwdP - 1);
+  const int b_row = min(b, b_total - 1);
+  const int64_t row = static_cast<int64_t>(b_row) * n_sites;
+  const int64_t arow = static_cast<int64_t>(b_row) * (n_sites + 1);
+  const bool carry = ks < kBwdP && j < u;
+  const bool mine = carry && b < b_total;
+  const float gb = g[b_row];
+  if (mine) {
+    // C's row (b, N) is zero but its dl1, and row (b, 0) has no dl1
+    float* last = cot + (arow + n_sites) * rc;
+    last[j] = 0.0f;
+    last[u + j] = 0.0f;
+    last[2 * u + j] = 0.0f;
+    last[3 * u + j] = 0.0f;
+    if (j == 0) cot[arow * rc + 4 * u] = 0.0f;
   }
-  for (int j = lane; j < u; j += kWarp) dh[j] = 0.0f;
   __syncthreads();
 
-  // ---- reverse sweep
+  SiteValues cur{}, nxt{};
+  if (carry) cur = load_site(samples, rows, gates, p1, row, arow, n_sites - 1, j, u);
+  float dh = 0.0f;
   for (int n = n_sites - 1; n >= 0; --n) {
-    for (int j = lane; j < u; j += kWarp) {
-      hc[j] = valid ? h_row[n * u + j] : 0.0f;
-      hp[j] = (valid && n > 0) ? h_row[(n - 1) * u + j] : 0.0f;
-    }
-    const float s_n = valid ? static_cast<float>(s_row[n]) : 0.0f;
-    const float xr = (valid && n > 0) ? static_cast<float>(s_row[n - 1]) : 0.0f;
-    const float xs = n > 0 ? 1.0f : 0.0f;
-    __syncwarp();
-
-    // head: logits from h_n, dlogit_1 = g (s - p1) = -dlogit_0
-    float p0 = 0.0f, p1 = 0.0f;
-    for (int j = lane; j < u; j += kWarp) {
-      p0 = fmaf(hc[j], w.hw[2 * j], p0);
-      p1 = fmaf(hc[j], w.hw[2 * j + 1], p1);
-    }
-    const float l0 = warp_sum(p0) + w.hb[0];
-    const float l1 = warp_sum(p1) + w.hb[1];
-    const float dl1 = gb * (s_n - sigmoidf_(l1 - l0));
-
-    // gates recomputed from h_{n-1}, then their cotangents
-    for (int j = lane; j < u; j += kWarp) {
-      float ar = 0.0f, az = 0.0f, ac = 0.0f;
-      for (int k = 0; k < u; ++k) {
-        const float* wk = w.wh + k * g3;
-        const float hk = hp[k];
-        ar = fmaf(hk, wk[j], ar);
-        az = fmaf(hk, wk[u + j], az);
-        ac = fmaf(hk, wk[2 * u + j], ac);
+    if (carry && n > 0) nxt = load_site(samples, rows, gates, p1, row, arow, n - 1, j, u);
+    float hz = 0.0f;
+    if (carry) {
+      const float dl1 = gb * (cur.s - cur.p1);
+      const float dht = dh + hwd[j] * dl1;
+      const float dz = dht * (cur.hp - cur.c);
+      const float dc = dht * (1.0f - cur.z);
+      const float dac = dc * (1.0f - cur.c * cur.c);
+      const float dr = dac * cur.ghc;
+      const float dar = dr * cur.r * (1.0f - cur.r);
+      const float daz = dz * cur.z * (1.0f - cur.z);
+      const float dgc = dac * cur.r;
+      if (mine) {
+        float* c_row = cot + (arow + n) * rc;
+        c_row[j] = dar;
+        c_row[u + j] = daz;
+        c_row[2 * u + j] = dgc;
+        c_row[3 * u + j] = dac;
+        if (j == 0) c_row[rc + 4 * u] = dl1;  // row (b, n+1)
       }
-      const float gxr = xs * ((1.0f - xr) * w.wx[j] + xr * w.wx[g3 + j]) + w.bx[j];
-      const float gxz = xs * ((1.0f - xr) * w.wx[u + j] + xr * w.wx[g3 + u + j]) + w.bx[u + j];
-      const float gxc = xs * ((1.0f - xr) * w.wx[2 * u + j] + xr * w.wx[g3 + 2 * u + j]) + w.bx[2 * u + j];
-      const float ghc = ac + w.bh[2 * u + j];
-      const float r = sigmoidf_(gxr + (ar + w.bh[j]));
-      const float z = sigmoidf_(gxz + (az + w.bh[u + j]));
-      const float c = tanhf(gxc + r * ghc);
-
-      const float dht = dh[j] + (w.hw[2 * j + 1] - w.hw[2 * j]) * dl1;
-      const float dz = dht * (hp[j] - c);
-      const float dc = dht * (1.0f - z);
-      const float dac = dc * (1.0f - c * c);
-      const float dr = dac * ghc;
-      const float dar = dr * r * (1.0f - r);
-      const float daz = dz * z * (1.0f - z);
-      da[j] = dar; da[u + j] = daz; da[2 * u + j] = dac;
-      dgh[j] = dar; dgh[u + j] = daz; dgh[2 * u + j] = dac * r;
-      zb[j] = z;
-      dhs[j] = dht;
+      dgh[j * kBwdP + ks] = dar;
+      dgh[(u + j) * kBwdP + ks] = daz;
+      dgh[(2 * u + j) * kBwdP + ks] = dgc;
+      hz = dht * cur.z;
     }
-    __syncwarp();
-    // recurrent cotangent: dh_{n-1} = dh * z + wh @ dgh
-    for (int k = lane; k < u; k += kWarp) {
-      const float* wk = w.wh + k * g3;
-      float d = 0.0f;
-      for (int q = 0; q < g3; ++q) d = fmaf(wk[q], dgh[q], d);
-      dh[k] = dhs[k] * zb[k] + d;
-    }
-    if (lane == 0) { sc[0] = xr; sc[1] = xs; sc[2] = dl1; }
+    if (n == 0) break;
     __syncthreads();
+    // slice ks of (W_h dgh)[j] for the kBwdP samples
+    if (j < u) {
+      float a[3][kBwdP];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+        for (int p = 0; p < kBwdP; ++p) a[gt][p] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < KQ; ++t) {
+        if (t < len) {  // uniform over a warp: a warp's threads share ks
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+            float d[kBwdP];
+            load_h<kBwdP>(dgh, gt * u + i0 + t, d);
+#pragma unroll
+            for (int p = 0; p < kBwdP; ++p) a[gt][p] = fmaf(d[p], wq[gt][t], a[gt][p]);
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kBwdP; ++p)
+        part[(ks * u32 + j) * kBwdP + p] = (a[0][p] + a[1][p]) + a[2][p];
+    }
+    __syncthreads();
+    if (carry) {
+      float a = part[j * kBwdP + ks];
+#pragma unroll
+      for (int s = 1; s < kSlices; ++s) a += part[(s * u32 + j) * kBwdP + ks];
+      dh = hz + a;
+    }
+    cur = nxt;
+  }
+}
 
-    // ---- block accumulation: thread-owned entries, fixed sample order
-    const float* pws[kK2Warps];
-#pragma unroll
-    for (int q = 0; q < kK2Warps; ++q) pws[q] = smem + 2 * wf + q * k2_warp_floats(u);
-    // offsets of each per-warp buffer inside pws[q]
-    const int o_hp = 2 * u, o_hc = 3 * u, o_da = 7 * u, o_dgh = 7 * u + g3, o_sc = 7 * u + 2 * g3;
-    float* a_wx = acc;
-    float* a_wh = a_wx + 2 * g3;
-    float* a_bx = a_wh + u * g3;
-    float* a_bh = a_bx + g3;
-    float* a_hw = a_bh + g3;
-    float* a_hb = a_hw + 2 * u;
-    for (int e = threadIdx.x; e < 2 * g3; e += blockDim.x) {
-      const int row = e / g3, q3 = e - row * g3;
-      float v = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kK2Warps; ++q) {
-        const float* sq = pws[q] + o_sc;
-        const float xw = row == 0 ? sq[1] * (1.0f - sq[0]) : sq[1] * sq[0];
-        v = fmaf(pws[q][o_da + q3], xw, v);
-      }
-      a_wx[e] += v;
+template <int KQ>
+cudaError_t launch_sweep(const void* samples, const void* g, const void* wh, const void* hw,
+                         const float* rows, const void* gates, const void* p1, void* cot,
+                         int b_total, int n_sites, int u, cudaStream_t st) {
+  const size_t smem = k2_smem_bytes(u);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_sweep_kernel<KQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  bwd_sweep_kernel<KQ><<<(b_total + kBwdP - 1) / kBwdP, kSlices * warp_round(u), smem, st>>>(
+      static_cast<const int32_t*>(samples), static_cast<const float*>(g),
+      static_cast<const float*>(wh), static_cast<const float*>(hw), rows,
+      static_cast<const float*>(gates), static_cast<const float*>(p1), static_cast<float*>(cot),
+      b_total, n_sites, u);
+  return cudaGetLastError();
+}
+
+// Offsets in the flat gradient [wx (2, 3U) | wh (U, 3U) | bx | bh | hw (U, 2) | hb (2)].
+struct GradLayout {
+  int wx, wh, bx, bh, hw, hb;
+  __device__ explicit GradLayout(int u) {
+    const int g3 = 3 * u;
+    wx = 0;
+    wh = 2 * g3;
+    bx = wh + u * g3;
+    bh = bx + g3;
+    hw = bh + g3;
+    hb = hw + 2 * u;
+  }
+};
+
+// Writes G's entry (m, q) to the gradient entries it holds (each entry of
+// the flat gradient is written by exactly one (m, q)).
+__device__ __forceinline__ void put_grad(float* out, const GradLayout& L, int u, int m, int q,
+                                         float v) {
+  const int g3 = 3 * u;
+  if (m >= u + 3) return;  // padding rows of the last tile
+  if (q < g3) {
+    if (m < u) out[L.wh + m * g3 + q] = v;
+    if (m == u) {
+      out[L.bh + q] = v;
+      if (q < 2 * u) out[L.bx + q] = v;  // da = dgh in the r and z columns
     }
-    for (int e = threadIdx.x; e < u * g3; e += blockDim.x) {
-      const int k = e / g3, q3 = e - k * g3;
-      float v = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kK2Warps; ++q) v = fmaf(pws[q][o_hp + k], pws[q][o_dgh + q3], v);
-      a_wh[e] += v;
+    if (m > u && q < 2 * u) out[L.wx + (m - u - 1) * g3 + q] = v;
+  } else if (q < 4 * u) {
+    const int qc = 2 * u + (q - g3);  // dac: the c columns of dW_x and db_x
+    if (m == u) out[L.bx + qc] = v;
+    if (m > u) out[L.wx + (m - u - 1) * g3 + qc] = v;
+  } else if (q == 4 * u) {
+    // dlogit_0 = -dl1: the head's two columns
+    if (m < u) {
+      out[L.hw + 2 * m] = -v;
+      out[L.hw + 2 * m + 1] = v;
     }
-    for (int e = threadIdx.x; e < g3; e += blockDim.x) {
-      float vx = 0.0f, vh = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kK2Warps; ++q) {
-        vx += pws[q][o_da + e];
-        vh += pws[q][o_dgh + e];
-      }
-      a_bx[e] += vx;
-      a_bh[e] += vh;
+    if (m == u) {
+      out[L.hb] = -v;
+      out[L.hb + 1] = v;
     }
-    for (int e = threadIdx.x; e < 2 * u + 2; e += blockDim.x) {
-      float v = 0.0f;
+  }
+}
+
+// The values thread column sc stages for rows v = rt + sr + 4 i of a tile:
+// column m of A (ra columns) and column q of C (rc columns), zero past the
+// chunk's end r1 or the matrix's last column.
+__device__ __forceinline__ void fetch_rows(const float* __restrict__ a_rows,
+                                           const float* __restrict__ c_rows, int rt, int r1,
+                                           int sr, int m, int q, int ra, int rc,
+                                           float (&av)[kStage], float (&cv)[kStage]) {
 #pragma unroll
-      for (int q = 0; q < kK2Warps; ++q) {
-        const float d1 = pws[q][o_sc + 2];
-        const float dl = (e & 1) ? d1 : -d1;
-        v += e < 2 * u ? pws[q][o_hc + (e >> 1)] * dl : dl;
-      }
-      if (e < 2 * u) a_hw[e] += v; else a_hb[e - 2 * u] += v;
+  for (int i = 0; i < kStage; ++i) {
+    const int v = rt + sr + (kGThreads / kTileG) * i;
+    av[i] = v < r1 && m < ra ? a_rows[static_cast<int64_t>(v) * ra + m] : 0.0f;
+    cv[i] = v < r1 && q < rc ? c_rows[static_cast<int64_t>(v) * rc + q] : 0.0f;
+  }
+}
+
+// blockIdx.x: the chunk of rows; blockIdx.y: the tile of G (row tiles of
+// the U + 3 A columns, then column tiles of the 4U + 1 C columns).
+__global__ void __launch_bounds__(kGThreads)
+bwd_weights_kernel(const float* __restrict__ a_rows, const float* __restrict__ c_rows,
+                   float* __restrict__ partial, int n_rows, int u) {
+  __shared__ __align__(16) float as[kRowTile][kTileG];
+  __shared__ __align__(16) float cs[kRowTile][kTileG];
+  const int ra = u + 3, rc = 4 * u + 1;
+  const int tiles_c = (rc + kTileG - 1) / kTileG;
+  const int m0 = (blockIdx.y / tiles_c) * kTileG, c0 = (blockIdx.y % tiles_c) * kTileG;
+  const int r0 = blockIdx.x * kChunkRows, r1 = min(n_rows, r0 + kChunkRows);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // the thread's staging column and its first row in a tile
+  const int sc = threadIdx.x % kTileG, sr = threadIdx.x / kTileG;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+
+  float av[kStage], cv[kStage];
+  fetch_rows(a_rows, c_rows, r0, r1, sr, m0 + sc, c0 + sc, ra, rc, av, cv);
+  for (int rt = r0; rt < r1; rt += kRowTile) {
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      as[sr + (kGThreads / kTileG) * i][sc] = av[i];
+      cs[sr + (kGThreads / kTileG) * i][sc] = cv[i];
+    }
+    __syncthreads();
+    if (rt + kRowTile < r1)
+      fetch_rows(a_rows, c_rows, rt + kRowTile, r1, sr, m0 + sc, c0 + sc, ra, rc, av, cv);
+#pragma unroll 8
+    for (int rr = 0; rr < kRowTile; ++rr) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[rr][4 * ty]);
+      const float4 c = *reinterpret_cast<const float4*>(&cs[rr][4 * tx]);
+      const float a4[4] = {a.x, a.y, a.z, a.w}, c4[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(a4[i], c4[k], acc[i][k]);
     }
     __syncthreads();
   }
 
-  float* out = partial + static_cast<int64_t>(blockIdx.x) * wfx;
-  for (int e = threadIdx.x; e < wfx; e += blockDim.x) out[e] = acc[e];
+  float* out = partial + static_cast<int64_t>(blockIdx.x) * weight_floats_exact(u);
+  const GradLayout layout(u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      put_grad(out, layout, u, m0 + 4 * ty + i, c0 + 4 * tx + k, acc[i][k]);
+}
+
+__host__ __device__ inline int g_chunks(int b_total, int n_sites) {
+  return static_cast<int>((static_cast<int64_t>(b_total) * (n_sites + 1) + kChunkRows - 1) /
+                          kChunkRows);
 }
 
 // Sums the per-block partial gradients in block order.
@@ -204,6 +347,7 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= wfx) return;
   float v = 0.0f;
+#pragma unroll 8
   for (int i = 0; i < blocks; ++i) v += partial[static_cast<int64_t>(i) * wfx + e];
   out[e] = v;
 }
@@ -216,36 +360,48 @@ cudaError_t launch_sum_partials(const float* partial, float* out, int blocks, in
 
 }  // namespace rnnwf
 
-// The floats of the per-block partial gradients rnnwf_gru_log_prob_bwd needs.
-extern "C" long long rnnwf_gru_bwd_partial_floats(int b_total, int u) {
+// The floats of the per-chunk partial gradients rnnwf_gru_log_prob_bwd needs.
+extern "C" long long rnnwf_gru_bwd_partial_floats(int b_total, int n_sites, int u) {
   using namespace rnnwf;
-  return static_cast<long long>((b_total + kK2Warps - 1) / kK2Warps) * weight_floats_exact(u);
+  return static_cast<long long>(g_chunks(b_total, n_sites)) * weight_floats_exact(u);
 }
 
-// hist: B*N*U floats of scratch; partial: rnnwf_gru_bwd_partial_floats(B, U)
-// floats of scratch; out: weight_floats_exact(U) floats in the layout
-// [wx | wh | bx | bh | head w | head b].
-extern "C" int rnnwf_gru_log_prob_bwd(const void* samples, const void* g, const void* wx,
-                                      const void* wh, const void* bx, const void* bh,
-                                      const void* hw, const void* hb, void* hist,
-                                      void* partial, void* out, int b_total, int n_sites,
-                                      int u, void* stream) {
+// Stages b and c after the replay (rnnwf_gru_replay in csrc/tfim_flip.cu,
+// which filled rows B*(N+1)*(U+3), gates B*N*4U and p1 B*N).  Scratch: cot
+// B*(N+1)*(4U+1) (C) and partial rnnwf_gru_bwd_partial_floats(B, N, U)
+// floats; out: weight_floats_exact(U) floats in the layout [wx | wh | bx |
+// bh | head w | head b].
+extern "C" int rnnwf_gru_log_prob_bwd(const void* samples, const void* g, const void* wh,
+                                      const void* hw, const void* rows, const void* gates,
+                                      const void* p1, void* cot, void* partial, void* out,
+                                      int b_total, int n_sites, int u, void* stream) {
   using namespace rnnwf;
-  const size_t smem = k2_smem_bytes(u);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // G's rows are counted in int
+  const int64_t n_rows = static_cast<int64_t>(b_total) * (n_sites + 1);
+  if (n_rows > INT32_MAX - kChunkRows) return static_cast<int>(cudaErrorInvalidValue);
+  const int quarter = (u + kSlices - 1) / kSlices;
+  if (quarter > kMaxQuarter) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (b_total + kK2Warps - 1) / kK2Warps;
-  gru_bwd_kernel<<<blocks, kK2Warps * kWarp, smem, st>>>(
-      static_cast<const int32_t*>(samples), static_cast<const float*>(g),
-      static_cast<const float*>(wx), static_cast<const float*>(wh),
-      static_cast<const float*>(bx), static_cast<const float*>(bh),
-      static_cast<const float*>(hw), static_cast<const float*>(hb),
-      static_cast<float*>(hist), static_cast<float*>(partial), b_total, n_sites, u);
+  const float* a_rows = static_cast<const float*>(rows);
+  cudaError_t err =
+      quarter <= 8    ? launch_sweep<8>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
+                                        n_sites, u, st)
+      : quarter <= 16 ? launch_sweep<16>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
+                                         n_sites, u, st)
+      : quarter <= 24 ? launch_sweep<24>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
+                                         n_sites, u, st)
+                      : launch_sweep<32>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
+                                         n_sites, u, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int chunks = g_chunks(b_total, n_sites);
+  const dim3 grid(chunks, ((u + 3 + kTileG - 1) / kTileG) * ((4 * u + 1 + kTileG - 1) / kTileG));
+  bwd_weights_kernel<<<grid, kGThreads, 0, st>>>(a_rows, static_cast<const float*>(cot),
+                                                 static_cast<float*>(partial),
+                                                 static_cast<int>(n_rows), u);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_sum_partials(static_cast<const float*>(partial),
-                                              static_cast<float*>(out), blocks,
+                                              static_cast<float*>(out), chunks,
                                               weight_floats_exact(u), st));
 }

@@ -232,7 +232,7 @@ __global__ void rollout_hist_kernel(const int32_t* __restrict__ samples, const f
     if (j < u) slice_product<kRollP>(w, u, ks, j, h, part);
     __syncthreads();
     if (ks < kRollP && j < u) {
-      const float hv = slice_update<kRollP>(w, u, j, ks, h, part, x, n > 0 ? 1.0f : 0.0f);
+      const float hv = slice_update<kRollP>(w, u, j, ks, h, part, x, n > 0 ? 1.0f : 0.0f).h;
       hn[j * kRollP + ks] = hv;
       if (mine) hist[(my_row + n) * u + j] = hv;
       x = static_cast<float>(samples[my_row + n]);

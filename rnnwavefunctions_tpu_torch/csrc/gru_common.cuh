@@ -6,10 +6,11 @@
 // memory in exactly this order, so the gradient kernel can accumulate into a
 // buffer of the same layout and hand back one flat weight-shaped vector.
 //
-// Work split (K1, K2, the cRNN kernels): one warp advances T trajectories
+// Work split (the cRNN kernels, B17, B20): one warp advances T trajectories
 // (samples, or exchanged-sample suffixes) through one site at a time; the
-// latency kernels' block-wide split is slice_product below, and the flip
-// suffixes run on the tensor cores (csrc/tfim_flip.cu).  Lane j owns
+// latency kernels' block-wide split (K1, K2's replay and reverse sweep, B5,
+// B19, K3's base pass) is slice_product below, and the flip suffixes run on
+// the tensor cores (csrc/tfim_flip.cu).  Lane j owns
 // hidden units j, j+32, ...; the hidden state of the warp's T trajectories
 // sits in shared memory as h[k*T + t], so one (broadcast) load of h[k]
 // serves T trajectories while each wh row entry is loaded once per site.
@@ -44,8 +45,7 @@ __host__ __device__ inline int weight_floats_exact(int u) {
 
 // Dynamic shared memory of each kernel at width u, defined beside the kernel
 // and used both by its launch and by rnnwf_fits_shared_memory.
-size_t k1_smem_bytes(int u);
-size_t k2_smem_bytes(int u);
+size_t k2_smem_bytes(int u);       // K2's reverse sweep and weight cotangent
 size_t flip_base_smem_bytes(int u);
 size_t flip_suffix_smem_bytes(int u);
 size_t jac_smem_bytes(int u);      // B17, B20 (csrc/fused_jac.cu)
@@ -206,14 +206,15 @@ __device__ __forceinline__ void gru_site(const Weights& w, int u, const float* h
   for (int t = 0; t < T; ++t) { l0[t] = lg[0][0][t]; l1[t] = lg[0][1][t]; }
 }
 
-// ---- The latency kernels (B19 in csrc/fused_jac.cu; K3's base pass and B5
-// in csrc/tfim_flip.cu) advance the P samples of a block one site at a time
-// with the site's 3U x U product spread over the whole block: thread (ks, j)
-// of kSlices x U32 threads (U32 = U rounded up to a warp) sums the terms of
-// hidden unit j over the ks-th quarter of k for the P samples (a chain a
-// quarter as deep as one thread's would be), the partial sums meet in shared
-// memory, and after a barrier thread (p, j) of the first P slices adds
-// them in slice order and updates unit j of sample p.  The states sit in
+// ---- The latency kernels (B19 in csrc/fused_jac.cu; K1, K2's replay, K3's
+// base pass and B5 in csrc/tfim_flip.cu) advance the P samples of a block
+// one site at a time with the site's 3U x U product spread over the whole
+// block: thread (ks, j) of kSlices x U32 threads (U32 = U rounded up to a
+// warp) sums the terms of hidden unit j over the ks-th quarter of k for
+// the P samples (a chain a quarter as deep as one thread's would be), the
+// partial sums meet in shared memory, and after a barrier thread (p, j) of
+// the first P slices adds them in slice order and updates unit j of
+// sample p.  The states sit in
 // shared memory as h[k*P + p] (one broadcast load of h[k] feeds P
 // samples); a warp's loads wh[k, j], wh[k, U+j], wh[k, 2U+j] are
 // consecutive (conflict-free).
@@ -262,12 +263,18 @@ __device__ __forceinline__ void slice_product(const Weights& w, int u, int ks, i
     for (int p = 0; p < P; ++p) part[((ks * 3 + q) * u32 + j) * P + p] = a[q][p];
 }
 
+// Unit j's gates and new state for one sample (K2's replay stores the
+// gates; the other sweeps keep only h).
+struct GateStep {
+  float h, r, z, c, ghc;  // ghc = (h_{n-1} W_h)_c + bh_c, the reset gate's operand
+};
+
 // Unit j's update for sample p from the slices' sums (added in slice
 // order); xt is the sample's previous spin (0/1) and xscale is 0 at site 0.
 template <int P>
-__device__ __forceinline__ float slice_update(const Weights& w, int u, int j, int p,
-                                              const float* h, const float* part, float xt,
-                                              float xscale) {
+__device__ __forceinline__ GateStep slice_update(const Weights& w, int u, int j, int p,
+                                                 const float* h, const float* part, float xt,
+                                                 float xscale) {
   const int g = 3 * u, u32 = warp_round(u);
   float a[3];
 #pragma unroll
@@ -282,12 +289,13 @@ __device__ __forceinline__ float slice_update(const Weights& w, int u, int j, in
       xscale * ((1.0f - xt) * w.wx[2 * u + j] + xt * w.wx[g + 2 * u + j]) + w.bx[2 * u + j];
   const float r = sigmoid_tanh(gxr + (a[0] + w.bh[j]));
   const float z = sigmoid_tanh(gxz + (a[1] + w.bh[u + j]));
-  const float c = tanhf(gxc + r * (a[2] + w.bh[2 * u + j]));
-  return z * h[j * P + p] + (1.0f - z) * c;
+  const float ghc = a[2] + w.bh[2 * u + j];
+  const float c = tanhf(gxc + r * ghc);
+  return {z * h[j * P + p] + (1.0f - z) * c, r, z, c, ghc};
 }
 
 // Sums per-block partial gradients (blocks x wfx floats) in block order into
-// out (wfx floats); defined in fused_gru_bwd.cu, shared by K2 and B9.
+// out (wfx floats); defined in fused_gru_bwd.cu, shared by K2, B9 and B14.
 cudaError_t launch_sum_partials(const float* partial, float* out, int blocks, int wfx,
                                 cudaStream_t stream);
 

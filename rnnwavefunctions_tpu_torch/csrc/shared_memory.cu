@@ -21,7 +21,7 @@ extern "C" int rnnwf_fits_shared_memory(int family, int nx, int u, int device, i
   if (err != cudaSuccess) return static_cast<int>(err);
   size_t need = 0;
   if (family == 0) {
-    need = std::max({k1_smem_bytes(u), k2_smem_bytes(u), flip_base_smem_bytes(u),
+    need = std::max({k2_smem_bytes(u), flip_base_smem_bytes(u),
                      flip_suffix_smem_bytes(u), jac_smem_bytes(u)});
   } else if (family == 1) {
     need = std::max({b7_smem_bytes(u), b9_smem_bytes(u), exchange_base_smem_bytes(u),

@@ -6,22 +6,25 @@
 // flipped), in place of the ratio sum (the parity-symmetrized estimator
 // combines two directions before the ratio), teacher-forced or in sample
 // mode.  B5 is the stand-alone sampler: the sample-mode base pass alone.
+// K1 is the teacher-forced base pass alone: the joint log p of given
+// samples; K2's forward replay (csrc/fused_gru_bwd.cu) is that pass storing
+// the states, the gates and the head's probability for the reverse sweep.
 //
 // Replaces: rnnwavefunctions_tpu/ops/tfim_flip_kernel.py::tfim_flip_ratio_sum
 // (K4), ::tfim_sample_and_flip_sum with per_flip=False (K3) and
 // per_flip=True (B6, sample mode), ::tfim_flip_log_probs (B6, teacher-forced),
 // all _make_flip_kernel + _flip_wavefront; and
 // rnnwavefunctions_tpu/ops/fused_gru.py::_sample_pallas (B5,
-// _make_sample_kernel).
+// _make_sample_kernel) and ::_log_prob_pallas (K1, _make_log_prob_kernel).
 //
 // Bound on the H100: the flip suffixes.  Flipping site f leaves sites < f
 // untouched, so only sites f+1..N-1 are recomputed, starting from the stored
 // hidden state h_f with the flipped input (prefix sharing): B*N*(N-1)/2
 // GRU site steps, about 37 GFLOP per flagship step (B=500, N=100, U=50),
 // over 90% of the step's arithmetic, 6U^2 of every site's 6U^2 + 34U + 10
-// operations in the 3U x U recurrent product.  The base pass (and B5) does
-// only the B*N base steps, N dependent sites per sample: it is bound by
-// latency, not by work.
+// operations in the 3U x U recurrent product.  The base pass (and B5, K1)
+// does only the B*N base steps, N dependent sites per sample: it is bound
+// by latency, not by work.
 //
 // Design: three launches.
 //   1. Base pass, a block per kBaseP samples: its kSlices x U32 threads
@@ -35,8 +38,8 @@
 //      path: it draws the uniforms of 32 sites at once (a lane per site)
 //      ahead of the decisions, Kahan-adds log p and stores the spins, the
 //      corrected prefix pfx[n] = log p(sites <= n), the flipped-site
-//      log-prob fl[n] and the base log p.  B5 runs
-//      this launch alone and stores no history, only the spins and log p;
+//      log-prob fl[n] and the base log p.  B5 and K1 run
+//      this launch alone and store no history, only the spins (B5) and log p;
 //      the arithmetic is the same code, so B5 draws K3's spins bit for bit.
 //   2. Suffix pass on the tensor cores, a block (one warpgroup) per 32
 //      trajectories that share flip f (so they have one length), blocks
@@ -111,14 +114,28 @@ size_t flip_suffix_smem_bytes(int u) {
                           2 * 4 * kTraj * 2);
 }
 
-// kHistory: store hist, pfx and fl for the suffix pass (off for B5).
-template <bool kSample, bool kHistory>
+// What the base pass stores beside log p: nothing (K1, B5), the suffix
+// pass's inputs (K3, K4, B6: hist, pfx, fl) or K2's replay (rows, gates, p1).
+enum class Store { kNone, kFlip, kGates };
+
+// The base pass's outputs, each (B, N) unless stated; only those of the
+// Store mode are written.
+struct BaseOut {
+  float* hist;   // (B, N, U) states h_n
+  float* pfx;    // corrected prefix log p(sites <= n)
+  float* fl;     // log p of site n flipped
+  float* rows;   // (B, N + 1, U + 3) K2's A rows, [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]
+  float* gates;  // (B, N, 4U) [r | z | c | ghc] of site n
+  float* p1;     // the head's p(s_n = 1)
+  float* lp;     // (B,) joint log p
+};
+
+template <bool kSample, Store kStore>
 __global__ void flip_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
                                  uint32_t offset, const float* wx, const float* wh,
                                  const float* bx, const float* bh, const float* hw,
-                                 const float* hb, float* __restrict__ hist,
-                                 float* __restrict__ pfx, float* __restrict__ fl,
-                                 float* __restrict__ lp, int b_total, int n_sites, int u) {
+                                 const float* hb, BaseOut out, int b_total, int n_sites,
+                                 int u) {
   extern __shared__ __align__(16) float smem[];
   const Weights w = load_weights(smem, wx, wh, bx, bh, hw, hb, u);
   const int u32 = warp_round(u), nw = u32 / kWarp;
@@ -145,6 +162,13 @@ __global__ void flip_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
   // thread (p, j) of the first kBaseP slices updates unit j of sample p
   const int b_mine = blockIdx.x * kBaseP + min(ks, kBaseP - 1);
   const int64_t row_mine = static_cast<int64_t>(min(b_mine, b_total - 1)) * n_sites;
+  // K2's A rows of sample b (Store::kGates): row n of (b (N + 1) + n) (U + 3)
+  // holds [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}], row 0 [0 | 1 | 0 | 0];
+  // thread (p, j) writes unit j's entries, thread (p, 0) the inputs
+  const int64_t arow_mine = static_cast<int64_t>(min(b_mine, b_total - 1)) * (n_sites + 1);
+  if constexpr (kStore == Store::kGates) {
+    if (ks < kBaseP && j < u && b_mine < b_total) out.rows[arow_mine * (u + 3) + j] = 0.0f;
+  }
   __syncthreads();
 
   float x[kBaseP], acc = 0.0f, cmp = 0.0f;
@@ -172,10 +196,27 @@ __global__ void flip_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
         float xt = x[0];
 #pragma unroll
         for (int p = 1; p < kBaseP; ++p) xt = ks == p ? x[p] : xt;
-        const float hv = slice_update<kBaseP>(w, u, j, ks, h, part, xt, n > 0 ? 1.0f : 0.0f);
+        const GateStep st =
+            slice_update<kBaseP>(w, u, j, ks, h, part, xt, n > 0 ? 1.0f : 0.0f);
+        const float hv = st.h;
         hn[j * kBaseP + ks] = hv;
-        if constexpr (kHistory) {
-          if (b_mine < b_total) hist[(row_mine + n) * u + j] = hv;
+        if (b_mine < b_total) {
+          if constexpr (kStore == Store::kFlip) out.hist[(row_mine + n) * u + j] = hv;
+          if constexpr (kStore == Store::kGates) {
+            float* rn = out.rows + (arow_mine + n) * (u + 3);
+            rn[u + 3 + j] = hv;  // row n + 1
+            if (j == 0) {
+              const float xs = n > 0 ? 1.0f : 0.0f;
+              rn[u] = 1.0f;
+              rn[u + 1] = xs * (1.0f - xt);
+              rn[u + 2] = xs * xt;
+            }
+            float* gt = out.gates + (row_mine + n) * 4 * u;
+            gt[j] = st.r;
+            gt[u + j] = st.z;
+            gt[2 * u + j] = st.c;
+            gt[3 * u + j] = st.ghc;
+          }
         }
         q0 = hv * w.hw[2 * j];
         q1 = hv * w.hw[2 * j + 1];
@@ -210,20 +251,33 @@ __global__ void flip_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
         kadd(acc, cmp, (s > 0.5f ? l1 : l0) - lse);
         if (own[p]) {
           if constexpr (kSample) samples[row[p] + n] = static_cast<int32_t>(s);
-          if constexpr (kHistory) {
-            pfx[row[p] + n] = acc - cmp;
-            fl[row[p] + n] = (s > 0.5f ? l0 : l1) - lse;
+          if constexpr (kStore == Store::kFlip) {
+            out.pfx[row[p] + n] = acc - cmp;
+            out.fl[row[p] + n] = (s > 0.5f ? l0 : l1) - lse;
           }
+          if constexpr (kStore == Store::kGates) out.p1[row[p] + n] = expf(l1 - lse);
         }
       }
       x[p] = s;
     }
     float* tmp = h; h = hn; hn = tmp;
   }
+  if constexpr (kStore == Store::kGates) {
+    // row N's inputs: the last spin
+    if (ks < kBaseP && j == 0 && b_mine < b_total) {
+      float xt = x[0];
+#pragma unroll
+      for (int p = 1; p < kBaseP; ++p) xt = ks == p ? x[p] : xt;
+      float* rn = out.rows + (arow_mine + n_sites) * (u + 3) + u;
+      rn[0] = 1.0f;
+      rn[1] = 1.0f - xt;
+      rn[2] = xt;
+    }
+  }
   if (books) {
 #pragma unroll
     for (int p = 0; p < kBaseP; ++p)
-      if (lane == p && own[p]) lp[bs[p]] = acc - cmp;
+      if (lane == p && own[p]) out.lp[bs[p]] = acc - cmp;
   }
 }
 
@@ -516,20 +570,29 @@ __global__ void flip_sum_kernel(const float* __restrict__ terms, float* __restri
   ratio[b] = v;
 }
 
-template <bool kSample, bool kHistory>
+template <bool kSample, Store kStore>
 cudaError_t launch_base(int32_t* samples, uint32_t seed, uint32_t offset, const float* const* W,
-                        float* hist, float* pfx, float* fl, float* lp, int b_total, int n_sites,
-                        int u, cudaStream_t st) {
+                        const BaseOut& out, int b_total, int n_sites, int u, cudaStream_t st) {
   const size_t smem = flip_base_smem_bytes(u);
-  cudaError_t err = cudaFuncSetAttribute(flip_base_kernel<kSample, kHistory>,
+  cudaError_t err = cudaFuncSetAttribute(flip_base_kernel<kSample, kStore>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flip_base_kernel<kSample, kHistory><<<(b_total + kBaseP - 1) / kBaseP, base_threads(u),
-                                        smem, st>>>(
-      samples, seed, offset, W[0], W[1], W[2], W[3], W[4], W[5], hist, pfx, fl, lp, b_total,
-      n_sites, u);
+  flip_base_kernel<kSample, kStore><<<(b_total + kBaseP - 1) / kBaseP, base_threads(u), smem,
+                                      st>>>(samples, seed, offset, W[0], W[1], W[2], W[3],
+                                            W[4], W[5], out, b_total, n_sites, u);
   return cudaGetLastError();
+}
+
+// The six weight pointers of a C entry point.
+inline void weight_ptrs(const float* (&W)[6], const void* wx, const void* wh, const void* bx,
+                        const void* bh, const void* hw, const void* hb) {
+  W[0] = static_cast<const float*>(wx);
+  W[1] = static_cast<const float*>(wh);
+  W[2] = static_cast<const float*>(bx);
+  W[3] = static_cast<const float*>(bh);
+  W[4] = static_cast<const float*>(hw);
+  W[5] = static_cast<const float*>(hb);
 }
 
 // The suffix pass for MG 64-row tiles per gate (U <= 128; the GRU family's
@@ -560,13 +623,15 @@ int launch_flip(void* samples, uint32_t seed, uint32_t offset, const void* wx,
                 const void* hb, void* hist, void* pfx, void* fl, void* out, void* lp,
                 void* ratio, int b_total, int n_sites, int u, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* W[6] = {static_cast<const float*>(wx), static_cast<const float*>(wh),
-                       static_cast<const float*>(bx), static_cast<const float*>(bh),
-                       static_cast<const float*>(hw), static_cast<const float*>(hb)};
-  cudaError_t err = launch_base<kSample, true>(
-      static_cast<int32_t*>(samples), seed, offset, W, static_cast<float*>(hist),
-      static_cast<float*>(pfx), static_cast<float*>(fl), static_cast<float*>(lp), b_total,
-      n_sites, u, st);
+  const float* W[6];
+  weight_ptrs(W, wx, wh, bx, bh, hw, hb);
+  BaseOut base{};
+  base.hist = static_cast<float*>(hist);
+  base.pfx = static_cast<float*>(pfx);
+  base.fl = static_cast<float*>(fl);
+  base.lp = static_cast<float*>(lp);
+  cudaError_t err = launch_base<kSample, Store::kFlip>(static_cast<int32_t*>(samples), seed,
+                                                       offset, W, base, b_total, n_sites, u, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = pad64(u) == kGateRows
@@ -634,10 +699,49 @@ extern "C" int rnnwf_gru_sample(unsigned int seed, unsigned int offset, const vo
                                 const void* wh, const void* bx, const void* bh, const void* hw,
                                 const void* hb, void* samples, void* lp, int b_total,
                                 int n_sites, int u, void* stream) {
-  const float* W[6] = {static_cast<const float*>(wx), static_cast<const float*>(wh),
-                       static_cast<const float*>(bx), static_cast<const float*>(bh),
-                       static_cast<const float*>(hw), static_cast<const float*>(hb)};
-  return static_cast<int>(rnnwf::launch_base<true, false>(
-      static_cast<int32_t*>(samples), seed, offset, W, nullptr, nullptr, nullptr,
-      static_cast<float*>(lp), b_total, n_sites, u, static_cast<cudaStream_t>(stream)));
+  using namespace rnnwf;
+  const float* W[6];
+  weight_ptrs(W, wx, wh, bx, bh, hw, hb);
+  BaseOut out{};
+  out.lp = static_cast<float*>(lp);
+  return static_cast<int>(launch_base<true, Store::kNone>(static_cast<int32_t*>(samples), seed,
+                                                          offset, W, out, b_total, n_sites, u,
+                                                          static_cast<cudaStream_t>(stream)));
+}
+
+// K1: the joint log p (B floats) of given samples (B*N ints), no scratch.
+extern "C" int rnnwf_gru_log_prob(const void* samples, const void* wx, const void* wh,
+                                  const void* bx, const void* bh, const void* hw,
+                                  const void* hb, void* lp, int b_total, int n_sites, int u,
+                                  void* stream) {
+  using namespace rnnwf;
+  const float* W[6];
+  weight_ptrs(W, wx, wh, bx, bh, hw, hb);
+  BaseOut out{};
+  out.lp = static_cast<float*>(lp);
+  return static_cast<int>(launch_base<false, Store::kNone>(
+      static_cast<int32_t*>(const_cast<void*>(samples)), 0u, 0u, W, out, b_total, n_sites, u,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K1 storing K2's forward replay (stage a; stages b and c are in
+// csrc/fused_gru_bwd.cu): the joint log p (lp, B floats) and K2's A rows
+// (rows, B*(N+1)*(U+3): [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}], row 0 [0 |
+// 1 | 0 | 0]), the gates [r | z | c | ghc] (gates, B*N*4U) and the head's
+// p(s = 1) (p1, B*N) per (sample, site).
+extern "C" int rnnwf_gru_replay(const void* samples, const void* wx, const void* wh,
+                                const void* bx, const void* bh, const void* hw, const void* hb,
+                                void* rows, void* gates, void* p1, void* lp, int b_total,
+                                int n_sites, int u, void* stream) {
+  using namespace rnnwf;
+  const float* W[6];
+  weight_ptrs(W, wx, wh, bx, bh, hw, hb);
+  BaseOut out{};
+  out.rows = static_cast<float*>(rows);
+  out.gates = static_cast<float*>(gates);
+  out.p1 = static_cast<float*>(p1);
+  out.lp = static_cast<float*>(lp);
+  return static_cast<int>(launch_base<false, Store::kGates>(
+      static_cast<int32_t*>(const_cast<void*>(samples)), 0u, 0u, W, out, b_total, n_sites, u,
+      static_cast<cudaStream_t>(stream)));
 }

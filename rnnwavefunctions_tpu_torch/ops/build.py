@@ -39,8 +39,9 @@ _EXCHANGE = ([_P, _U, _U] + [_P] * 13 + [_I] * 4 + [_F, _F, _I, _I, _P], _I)
 # stream go as void*, and the launches return a CUDA error code
 SIGNATURES = {
     "rnnwf_gru_log_prob": ([_P] * 8 + [_I, _I, _I, _P], _I),
-    "rnnwf_gru_log_prob_bwd": ([_P] * 11 + [_I, _I, _I, _P], _I),
-    "rnnwf_gru_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
+    "rnnwf_gru_replay": ([_P] * 11 + [_I, _I, _I, _P], _I),
+    "rnnwf_gru_log_prob_bwd": ([_P] * 10 + [_I, _I, _I, _P], _I),
+    "rnnwf_gru_bwd_partial_floats": ([_I, _I, _I], ctypes.c_longlong),
     "rnnwf_tfim_flip_ratio_sum": ([_P] * 13 + [_I, _I, _I, _P], _I),
     "rnnwf_tfim_sample_and_flip_sum": ([_U, _U] + [_P] * 13 + [_I, _I, _I, _P], _I),
     "rnnwf_tfim_flip_log_probs": ([_P] * 12 + [_I, _I, _I, _P], _I),

@@ -3,11 +3,14 @@
 the stand-alone sampler.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/fused_gru.py`` (``_log_prob_pallas``,
-``make_log_prob_fn`` and ``_sample_pallas``).  K1's CUDA kernel is
-``csrc/fused_gru.cu``; B5 is the sample-mode base pass of
-``csrc/tfim_flip.cu`` without its history, so it draws K3's spins.  The plain
-PyTorch versions are the same site loops written with tensor ops (B5's is
-``tfim_flip_kernel.base_pass_plain`` on ``plain_uniforms``).
+``make_log_prob_fn`` and ``_sample_pallas``).  K1 and B5 are the base pass
+of ``csrc/tfim_flip.cu`` without its history, teacher-forced (K1) or in
+sample mode (B5, so it draws K3's spins); when a gradient follows, K1 runs
+the same pass storing K2's forward replay (``Replay``), and K2
+(``ops/fused_gru_bwd.py``) starts from it.  The plain PyTorch versions are
+the same site loops written with tensor ops (B5's is
+``tfim_flip_kernel.base_pass_plain`` on ``plain_uniforms``; the replay's is
+``replay_plain``).
 
 A kernel's weights travel as a 6-tuple in the JAX package's parameter layout:
 ``(wx (2, 3U), wh (U, 3U), bx (3U,), bh (3U,), head_w (U, 2), head_b (2,))``
@@ -21,7 +24,7 @@ kernel launches in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -73,15 +76,24 @@ def spin_input(wx: torch.Tensor, bx: torch.Tensor, x: torch.Tensor,
     return x_scale * ((1.0 - x) * wx[0] + x * wx[1]) + bx
 
 
-def gru_layer(gx: torch.Tensor, h: torch.Tensor, wh: torch.Tensor,
-              bh: torch.Tensor) -> torch.Tensor:
-    """The reset-after GRU update of a (B, U) state from its input gates
-    ``gx`` (B, 3U), gates packed ``[r | z | c]``."""
+def gru_gates(gx: torch.Tensor, h: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor):
+    """The reset-after GRU's gates of a (B, U) state from its input gates
+    ``gx`` (B, 3U), gates packed ``[r | z | c]``: (r, z, c, ghc) with ghc =
+    (h W_h + b_h)_c, the reset gate's operand."""
     u = h.shape[-1]
     gh = h @ wh + bh
     r = torch.sigmoid(gx[:, :u] + gh[:, :u])
     z = torch.sigmoid(gx[:, u : 2 * u] + gh[:, u : 2 * u])
-    c = torch.tanh(gx[:, 2 * u :] + r * gh[:, 2 * u :])
+    ghc = gh[:, 2 * u :]
+    c = torch.tanh(gx[:, 2 * u :] + r * ghc)
+    return r, z, c, ghc
+
+
+def gru_layer(gx: torch.Tensor, h: torch.Tensor, wh: torch.Tensor,
+              bh: torch.Tensor) -> torch.Tensor:
+    """The reset-after GRU update of a (B, U) state from its input gates
+    ``gx`` (B, 3U), gates packed ``[r | z | c]``."""
+    _, z, c, _ = gru_gates(gx, h, wh, bh)
     return z * h + (1.0 - z) * c
 
 
@@ -116,6 +128,52 @@ def log_prob_plain(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
         acc, cmp = kadd(acc, cmp, logp2(l0, l1, s[:, i]))
         x = s[:, i]
     return kfinal(acc, cmp)
+
+
+class Replay(NamedTuple):
+    """K2's forward replay, K1 storing (stage a of ``csrc/fused_gru_bwd.cu``):
+    the joint log p and, per (sample, site), what the reverse sweep and the
+    weight cotangent read."""
+
+    lp: torch.Tensor     # (B,)
+    rows: torch.Tensor   # (B, N + 1, U + 3) K2's A: [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]
+    gates: torch.Tensor  # (B, N, 4U) [r | z | c | ghc] of site n
+    p1: torch.Tensor     # (B, N) the head's p(s_n = 1)
+
+    @property
+    def hist(self) -> torch.Tensor:
+        """(B, N, U) the states h_n."""
+        return self.rows[:, 1:, : self.gates.shape[2] // 4]
+
+
+def replay_plain(weights: Weights, samples: torch.Tensor) -> Replay:
+    """The plain replay: ``log_prob_plain``'s loop keeping its gates."""
+    wx, wh, bx, bh, hw, hb = weights
+    b, n = samples.shape
+    u = wh.shape[0]
+    s = samples.to(torch.float32)
+    h = torch.zeros(b, u, dtype=torch.float32, device=samples.device)
+    x = torch.zeros(b, dtype=torch.float32, device=samples.device)
+    acc = torch.zeros_like(x)
+    cmp = torch.zeros_like(x)
+    hist, gates, p1 = [], [], []
+    for i in range(n):
+        r, z, c, ghc = gru_gates(spin_input(wx, bx, x, 1.0 if i > 0 else 0.0), h, wh, bh)
+        h = z * h + (1.0 - z) * c
+        logits = h @ hw + hb
+        l0, l1 = logits[:, 0], logits[:, 1]
+        acc, cmp = kadd(acc, cmp, logp2(l0, l1, s[:, i]))
+        hist.append(h)
+        gates.append(torch.cat([r, z, c, ghc], dim=1))
+        p1.append(torch.exp(logp2(l0, l1, torch.ones_like(x))))
+        x = s[:, i]
+    # A's rows: [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}], row 0 [0 | 1 | 0 | 0]
+    row0 = torch.zeros(b, 1, u + 3, dtype=torch.float32, device=samples.device)
+    row0[..., u] = 1.0
+    sv = s[..., None]
+    rows = torch.cat([row0, torch.cat([torch.stack(hist, 1), torch.ones_like(sv), 1.0 - sv, sv],
+                                      dim=2)], dim=1)
+    return Replay(kfinal(acc, cmp), rows, torch.stack(gates, 1), torch.stack(p1, 1))
 
 
 def log_prob_bwd_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
@@ -190,21 +248,46 @@ def stream_of(t: torch.Tensor) -> int:
 # K1 wrapper and the autograd Function (K1 forward, K2 backward)
 # ---------------------------------------------------------------------------
 
-def gru_log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
-    """(B, N) int32 samples -> (B,) float32 joint log p (no gradient)."""
-    if is_cpu_call(samples, *weights):
-        return log_prob_plain(weights, samples)
+def launch_replay(weights: Weights, samples: torch.Tensor) -> Replay:
+    """Launches K1's base pass storing K2's replay on CUDA tensors (the
+    callers count the launch: K1's wrapper, or K2's as its stage a)."""
     u = check_weights(weights)
     b, n = check_samples(samples)
     check_supported(n, u, samples.device)
-    out = torch.empty(b, dtype=torch.float32, device=samples.device)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                       device=samples.device)
+    out = Replay(empty(b), empty(b, n + 1, u + 3), empty(b, n, 4 * u), empty(b, n))
     lib = load_library().lib
     with torch.cuda.device(samples.device):
-        err = lib.rnnwf_gru_log_prob(
-            samples.data_ptr(), *[w.data_ptr() for w in weights], out.data_ptr(),
+        err = lib.rnnwf_gru_replay(
+            samples.data_ptr(), *[w.data_ptr() for w in weights],
+            *[t.data_ptr() for t in (out.rows, out.gates, out.p1, out.lp)],
             b, n, u, stream_of(samples),
         )
-    check(err, "rnnwf_gru_log_prob")
+    check(err, "rnnwf_gru_replay")
+    return out
+
+
+def gru_log_prob(weights: Weights, samples: torch.Tensor, store: bool = False):
+    """(B, N) int32 samples -> (B,) float32 joint log p (no gradient); with
+    ``store``, the ``Replay`` that K2 starts from (its ``lp`` the same log
+    p)."""
+    if is_cpu_call(samples, *weights):
+        return replay_plain(weights, samples) if store else log_prob_plain(weights, samples)
+    if store:
+        out = launch_replay(weights, samples)
+    else:
+        u = check_weights(weights)
+        b, n = check_samples(samples)
+        check_supported(n, u, samples.device)
+        out = torch.empty(b, dtype=torch.float32, device=samples.device)
+        lib = load_library().lib
+        with torch.cuda.device(samples.device):
+            err = lib.rnnwf_gru_log_prob(
+                samples.data_ptr(), *[w.data_ptr() for w in weights], out.data_ptr(),
+                b, n, u, stream_of(samples),
+            )
+        check(err, "rnnwf_gru_log_prob")
     gru_log_prob.launches += 1
     return out
 
@@ -214,11 +297,18 @@ gru_log_prob.launches = 0
 
 class GRULogProb(torch.autograd.Function):
     """log p(samples) with K1 forward and K2 backward (the counterpart of
-    ``make_log_prob_fn``'s ``custom_vjp``)."""
+    ``make_log_prob_fn``'s ``custom_vjp``).  On the card, when a weight
+    needs its gradient, the forward is K1 storing K2's replay, and the
+    backward starts from it (one forward sweep per step, not two)."""
 
     @staticmethod
     def forward(ctx, samples, *weights):
         ctx.save_for_backward(samples, *weights)
+        ctx.replay = None
+        if samples.is_cuda and any(ctx.needs_input_grad[1:]):
+            replay = gru_log_prob(weights, samples, store=True)
+            ctx.replay = replay._replace(lp=None)  # ctx keeps no reference to its output
+            return replay.lp
         return gru_log_prob(weights, samples)
 
     @staticmethod
@@ -226,7 +316,7 @@ class GRULogProb(torch.autograd.Function):
         from .fused_gru_bwd import gru_log_prob_bwd
 
         samples, *weights = ctx.saved_tensors
-        grads = gru_log_prob_bwd(tuple(weights), samples, g.contiguous())
+        grads = gru_log_prob_bwd(tuple(weights), samples, g.contiguous(), replay=ctx.replay)
         return (None, *grads)
 
 

@@ -1,36 +1,174 @@
 """K2: the VJP of sum_b g_b log p(sigma_b) with respect to the GRU weights.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/fused_gru_bwd.py::gru_log_prob_bwd``.
-The CUDA kernel is ``csrc/fused_gru_bwd.cu`` (forward replay storing the
-hidden history, reverse sweep recomputing the gates, per-block partial
-gradients summed in block order).  The plain version is autograd through
-the plain K1 loop (``fused_gru.log_prob_bwd_plain``).
+The CUDA kernel runs in three stages (``csrc/fused_gru_bwd.cu``): (a) the
+forward replay, K1's base pass storing the states and inputs as the rows
+of a matrix A, the gates and the head's probabilities (``fused_gru.Replay``;
+skipped when the caller hands one over, as ``GRULogProb`` does); (b) the
+reverse sweep, one 3U x U product per site, writing the gate and head
+cotangents as the rows of a matrix C (``Reverse``); (c) the weight
+cotangent as the one product A^T C over the (sample, site) rows, in
+chunks of ``CHUNK_ROWS`` rows summed in chunk order.  The
+plain version is autograd through the plain K1 loop
+(``fused_gru.log_prob_bwd_plain``); ``log_prob_bwd_staged_plain`` does the
+three stages with tensor ops in the kernel's reduction order, for the
+checks of the stages.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .build import check, load_library
 from .fused_gru import (
+    Replay,
     Weights,
     check_samples,
     check_supported,
     check_weights,
     is_cpu_call,
+    launch_replay,
     log_prob_bwd_plain,
+    replay_plain,
     stream_of,
 )
 
+# rows of the weight-cotangent product per block of stage c (kChunkRows in
+# csrc/fused_gru_bwd.cu), and the k-slices of the reverse sweep's product
+# (kSlices in csrc/gru_common.cuh)
+CHUNK_ROWS = 512
+SLICES = 4
 
-def gru_log_prob_bwd(weights: Weights, samples: torch.Tensor,
-                     g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+
+class Reverse(NamedTuple):
+    """The reverse sweep's output (stage b): C's rows of the weight
+    cotangent, (B, N + 1, 4U + 1) [dgh_n | dac_n | dl1_{n-1}] with dgh =
+    [da_r | da_z | dac r] and dl1 = g (s - p1), the cotangent of logit 1;
+    zero at n = N but dl1, and dl1 zero at n = 0."""
+
+    cot: torch.Tensor
+
+    @property
+    def da(self) -> torch.Tensor:
+        """(B, N, 3U) [da_r | da_z | dac], the input gates' cotangent."""
+        u = (self.cot.shape[2] - 1) // 4
+        return torch.cat([self.cot[:, :-1, : 2 * u], self.cot[:, :-1, 3 * u : 4 * u]], dim=2)
+
+    @property
+    def dl1(self) -> torch.Tensor:
+        """(B, N) g (s_n - p1_n)."""
+        return self.cot[:, 1:, -1]
+
+
+# ---------------------------------------------------------------------------
+# the staged plain version
+# ---------------------------------------------------------------------------
+
+def reverse_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
+                  replay: Replay) -> Reverse:
+    """Stage b: per site from the last, the gate cotangents from the stored
+    values (math in fused_gru_bwd.py:29-39 of the JAX package), then dh_{n-1}
+    = dht z + W_h dgh with the sum split as the kernel's threads split it:
+    slice k takes the k-th of SLICES quarters of each gate's U columns,
+    adds the r, z and c parts in that order, and the slices are added in
+    order."""
+    wh, hw = weights[1], weights[4]
+    b, n, u = replay.hist.shape
+    s = samples.to(torch.float32)
+    hwd = hw[:, 1] - hw[:, 0]
+    wht = wh.T
+    kc = -(-u // SLICES)
+    quarters = [slice(k * kc, min(u, (k + 1) * kc)) for k in range(SLICES)]
+
+    def part(dgh, k):
+        gates = [slice(g * u + quarters[k].start, g * u + quarters[k].stop) for g in range(3)]
+        return (dgh[:, gates[0]] @ wht[gates[0]] + dgh[:, gates[1]] @ wht[gates[1]]
+                + dgh[:, gates[2]] @ wht[gates[2]])
+
+    dh = torch.zeros(b, u, dtype=torch.float32, device=samples.device)
+    cot = torch.zeros(b, n + 1, 4 * u + 1, dtype=torch.float32, device=samples.device)
+    for i in reversed(range(n)):
+        r, z, c, ghc = replay.gates[:, i].split(u, dim=1)
+        hp = replay.rows[:, i, :u]  # h_{i-1}, zero at i = 0
+        d1 = g * (s[:, i] - replay.p1[:, i])
+        dht = dh + hwd * d1[:, None]
+        dz = dht * (hp - c)
+        dc = dht * (1.0 - z)
+        dac = dc * (1.0 - c * c)
+        dr = dac * ghc
+        dar = dr * r * (1.0 - r)
+        daz = dz * z * (1.0 - z)
+        dgh = torch.cat([dar, daz, dac * r], dim=1)
+        cot[:, i, : 4 * u] = torch.cat([dgh, dac], dim=1)
+        cot[:, i + 1, 4 * u] = d1
+        if i > 0:
+            acc = part(dgh, 0)
+            for k in range(1, SLICES):
+                acc = acc + part(dgh, k)
+            dh = dht * z + acc
+    return Reverse(cot)
+
+
+def weight_cotangent_plain(replay: Replay, rev: Reverse,
+                           chunk_rows: int = CHUNK_ROWS) -> Tuple[torch.Tensor, ...]:
+    """Stage c: G = A^T C over the B (N + 1) rows (b, n), n = 0..N, of
+    ``replay.rows`` (A) and ``rev.cot`` (C), summed over chunks of
+    ``chunk_rows`` rows in chunk order; returns the six weight gradients
+    read off G."""
+    u = replay.gates.shape[2] // 4
+    a = replay.rows.reshape(-1, u + 3)
+    c = rev.cot.reshape(-1, 4 * u + 1)
+    g_sum = torch.zeros(u + 3, 4 * u + 1, dtype=torch.float32, device=a.device)
+    for start in range(0, a.shape[0], chunk_rows):
+        g_sum = g_sum + a[start : start + chunk_rows].T @ c[start : start + chunk_rows]
+    dwh, dbh = g_sum[:u, : 3 * u], g_sum[u, : 3 * u]
+    dbx = torch.cat([g_sum[u, : 2 * u], g_sum[u, 3 * u : 4 * u]])
+    dwx = torch.cat([g_sum[u + 1 :, : 2 * u], g_sum[u + 1 :, 3 * u : 4 * u]], dim=1)
+    head = g_sum[: u + 1, 4 * u]
+    dhw = torch.stack([-head[:u], head[:u]], dim=1)
+    dhb = torch.stack([-head[u], head[u]])
+    return dwx, dwh, dbx, dbh, dhw, dhb
+
+
+def log_prob_bwd_stages_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
+    """The three stages with tensor ops: (gradients, Replay, Reverse)."""
+    replay = replay_plain(weights, samples)
+    rev = reverse_plain(weights, samples, g, replay)
+    return weight_cotangent_plain(replay, rev), replay, rev
+
+
+def log_prob_bwd_staged_plain(weights: Weights, samples: torch.Tensor,
+                              g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The VJP by the kernel's three stages, in its reduction order."""
+    return log_prob_bwd_stages_plain(weights, samples, g)[0]
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def gru_log_prob_bwd(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
+                     replay: Optional[Replay] = None) -> Tuple[torch.Tensor, ...]:
     """Gradients of sum(g * log p(samples)) for the six weights, in their
-    shapes."""
+    shapes.  ``replay``: K1's stored replay of these weights and samples
+    (``fused_gru.gru_log_prob(..., store=True)``), which saves stage a."""
     if is_cpu_call(samples, g, *weights):
         return tuple(log_prob_bwd_plain(weights, samples, g))
+    return _launch(weights, samples, g, replay)[0]
+
+
+def gru_log_prob_bwd_stages(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
+    """K2 with its stages' outputs, for the checks: (gradients, Replay,
+    Reverse); on CPU tensors the staged plain version's."""
+    if is_cpu_call(samples, g, *weights):
+        return log_prob_bwd_stages_plain(weights, samples, g)
+    return _launch(weights, samples, g, None)
+
+
+def _launch(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
+            replay: Optional[Replay]):
     u = check_weights(weights)
     b, n = check_samples(samples)
     check_supported(n, u, samples.device)
@@ -39,24 +177,35 @@ def gru_log_prob_bwd(weights: Weights, samples: torch.Tensor,
             f"cotangent must be a contiguous float32 ({b},) tensor; got "
             f"{tuple(g.shape)} {g.dtype}"
         )
+    if replay is None:
+        replay = launch_replay(weights, samples)
+    else:
+        shapes = ((b, n + 1, u + 3), (b, n, 4 * u), (b, n))
+        for t, shape in zip((replay.rows, replay.gates, replay.p1), shapes):
+            if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
+                    or t.device != samples.device):
+                raise ValueError(
+                    f"replay tensor {tuple(t.shape)} {t.dtype} on {t.device}; K2 takes "
+                    f"contiguous float32 {shape} on {samples.device}"
+                )
     dev = samples.device
     lib = load_library().lib
     sizes = [w.numel() for w in weights]
-    hist = torch.empty(b * n * u, dtype=torch.float32, device=dev)
-    partial = torch.empty(lib.rnnwf_gru_bwd_partial_floats(b, u), dtype=torch.float32,
+    rev = Reverse(torch.empty(b, n + 1, 4 * u + 1, dtype=torch.float32, device=dev))
+    partial = torch.empty(lib.rnnwf_gru_bwd_partial_floats(b, n, u), dtype=torch.float32,
                           device=dev)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.rnnwf_gru_log_prob_bwd(
-            samples.data_ptr(), g.data_ptr(), *[w.data_ptr() for w in weights],
-            hist.data_ptr(), partial.data_ptr(), flat.data_ptr(), b, n, u,
-            stream_of(samples),
+            samples.data_ptr(), g.data_ptr(), weights[1].data_ptr(), weights[4].data_ptr(),
+            replay.rows.data_ptr(), replay.gates.data_ptr(), replay.p1.data_ptr(),
+            rev.cot.data_ptr(), partial.data_ptr(), flat.data_ptr(),
+            b, n, u, stream_of(samples),
         )
     check(err, "rnnwf_gru_log_prob_bwd")
     gru_log_prob_bwd.launches += 1
-    return tuple(
-        part.view(w.shape) for part, w in zip(torch.split(flat, sizes), weights)
-    )
+    grads = tuple(part.view(w.shape) for part, w in zip(torch.split(flat, sizes), weights))
+    return grads, replay, rev
 
 
 gru_log_prob_bwd.launches = 0

@@ -1,22 +1,26 @@
-"""Times the flip-estimator and rollout kernels on one CUDA card, for A/B
-comparisons of kernel designs within one call:
+"""Times the GRU kernels on one CUDA card, for A/B comparisons of kernel
+designs within one call:
 
     python -m rnnwavefunctions_tpu_torch.tools.kernel_times [--label L]
 
 Run it from the root of each checkout to compare (the package is imported
-from the working directory), in turns: a, b, b, a.  At the flagship shapes
-(N=100, U=50, B=500; weights from PRNN1D/CRNNU1 seeds 1234/4321 with
-seeded noise, as ``chip_smoke.py``'s) it reports, in ms per call with CUDA
-events over 20 launches after 2 warm-ups: K3, K4, B5, B6a, B6b, K3 at
-N=1000 with B=64 (5 launches), B19 and ``torch.nn.GRU`` (cuDNN) on the
-same inputs; then K3's launches apart (base pass, suffix pass, ratio sum)
-by ``torch.profiler`` over 10 calls.  The card's name and power limit
-come first, a JSON line last.
+from the working directory; this file may also be run by path from another
+checkout's root, with that root on ``PYTHONPATH``), in turns: a, b, b, a.  At
+the flagship shapes (N=100, U=50, B=500; weights from PRNN1D/CRNNU1 seeds
+1234/4321 with seeded noise, as ``chip_smoke.py``'s) it reports, in ms per
+call with CUDA events over 20 launches after 2 warm-ups: K1, K2 and, where
+the checkout has them, K1 storing K2's replay and K2 from that replay
+(``GRULogProb``'s forward and backward); ``torch.nn.GRU`` (cuDNN) forward
+and backward on K1's trunk; K3, K4, B5, B6a, B6b, K3 at N=1000 with B=64 (5
+launches), B19 and ``torch.nn.GRU`` forward on B19's inputs; then K3's and
+K2's launches apart by ``torch.profiler`` over 10 calls.  The card's name
+and power limit come first, a JSON line last.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 
@@ -45,6 +49,28 @@ def _cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _cudnn_gru(trunk, dev) -> torch.nn.GRU:
+    """``torch.nn.GRU`` holding a trunk (wx, wh, bx, bh) in the JAX layout."""
+    gru = torch.nn.GRU(2, trunk[1].shape[0], batch_first=True).to(dev)
+    with torch.no_grad():
+        for p, src in zip((gru.weight_ih_l0, gru.weight_hh_l0, gru.bias_ih_l0, gru.bias_hh_l0),
+                          (trunk[0].T, trunk[1].T, trunk[2], trunk[3])):
+            p.copy_(src)
+    return gru
+
+
+def _profiled(fn, parts, calls: int = 10) -> dict:
+    """Device ms per call of each launch whose kernel name holds parts[label]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {label: sum(e.self_device_time_total for e in prof.key_averages()
+                       if key in e.key) / 1e3 / calls for label, key in parts.items()}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="", help="a name printed with the results")
@@ -52,10 +78,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
     import rnnwavefunctions_tpu_torch as pkg
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..ops import fused_gru, fused_jac
-    from ..ops import tfim_flip_kernel as tk
+    from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd, fused_jac
+    from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -64,13 +88,26 @@ def main() -> None:
     trunk = _model(pkg, "CRNNU1", 100, 50, 4321, dev)[:4]
     gen = torch.Generator().manual_seed(99)
     s = (torch.rand(500, 100, generator=gen) < 0.5).to(torch.int32).to(dev)
-    gru = torch.nn.GRU(2, 50, batch_first=True).to(dev)
-    with torch.no_grad():
-        for p, src in zip((gru.weight_ih_l0, gru.weight_hh_l0, gru.bias_ih_l0, gru.bias_hh_l0),
-                          (trunk[0].T, trunk[1].T, trunk[2], trunk[3])):
-            p.copy_(src)
+    g = torch.randn(500, generator=gen).to(dev)
     x0 = fused_jac.input_onehot_rows(s)
+    gru = _cudnn_gru(trunk, dev)
+    gru_k = _cudnn_gru(w[:4], dev)
+    gout = torch.randn(500, 100, 50, generator=gen).to(dev)
+
+    def cudnn_fwd_bwd():
+        gru_k(x0)[0].backward(gout)
+
     times = {
+        "K1": _cuda_ms(lambda: fused_gru.gru_log_prob(w, s)),
+        "K2": _cuda_ms(lambda: fused_gru_bwd.gru_log_prob_bwd(w, s, g)),
+    }
+    if "store" in inspect.signature(fused_gru.gru_log_prob).parameters:
+        replay = fused_gru.gru_log_prob(w, s, store=True)
+        times["K1 storing"] = _cuda_ms(lambda: fused_gru.gru_log_prob(w, s, store=True))
+        times["K2 from replay"] = _cuda_ms(
+            lambda: fused_gru_bwd.gru_log_prob_bwd(w, s, g, replay=replay))
+    times["cuDNN GRU fwd+bwd"] = _cuda_ms(cudnn_fwd_bwd)
+    times.update({
         "K3": _cuda_ms(lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4)),
         "K4": _cuda_ms(lambda: tk.tfim_flip_ratio_sum(w, s)),
         "B5": _cuda_ms(lambda: fused_gru.gru_sample(w, 500, 100, 3, 4)),
@@ -80,17 +117,18 @@ def main() -> None:
                                    reps=5),
         "B19": _cuda_ms(lambda: fused_jac.rollout_hist(trunk, s)),
         "cuDNN GRU": _cuda_ms(lambda: gru(x0)),
-    }
-    calls = 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4)
-        torch.cuda.synchronize()
-    for label, key in (("K3 base pass", "flip_base_kernel"),
-                       ("K3 suffix pass", "flip_suffix_kernel"),
-                       ("K3 ratio sum", "flip_sum_kernel")):
-        times[label] = sum(e.self_device_time_total for e in prof.key_averages()
-                           if key in e.key) / 1e3 / calls
+    })
+    split = _profiled(lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4),
+                      {"K3 base pass": "flip_base_kernel", "K3 suffix pass": "flip_suffix_kernel",
+                       "K3 ratio sum": "flip_sum_kernel"})
+    # K2's launches: this tree's stages a-c and the chunk sum, or the one
+    # warp-per-sample kernel of earlier trees
+    split.update(_profiled(lambda: fused_gru_bwd.gru_log_prob_bwd(w, s, g),
+                           {"K2 replay": "flip_base_kernel", "K2 reverse sweep": "bwd_sweep_kernel",
+                            "K2 weight cotangent": "bwd_weights_kernel",
+                            "K2 chunk sum": "sum_partials_kernel",
+                            "K2 one-warp kernel": "gru_bwd_kernel"}))
+    times.update({k: v for k, v in split.items() if v > 0})
     print(json.dumps({"label": args.label, "ms": times}))
 
 

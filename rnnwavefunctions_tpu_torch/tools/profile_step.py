@@ -33,8 +33,10 @@ in place of the CG kernel.
 plain path (``impl="plain"``) over two repeats of 5 steps (1 for
 ``chain1000``, whose plain step takes seconds); then
 ``torch.profiler`` over 20 kernel-path steps: device time per step of each
-kernel, and the device's idle share, 1 - (summed kernel time) / (wall time
-of the profiled window).
+kernel, the device's idle share, 1 - (summed kernel time) / (wall time
+of the profiled window), and the host's self CPU time per step, in all and
+for the ten largest ops (a step whose host time exceeds its device time
+leaves the card idle).
 
 ``accuracy``: ``--steps`` steps from ``--seed`` (``TrainConfig()``'s by
 default) with ``--samples`` samples per step (500), the metrics read back
@@ -152,9 +154,12 @@ def profile(model: str, marshall_sign: bool, optimizer: str) -> dict:
         trainer.run_steps(state, steps)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in device}
     busy_ms = steps * sum(per_step.values())
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
     return {
         "model": model,
         "optimizer": optimizer,
@@ -166,6 +171,8 @@ def profile(model: str, marshall_sign: bool, optimizer: str) -> dict:
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "device_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])),
+        "host_self_cpu_ms_per_step": sum(e.self_cpu_time_total for e in host) / 1e3 / steps,
+        "host_top_ms_per_step": {e.key: e.self_cpu_time_total / 1e3 / steps for e in host[:10]},
     }
 
 

@@ -48,28 +48,11 @@ def _samples(device, seed=1, n=N):
     return (torch.rand(B, n, generator=gen) < 0.5).to(torch.int32).to(device)
 
 
-@pytest.mark.parametrize("u", [16, 50])
-def test_k1_matches_plain(cuda, u):
-    w, s = _weights(u, cuda), _samples(cuda)
-    before = fused_gru.gru_log_prob.launches
-    got = fused_gru.gru_log_prob(w, s)
-    torch.testing.assert_close(got, fused_gru.log_prob_plain(w, s), atol=1e-5 * N, rtol=0)
-    assert fused_gru.gru_log_prob.launches == before + 1
-
-
-@pytest.mark.parametrize("u", [16, 50])
-def test_k2_matches_plain(cuda, u):
-    w, s = _weights(u, cuda), _samples(cuda)
-    g = torch.randn(B, generator=torch.Generator().manual_seed(2)).to(cuda)
-    for a, b in zip(fused_gru_bwd.gru_log_prob_bwd(w, s, g),
-                    fused_gru.log_prob_bwd_plain(w, s, g)):
-        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
-
-
-# the flip kernels' tile edges: one sample, a ragged 17 (a base block takes
-# 2 samples, a suffix tile 16 trajectories, a suffix block 64), the flagship
-# 500; one site (an empty suffix), two, a hundred; widths below, at and past
-# one 8-unit group, the flagship's, and the widest the GRU family admits
+# the tile edges of the GRU kernels: one sample, a ragged 17 (a base or
+# reverse-sweep block takes 2 samples, a suffix tile 16 trajectories, a
+# suffix block 64), the flagship 500; one site (an empty suffix), two, a
+# hundred; widths below, at and past one 8-unit group, the flagship's, and
+# the widest the GRU family admits
 FLIP_EDGES = [(b, n, u) for b in (1, 17, 500) for n in (1, 2, 100)
               for u in (7, 16, 50, "widest")]
 
@@ -82,6 +65,65 @@ def _flip_case(cuda, b, n, u):
     gen = torch.Generator().manual_seed(b * 1000 + n)
     s = (torch.rand(b, n, generator=gen) < 0.5).to(torch.int32).to(cuda)
     return _weights(u, cuda), s
+
+
+def _cotangent(b, device):
+    return torch.randn(b, generator=torch.Generator().manual_seed(2)).to(device)
+
+
+def _close_to_max(got, want, rel=1e-4):
+    """Within ``rel`` of the largest |want| entry (f32 recurrences and sums
+    taken in another order)."""
+    torch.testing.assert_close(got, want, atol=rel * max(1.0, float(want.abs().max())), rtol=0)
+
+
+@pytest.mark.parametrize("b,n,u", FLIP_EDGES)
+def test_k1_matches_plain(cuda, b, n, u):
+    w, s = _flip_case(cuda, b, n, u)
+    before = fused_gru.gru_log_prob.launches
+    got = fused_gru.gru_log_prob(w, s)
+    torch.testing.assert_close(got, fused_gru.log_prob_plain(w, s), atol=1e-5 * n, rtol=0)
+    assert fused_gru.gru_log_prob.launches == before + 1
+    stored = fused_gru.gru_log_prob(w, s, store=True)
+    assert torch.equal(stored.lp, got)  # the same pass, storing K2's replay
+
+
+# K2 adds bench.py's 1dtfim_n1000_s64 shape
+@pytest.mark.parametrize("b,n,u", FLIP_EDGES + [(64, 1000, 50)])
+def test_k2_matches_plain(cuda, b, n, u):
+    w, s = _flip_case(cuda, b, n, u)
+    g = _cotangent(b, cuda)
+    before = fused_gru_bwd.gru_log_prob_bwd.launches
+    got = fused_gru_bwd.gru_log_prob_bwd(w, s, g)
+    assert fused_gru_bwd.gru_log_prob_bwd.launches == before + 1
+    for a, want in zip(got, fused_gru.log_prob_bwd_plain(w, s, g)):
+        _close_to_max(a, want)
+    again = fused_gru_bwd.gru_log_prob_bwd(w, s, g)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+    # from K1's stored replay (GRULogProb's forward): the same bits
+    replay = fused_gru.gru_log_prob(w, s, store=True)
+    fused = fused_gru_bwd.gru_log_prob_bwd(w, s, g, replay=replay)
+    assert all(torch.equal(x, y) for x, y in zip(fused, got))
+    with pytest.raises(ValueError, match="replay"):
+        fused_gru_bwd.gru_log_prob_bwd(w, s, g, replay=replay._replace(p1=replay.p1[:, :-1]))
+
+
+@pytest.mark.parametrize("b,n,u", [(1, 1, 7), (17, 2, 16), (17, 100, 50), (500, 100, 50),
+                                   (17, 100, "widest"), (64, 1000, 50)])
+def test_k2_stages_match_staged_plain(cuda, b, n, u):
+    """Each stage against the staged plain version on the kernel's own
+    inputs: the replay (a), the reverse sweep (b) from the kernel's replay,
+    the weight cotangent (c) from the kernel's replay and reverse sweep."""
+    w, s = _flip_case(cuda, b, n, u)
+    g = _cotangent(b, cuda)
+    grads, replay, rev = fused_gru_bwd.gru_log_prob_bwd_stages(w, s, g)
+    want = fused_gru.replay_plain(w, s)
+    torch.testing.assert_close(replay.lp, want.lp, atol=1e-5 * n, rtol=0)
+    for name in ("rows", "gates", "p1"):
+        _close_to_max(getattr(replay, name), getattr(want, name), rel=1e-5)
+    _close_to_max(rev.cot, fused_gru_bwd.reverse_plain(w, s, g, replay).cot, rel=1e-5)
+    for a, ref in zip(grads, fused_gru_bwd.weight_cotangent_plain(replay, rev)):
+        _close_to_max(a, ref, rel=1e-5)
 
 
 @pytest.mark.parametrize("b,n,u", FLIP_EDGES)
@@ -424,12 +466,6 @@ def test_mdrnn_coverage_on_the_card(cuda):
 
 
 # ---- minSR: the jacobian sweeps B17, B19, B20 and the CG solve B21
-
-
-def _close_to_max(got, want, rel=1e-4):
-    """Within ``rel`` of the largest |want| entry (f32 recurrences and sums
-    taken in another order)."""
-    torch.testing.assert_close(got, want, atol=rel * max(1.0, float(want.abs().max())), rtol=0)
 
 
 @pytest.mark.parametrize("n,b", [(100, B), (1000, 16)], ids=["n100", "n1000"])
