@@ -40,8 +40,10 @@ Phases (each prints its time; any failure raises and exits non-zero):
    log p, B16 against B12 and B15 on its own samples, B13's draws equal to
    B16's for the same (seed, offset) and a function of it, and the sampler's
    frequencies at 2x2 over 20k draws against the exact density.
-11. The five MDRNN kernels and their plain versions timed with CUDA events,
-   and the lattice widths and unit counts the MDRNN kernels cover.
+11. The five MDRNN kernels and their plain versions timed with CUDA events;
+   B16's three launches (base pass, suffix pass, ratio sum) timed apart by
+   ``torch.profiler``; their FP32 and (B15, B16) tensor-core bounds; the
+   lattice widths and unit counts the MDRNN kernels cover.
 12. VMC training of the 2D TFIM at 3x3, Bx=3 (MDRNN2D, U=50) against exact
    diagonalization; every MDRNN kernel must have launched.
 13. 50 steps of the 2D flagship (MDRNN2D 16x16, U=50, on
@@ -67,7 +69,8 @@ Phases (each prints its time; any failure raises and exits non-zero):
    energies, which must be finite and falling; then one sample of each
    model and of CRNNU1(100, (50,)), which run B5 and B8 and not K3 or B11.
 18. The minSR kernels against their plain versions on the card: the
-   jacobian sweep B17 at N=100, U=50, B=500 (history, gate cotangents, dl1,
+   jacobian sweep B17 (K2's replay and reverse sweep with g = 1) at N=100,
+   U=50, B=500 (history, gate cotangents, dl1, read from its A and C rows,
    then the per-sample rows and log p against the plain rows) and at
    N=1000, S=64 (where the TPU kernel takes its spill variant B18); B19 and
    B20 (both parts) on B11's in-sector samples of the J1-J2 flagship model,
@@ -76,8 +79,9 @@ Phases (each prints its time; any failure raises and exits non-zero):
    the plain CG, with its relative residual beside the Cholesky solve's.
 19. The minSR kernels, their plain versions and their library yardsticks
    (``torch.nn.GRU``, i.e. cuDNN, for B19; Cholesky for B21) timed with CUDA
-   events, B19 beside cuDNN, their bounds, and the widths their kernel
-   families cover.
+   events, B19 beside cuDNN; B17's and B18's two launches (the replay, the
+   reverse sweep) timed apart by ``torch.profiler``; their bounds, and the
+   widths their kernel families cover.
 20. minSR accuracy: TFIM N=20 (PRNN1D(20, (50,)), S=500, lr 5e-2) in 50-step
    blocks until within 1e-3 of the DMRG energy, at most 600 steps; J1-J2
    N=8 (CRNNU1(8, (12,)), J1J2(8, J2=0.2), S=256, lr 5e-2, seed 7) after 80
@@ -97,7 +101,7 @@ its plain version's, its library yardstick's where one exists,
 ``bound_ms``, the least time the card could take for the work on this run's
 inputs in FP32, and ``tc_bound_ms``, that least time with the recurrent
 products on the tensor cores, for the kernels that run them there (K3, K4,
-B6a, B6b; null for the others).  The last line is ``{"ok": true,
+B6a, B6b, B15, B16; null for the others).  The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -147,9 +151,9 @@ SOURCES = {
                                  "rnnwavefunctions_tpu/ops/mdrnn_flip_kernel.py:556"),
     "B16 mdrnn_sample_and_flip_sum": ("rnnwavefunctions_tpu_torch/csrc/mdrnn_flip.cu",
                                       "rnnwavefunctions_tpu/ops/mdrnn_flip_kernel.py:594"),
-    "B17 jac_sweep": ("rnnwavefunctions_tpu_torch/csrc/fused_jac.cu",
+    "B17 jac_sweep": ("rnnwavefunctions_tpu_torch/csrc/fused_gru_bwd.cu",
                       "rnnwavefunctions_tpu/ops/fused_jac.py:525"),
-    "B18 jac_sweep N=1000": ("rnnwavefunctions_tpu_torch/csrc/fused_jac.cu",
+    "B18 jac_sweep N=1000": ("rnnwavefunctions_tpu_torch/csrc/fused_gru_bwd.cu",
                              "rnnwavefunctions_tpu/ops/fused_jac.py:559"),
     "B19 rollout_hist": ("rnnwavefunctions_tpu_torch/csrc/fused_jac.cu",
                          "rnnwavefunctions_tpu/ops/fused_jac.py:1042"),
@@ -228,6 +232,13 @@ def jac_bwd_site_flops(u: int) -> int:
     return 12 * u * u + 60 * u
 
 
+def jac_sweep_site_flops(u: int) -> int:
+    """Operations of one site of B17's function: the forward step with its
+    head, then the reverse site's one product for the recurrent cotangent
+    (the gates are kept from the forward step) and its elementwise chains."""
+    return site_flops(u, 1) + 6 * u * u + 30 * u
+
+
 def bound(flops: float, nbytes: float):
     """(bound_ms, bound_by): the larger of the operations over the FP32 peak
     and the bytes over the memory rate."""
@@ -245,6 +256,16 @@ def tc_bound(steps: int, u: int, nbytes: float) -> float:
     3xTF32 split issues each product three times; the bound counts the
     work, not the scheme."""
     t_ops = steps * (6 * u * u / TF32_FLOPS + (30 * u + 4 * u + 10) / FP32_FLOPS)
+    return 1e3 * max(t_ops, nbytes / HBM_BYTES_PER_S)
+
+
+def mdrnn_tc_bound(steps: int, u: int, nbytes: float) -> float:
+    """The least time, in ms, of the MDRNN flip kernels whose two recurrent
+    products run on the tensor cores (B15, B16; csrc/mdrnn_flip.cu) for
+    ``steps`` site steps: each step's 4U^2 operations at the TF32 peak, the
+    other 12U + 10 of ``mdrnn_site_flops`` at the FP32 peak, or the bytes
+    over the memory rate where that is larger."""
+    t_ops = steps * (4 * u * u / TF32_FLOPS + (12 * u + 10) / FP32_FLOPS)
     return 1e3 * max(t_ops, nbytes / HBM_BYTES_PER_S)
 
 
@@ -884,6 +905,10 @@ def main() -> None:
             record[name]["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
                   f"plain {record[name]['plain_ms']:.4f} ms")
+        print_launches("B16", lambda: mk.mdrnn_sample_and_flip_sum(wm, S_FLAG, NX_FLAG, NY_FLAG,
+                                                                   3, 4),
+                       {"base pass": "mdrnn_sweep_kernel", "suffix pass": "mdrnn_tc_suffix_kernel",
+                        "ratio sum": "mdrnn_flip_sum_kernel"}, calls=5)
         b_, m_, u_ = S_FLAG, ns, U_FLAG
         wb = 4 * sum(t.numel() for t in wm)
         steps_sweep = b_ * m_
@@ -907,9 +932,15 @@ def main() -> None:
         require(fused_mdrnn.supports(NX_FLAG, NY_FLAG, U_FLAG, dev), "the flagship is covered")
         for name, (flops, nbytes) in work2d.items():
             record[name]["bound_ms"], record[name]["bound_by"] = bound(flops, nbytes)
+            tc_txt = ""
+            if name.split()[0] in ("B15", "B16"):
+                record[name]["tc_bound_ms"] = mdrnn_tc_bound(steps_flip, u_, nbytes)
+                tc_txt = (f"; tensor-core bound {record[name]['tc_bound_ms']:.4f} ms, shares "
+                          f"FP32 {record[name]['bound_ms'] / record[name]['ms']:.1%}, tensor "
+                          f"cores {record[name]['tc_bound_ms'] / record[name]['ms']:.1%}")
             print(f"{name}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
                   f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}), "
-                  f"kernel {record[name]['ms']:.4f} ms")
+                  f"kernel {record[name]['ms']:.4f} ms{tc_txt}")
 
     with Phase("12 2D TFIM VMC at 3x3, Bx=3 against exact diagonalization"):
         e_exact = exact.ground_state_energy(exact.tfim2d_dense(3, 3, BX_2D))
@@ -1218,7 +1249,8 @@ def main() -> None:
     with Phase("18 minSR kernels against their plain versions (B17-B21)"):
         for name, s_in in (("B17 jac_sweep", samples), ("B18 jac_sweep N=1000", long_samples)):
             b, n = s_in.shape
-            got, want = fused_jac.jac_sweep(w, s_in), fused_jac.jac_sweep_plain(w, s_in)
+            sweeps = fused_jac.jac_sweep(w, s_in), fused_jac.jac_sweep_plain(w, s_in)
+            got, want = ((t.hist, t.dg, t.dl1) for t in sweeps)
             torch.cuda.synchronize()
             errs = [rel(a, ref) for a, ref in zip(got, want)]
             print(f"{name} (N={n}, B={b}): hist, dg, dl1 errors over their largest entry "
@@ -1232,7 +1264,9 @@ def main() -> None:
                   f"leaf's largest entry {e_rows:.3e} (tol {rel_tol:.0e}), max abs {e_abs:.3e}; "
                   f"log p max abs err {e_lp:.3e} (tol {1e-5 * n:.1e})")
             require(e_rows <= rel_tol and e_lp <= 1e-5 * n, f"{name} rows")
-            record[name]["max_abs_err"] = max(max_err(a, ref) for a, ref in zip(got, want))
+            record[name]["max_abs_err"] = max(
+                max_err(a, ref) for a, ref in zip((sweeps[0].hist, sweeps[0].dg, sweeps[0].dl1),
+                                                  (sweeps[1].hist, sweeps[1].dg, sweeps[1].dl1)))
 
         hist_k = fused_jac.rollout_hist(trunk_c, s11)
         hist_p = fused_jac.rollout_hist_plain(trunk_c, s11)
@@ -1322,6 +1356,9 @@ def main() -> None:
             lib_txt = "" if library is None else f", library {record[name]['library_ms']:.4f} ms"
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, plain "
                   f"{record[name]['plain_ms']:.4f} ms{lib_txt}")
+        for name, s_in in (("B17", samples), ("B18", long_samples)):
+            print_launches(name, lambda: fused_jac.jac_sweep(w, s_in),
+                           {"replay": "flip_base_kernel", "reverse sweep": "bwd_sweep_kernel"})
         t19, t_cudnn = record["B19 rollout_hist"]["ms"], record["B19 rollout_hist"]["library_ms"]
         print(f"B19 {t19:.4f} ms against torch.nn.GRU (cuDNN) {t_cudnn:.4f} ms in this call: "
               f"{'faster' if t19 < t_cudnn else 'slower'}, ratio {t_cudnn / t19:.2f}")
@@ -1330,7 +1367,7 @@ def main() -> None:
               f"{cuda_ms(lambda: torch.cholesky_solve(c_j[:, None], torch.linalg.cholesky(t_j)), reps=20):.4f} ms")
         b_, n_, u_ = S_FLAG, N_FLAG, U_FLAG
         w4 = 4 * sum(t.numel() for t in trunk_c)
-        jac_site = site_flops(u_, 1) + jac_bwd_site_flops(u_)
+        jac_site = jac_sweep_site_flops(u_)
         s_t = t_tfim.shape[0]
         work_minsr = {
             "B17 jac_sweep": (b_ * n_ * jac_site, 4 * b_ * n_ + w6 + 4 * b_ * n_ * (5 * u_ + 1)),

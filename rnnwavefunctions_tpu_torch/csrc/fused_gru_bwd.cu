@@ -1,9 +1,14 @@
 // K2: the VJP of sum_b g_b log p(sigma_b) with respect to every weight of a
-// single-layer GRU and its 2-logit head.
+// single-layer GRU and its 2-logit head.  Its stages a and b with g = 1,
+// without stage c's sum over samples, are B17, minSR's per-sample jacobian
+// sweep (ops/fused_jac.py): each sample's weight rows are its own A^T C.
 //
 // Replaces: rnnwavefunctions_tpu/ops/fused_gru_bwd.py::gru_log_prob_bwd
 // (_make_bwd_kernel, run_history_bptt, gru_trunk_bwd_site), the backward
-// half of the loss gradient.
+// half of the loss gradient; with stage a, rnnwavefunctions_tpu/ops/
+// fused_jac.py::jac_sweep (B17) and ::_jac_sweep_spill (B18, its spill
+// variant for long chains: here every output lies in device memory at
+// every N).
 //
 // Bound on the H100: latency.  The work is three 3U x U products per
 // (sample, site), about 2.4 GFLOP at the flagship shape (B=500, N=100,
@@ -20,8 +25,10 @@
 //      inputs) (csrc/tfim_flip.cu, Store::kGates).  GRULogProb runs it as
 //      its forward when a gradient follows, so that the backward starts at
 //      stage b.
-//   b. The reverse sweep (bwd_sweep_kernel), a block per kBwdP samples as
-//      the base pass: at each site thread (p, j) of the first kBwdP slices
+//   b. The reverse sweep (bwd_sweep_kernel), a block per P samples as
+//      the base pass (P = 2, or 1 where the batch gives fewer blocks of 2
+//      than the card has SMs, so that more SMs share a small batch's
+//      sequential sites): at each site thread (p, j) of the first P slices
 //      forms unit j's cotangents from the stored values (math in
 //      fused_gru_bwd.py:29-39; the values of site n-1 are loaded while
 //      site n computes), writes them as the row of C below and dgh =
@@ -54,7 +61,7 @@
 
 namespace rnnwf {
 
-constexpr int kBwdP = 2;          // samples per reverse-sweep block
+constexpr int kBwdP = 2;          // samples per reverse-sweep block (1 for small batches)
 static_assert(kBwdP <= kSlices, "the first slices update one sample each");
 constexpr int kChunkRows = 512;   // rows of G per stage-c block (ops/fused_gru_bwd.py)
 constexpr int kTileG = 64;        // G's tile edge
@@ -66,10 +73,10 @@ constexpr int kStage = kRowTile * kTileG / kGThreads;  // staged values per thre
 // [3U][P]; the slices' sums [slice][U32][P].
 __host__ __device__ inline int sweep_head_floats(int u) { return (u + 3) & ~3; }
 
-size_t k2_smem_bytes(int u) {
-  return sizeof(float) *
-         (sweep_head_floats(u) + 3 * u * kBwdP + kSlices * warp_round(u) * kBwdP);
+size_t sweep_smem_bytes(int u, int p) {
+  return sizeof(float) * (sweep_head_floats(u) + 3 * u * p + kSlices * warp_round(u) * p);
 }
+size_t k2_smem_bytes(int u) { return sweep_smem_bytes(u, kBwdP); }
 
 // The widest quarter of U the reverse sweep's register tiles take (U <= 128).
 constexpr int kMaxQuarter = 32;
@@ -97,10 +104,10 @@ __device__ __forceinline__ SiteValues load_site(const int32_t* samples, const fl
   return v;
 }
 
-// KQ: the quarter of U rounded up to 8 (a thread's W_h entries per gate).
-// At most kSlices x 128 threads: registers for 4 warps of each SM
-// sub-partition (16,384 / (4 x 32) = 128 a thread).
-template <int KQ>
+// KQ: the quarter of U rounded up to 8 (a thread's W_h entries per gate);
+// P: samples per block.  At most kSlices x 128 threads: registers for 4
+// warps of each SM sub-partition (16,384 / (4 x 32) = 128 a thread).
+template <int KQ, int P>
 __global__ void __launch_bounds__(kSlices * 128)
 bwd_sweep_kernel(const int32_t* __restrict__ samples, const float* __restrict__ g,
                  const float* __restrict__ wh, const float* __restrict__ hw,
@@ -111,7 +118,7 @@ bwd_sweep_kernel(const int32_t* __restrict__ samples, const float* __restrict__ 
   const int u32 = warp_round(u), rc = 4 * u + 1;
   float* hwd = smem;
   float* dgh = smem + sweep_head_floats(u);  // [q][p]
-  float* part = dgh + 3 * u * kBwdP;         // [slice][k][p]
+  float* part = dgh + 3 * u * P;         // [slice][k][p]
   for (int k = threadIdx.x; k < u; k += blockDim.x) hwd[k] = hw[2 * k + 1] - hw[2 * k];
   const int ks = threadIdx.x / u32, j = threadIdx.x - ks * u32;
   // thread (ks, j) sums W_h[j, gate U + i] dgh[gate U + i] for i in the
@@ -123,13 +130,13 @@ bwd_sweep_kernel(const int32_t* __restrict__ samples, const float* __restrict__ 
 #pragma unroll
     for (int t = 0; t < KQ; ++t)
       wq[gt][t] = j < u && t < len ? wh[static_cast<int64_t>(j) * 3 * u + gt * u + i0 + t] : 0.0f;
-  // thread (p, j) of the first kBwdP slices carries unit j of sample p; a
+  // thread (p, j) of the first P slices carries unit j of sample p; a
   // padding slot past the batch repeats the last sample and stores nothing
-  const int b = blockIdx.x * kBwdP + min(ks, kBwdP - 1);
+  const int b = blockIdx.x * P + min(ks, P - 1);
   const int b_row = min(b, b_total - 1);
   const int64_t row = static_cast<int64_t>(b_row) * n_sites;
   const int64_t arow = static_cast<int64_t>(b_row) * (n_sites + 1);
-  const bool carry = ks < kBwdP && j < u;
+  const bool carry = ks < P && j < u;
   const bool mine = carry && b < b_total;
   const float gb = g[b_row];
   if (mine) {
@@ -167,61 +174,95 @@ bwd_sweep_kernel(const int32_t* __restrict__ samples, const float* __restrict__ 
         c_row[3 * u + j] = dac;
         if (j == 0) c_row[rc + 4 * u] = dl1;  // row (b, n+1)
       }
-      dgh[j * kBwdP + ks] = dar;
-      dgh[(u + j) * kBwdP + ks] = daz;
-      dgh[(2 * u + j) * kBwdP + ks] = dgc;
+      dgh[j * P + ks] = dar;
+      dgh[(u + j) * P + ks] = daz;
+      dgh[(2 * u + j) * P + ks] = dgc;
       hz = dht * cur.z;
     }
     if (n == 0) break;
     __syncthreads();
-    // slice ks of (W_h dgh)[j] for the kBwdP samples
+    // slice ks of (W_h dgh)[j] for the P samples
     if (j < u) {
-      float a[3][kBwdP];
+      float a[3][P];
 #pragma unroll
       for (int gt = 0; gt < 3; ++gt)
 #pragma unroll
-        for (int p = 0; p < kBwdP; ++p) a[gt][p] = 0.0f;
+        for (int p = 0; p < P; ++p) a[gt][p] = 0.0f;
 #pragma unroll
       for (int t = 0; t < KQ; ++t) {
         if (t < len) {  // uniform over a warp: a warp's threads share ks
 #pragma unroll
           for (int gt = 0; gt < 3; ++gt) {
-            float d[kBwdP];
-            load_h<kBwdP>(dgh, gt * u + i0 + t, d);
+            float d[P];
+            load_h<P>(dgh, gt * u + i0 + t, d);
 #pragma unroll
-            for (int p = 0; p < kBwdP; ++p) a[gt][p] = fmaf(d[p], wq[gt][t], a[gt][p]);
+            for (int p = 0; p < P; ++p) a[gt][p] = fmaf(d[p], wq[gt][t], a[gt][p]);
           }
         }
       }
 #pragma unroll
-      for (int p = 0; p < kBwdP; ++p)
-        part[(ks * u32 + j) * kBwdP + p] = (a[0][p] + a[1][p]) + a[2][p];
+      for (int p = 0; p < P; ++p)
+        part[(ks * u32 + j) * P + p] = (a[0][p] + a[1][p]) + a[2][p];
     }
     __syncthreads();
     if (carry) {
-      float a = part[j * kBwdP + ks];
+      float a = part[j * P + ks];
 #pragma unroll
-      for (int s = 1; s < kSlices; ++s) a += part[(s * u32 + j) * kBwdP + ks];
+      for (int s = 1; s < kSlices; ++s) a += part[(s * u32 + j) * P + ks];
       dh = hz + a;
     }
     cur = nxt;
   }
 }
 
-template <int KQ>
-cudaError_t launch_sweep(const void* samples, const void* g, const void* wh, const void* hw,
-                         const float* rows, const void* gates, const void* p1, void* cot,
-                         int b_total, int n_sites, int u, cudaStream_t st) {
-  const size_t smem = k2_smem_bytes(u);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_sweep_kernel<KQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int KQ, int P>
+cudaError_t launch_sweep_p(const void* samples, const void* g, const void* wh, const void* hw,
+                           const void* rows, const void* gates, const void* p1, void* cot,
+                           int b_total, int n_sites, int u, cudaStream_t st) {
+  const size_t smem = sweep_smem_bytes(u, P);
+  cudaError_t err = cudaFuncSetAttribute(bwd_sweep_kernel<KQ, P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  bwd_sweep_kernel<KQ><<<(b_total + kBwdP - 1) / kBwdP, kSlices * warp_round(u), smem, st>>>(
+  bwd_sweep_kernel<KQ, P><<<(b_total + P - 1) / P, kSlices * warp_round(u), smem, st>>>(
       static_cast<const int32_t*>(samples), static_cast<const float*>(g),
-      static_cast<const float*>(wh), static_cast<const float*>(hw), rows,
-      static_cast<const float*>(gates), static_cast<const float*>(p1), static_cast<float*>(cot),
-      b_total, n_sites, u);
+      static_cast<const float*>(wh), static_cast<const float*>(hw),
+      static_cast<const float*>(rows), static_cast<const float*>(gates),
+      static_cast<const float*>(p1), static_cast<float*>(cot), b_total, n_sites, u);
   return cudaGetLastError();
+}
+
+template <int KQ>
+cudaError_t launch_sweep_kq(int p, const void* samples, const void* g, const void* wh,
+                            const void* hw, const void* rows, const void* gates, const void* p1,
+                            void* cot, int b_total, int n_sites, int u, cudaStream_t st) {
+  return p == 1 ? launch_sweep_p<KQ, 1>(samples, g, wh, hw, rows, gates, p1, cot, b_total,
+                                        n_sites, u, st)
+                : launch_sweep_p<KQ, kBwdP>(samples, g, wh, hw, rows, gates, p1, cot, b_total,
+                                            n_sites, u, st);
+}
+
+// Stage b: the reverse sweep writing C, with blocks of 1 sample where
+// blocks of kBwdP would leave SMs idle.
+cudaError_t launch_sweep(const void* samples, const void* g, const void* wh, const void* hw,
+                         const void* rows, const void* gates, const void* p1, void* cot,
+                         int b_total, int n_sites, int u, cudaStream_t st) {
+  const int quarter = (u + kSlices - 1) / kSlices;
+  if (quarter > kMaxQuarter) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int p = (b_total + kBwdP - 1) / kBwdP < sms ? 1 : kBwdP;
+  return quarter <= 8    ? launch_sweep_kq<8>(p, samples, g, wh, hw, rows, gates, p1, cot,
+                                              b_total, n_sites, u, st)
+         : quarter <= 16 ? launch_sweep_kq<16>(p, samples, g, wh, hw, rows, gates, p1, cot,
+                                               b_total, n_sites, u, st)
+         : quarter <= 24 ? launch_sweep_kq<24>(p, samples, g, wh, hw, rows, gates, p1, cot,
+                                               b_total, n_sites, u, st)
+                         : launch_sweep_kq<32>(p, samples, g, wh, hw, rows, gates, p1, cot,
+                                               b_total, n_sites, u, st);
 }
 
 // Offsets in the flat gradient [wx (2, 3U) | wh (U, 3U) | bx | bh | hw (U, 2) | hb (2)].
@@ -379,19 +420,10 @@ extern "C" int rnnwf_gru_log_prob_bwd(const void* samples, const void* g, const 
   // G's rows are counted in int
   const int64_t n_rows = static_cast<int64_t>(b_total) * (n_sites + 1);
   if (n_rows > INT32_MAX - kChunkRows) return static_cast<int>(cudaErrorInvalidValue);
-  const int quarter = (u + kSlices - 1) / kSlices;
-  if (quarter > kMaxQuarter) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* a_rows = static_cast<const float*>(rows);
-  cudaError_t err =
-      quarter <= 8    ? launch_sweep<8>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
-                                        n_sites, u, st)
-      : quarter <= 16 ? launch_sweep<16>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
-                                         n_sites, u, st)
-      : quarter <= 24 ? launch_sweep<24>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
-                                         n_sites, u, st)
-                      : launch_sweep<32>(samples, g, wh, hw, a_rows, gates, p1, cot, b_total,
-                                         n_sites, u, st);
+  cudaError_t err = launch_sweep(samples, g, wh, hw, rows, gates, p1, cot, b_total, n_sites,
+                                 u, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int chunks = g_chunks(b_total, n_sites);
@@ -404,4 +436,16 @@ extern "C" int rnnwf_gru_log_prob_bwd(const void* samples, const void* g, const 
   return static_cast<int>(launch_sum_partials(static_cast<const float*>(partial),
                                               static_cast<float*>(out), chunks,
                                               weight_floats_exact(u), st));
+}
+
+// Stage b alone (B17, the per-sample jacobian sweep, runs it with g = 1 and
+// reads A and C per sample): cot B*(N+1)*(4U+1) (output) from the replay's
+// rows, gates and p1.
+extern "C" int rnnwf_gru_bwd_sweep(const void* samples, const void* g, const void* wh,
+                                   const void* hw, const void* rows, const void* gates,
+                                   const void* p1, void* cot, int b_total, int n_sites, int u,
+                                   void* stream) {
+  return static_cast<int>(rnnwf::launch_sweep(samples, g, wh, hw, rows, gates, p1, cot,
+                                              b_total, n_sites, u,
+                                              static_cast<cudaStream_t>(stream)));
 }

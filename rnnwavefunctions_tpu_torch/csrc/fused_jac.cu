@@ -1,9 +1,9 @@
-// B17, B19, B20: the per-sample jacobian sweeps of minSR for a single-layer
-// GRU (the rows O of d log psi / d theta, one per sample, never reduced over
-// the batch).
+// B19 and B20: the per-sample jacobian sweeps of minSR for the cRNN's
+// single GRU layer (the rows O of d log psi / d theta, one per sample, never
+// reduced over the batch).  B17 (the pRNN's sweep) runs K2's stages a and
+// b (csrc/tfim_flip.cu, csrc/fused_gru_bwd.cu; ops/fused_jac.py).
 //
-// Replaces: rnnwavefunctions_tpu/ops/fused_jac.py::jac_sweep (B17, and its
-// HBM-streamed twin _jac_sweep_spill, B18), ::rollout_hist (B19) and
+// Replaces: rnnwavefunctions_tpu/ops/fused_jac.py::rollout_hist (B19) and
 // ::sweep_dgates (B20).
 //
 // What they compute, per sample s and site n, in sample-major layouts:
@@ -12,16 +12,13 @@
 //        reverse sweep's gate cotangents dg[p, s, n, :] = [da_r | da_z | da_c |
 //        dgh_c] (S, N, 4U): da are the cotangents of the three input
 //        pre-activations, and the recurrent ones are [da_r | da_z | dgh_c]
-//        (the two share their first 2U entries, so 4U are stored, not 6U);
-//   B17  B19, then the 2-logit head's dl1[s, n] = s_n - sigmoid(l1 - l0),
-//        which seeds B20's sweep with dout = (hw[:, 1] - hw[:, 0]) dl1.
+//        (the two share their first 2U entries, so 4U are stored, not 6U).
 // ops/fused_jac.py contracts them into the per-sample weight rows.
 //
-// Bound on the H100: latency of two sequential site sweeps per sample, as
-// for K2 (csrc/fused_gru_bwd.cu), each site a few dependent 3U x U products
-// out of shared memory; then the stores: hist and dg are 5U floats per
-// (sample, site), 50 MB at the flagship shape (S=500, N=100, U=50), 0.015 ms
-// at the memory rate.
+// Bound on the H100: latency of the sequential site sweeps per sample, each
+// site a few dependent 3U x U products; then the stores: hist and dg are
+// 5U floats per (sample, site) and part, 50 MB at the flagship shape (S=500,
+// N=100, U=50), 0.015 ms at the memory rate.
 //
 // B19's forward replay alone is bound by the latency of N dependent sites
 // per sample.  It is built as K3's base pass (csrc/tfim_flip.cu): a block
@@ -30,17 +27,13 @@
 // first kRollP slices update one sample each, two barriers per site, and
 // h_n stored coalesced along the sample's row.
 //
-// Design of B17 and B20: K2 without its batch reduction.  One warp per
-// trajectory, four warps per block, the weights in shared memory.  The
-// forward replay stores h_n to hist in device memory; the reverse sweep
-// reads h_{n-1} back (from L2), recomputes the gates and stores each site's
-// cotangents instead of accumulating weight cotangents, so no block waits on
-// another and nothing is summed across samples.  Every output lies in
-// device memory at every N:
-// the TPU kernel streamed history and cotangents through VMEM rings for
-// long chains (B18, "same values either way"), and this one kernel covers
-// both.  B20 runs one trajectory per (part, sample) and reads the one
-// history of its sample, where the TPU kernel copied it once per part.
+// Design of B20: K2's reverse sweep without its batch reduction, one warp
+// per trajectory, four warps per block, the weights in shared memory.  It
+// reads h_{n-1} back from B19's history (from L2), recomputes the gates and
+// stores each site's cotangents instead of accumulating weight cotangents,
+// so no block waits on another and nothing is summed across samples.  It
+// runs one trajectory per (part, sample) and reads the one history of its
+// sample, where the TPU kernel copied it once per part.
 #include "gru_common.cuh"
 
 namespace rnnwf {
@@ -49,8 +42,8 @@ constexpr int kJacWarps = 4;
 constexpr int kRollP = 2;  // samples per B19 block
 static_assert(kRollP <= kSlices, "a B19 block's first slices update one sample each");
 
-// Per-warp floats: h, hn (forward); hp, dh, zb (U each) and dgh (3U).
-__host__ __device__ inline int jac_warp_floats(int u) { return 8 * u; }
+// Per-warp floats of B20: hp, dh, zb (U each) and dgh (3U).
+__host__ __device__ inline int jac_warp_floats(int u) { return 6 * u; }
 
 size_t jac_smem_bytes(int u) {
   return sizeof(float) * (weight_floats(u) + kJacWarps * jac_warp_floats(u));
@@ -81,37 +74,6 @@ __device__ __forceinline__ Weights load_trunk(float* smem, const float* wx, cons
 __device__ __forceinline__ float input_gate(const Weights& w, int g, int col, float xr,
                                             float xs) {
   return xs * ((1.0f - xr) * w.wx[col] + xr * w.wx[g + col]) + w.bx[col];
-}
-
-// Forward replay of one trajectory from the zero state: h_n for every site
-// into h_row (N*U floats); h and hn are the warp's two U-float buffers.
-__device__ void forward_history(const Weights& w, int u, const int32_t* s_row, float* h_row,
-                                float* h, float* hn, int n_sites, int lane) {
-  const int g = 3 * u;
-  for (int j = lane; j < u; j += kWarp) h[j] = 0.0f;
-  __syncwarp();
-  for (int n = 0; n < n_sites; ++n) {
-    const float xs = n > 0 ? 1.0f : 0.0f;
-    const float xr = n > 0 ? static_cast<float>(s_row[n - 1]) : 0.0f;
-    for (int j = lane; j < u; j += kWarp) {
-      float ar = 0.0f, az = 0.0f, ac = 0.0f;
-      for (int k = 0; k < u; ++k) {
-        const float* wk = w.wh + k * g;
-        const float hk = h[k];
-        ar = fmaf(hk, wk[j], ar);
-        az = fmaf(hk, wk[u + j], az);
-        ac = fmaf(hk, wk[2 * u + j], ac);
-      }
-      const float r = sigmoidf_(input_gate(w, g, j, xr, xs) + (ar + w.bh[j]));
-      const float z = sigmoidf_(input_gate(w, g, u + j, xr, xs) + (az + w.bh[u + j]));
-      const float c = tanhf(input_gate(w, g, 2 * u + j, xr, xs) + r * (ac + w.bh[2 * u + j]));
-      const float hv = z * h[j] + (1.0f - z) * c;
-      hn[j] = hv;
-      h_row[n * u + j] = hv;
-    }
-    __syncwarp();
-    float* tmp = h; h = hn; hn = tmp;
-  }
 }
 
 // One reverse site of one trajectory.  On entry dh holds the whole cotangent
@@ -167,50 +129,6 @@ __device__ __forceinline__ void load_prev(const float* h_row, float* hp, int n, 
   for (int j = lane; j < u; j += kWarp) hp[j] = n > 0 ? h_row[(n - 1) * u + j] : 0.0f;
 }
 
-__global__ void jac_sweep_kernel(const int32_t* __restrict__ samples, const float* wx,
-                                 const float* wh, const float* bx, const float* bh,
-                                 const float* hw, const float* hb, float* __restrict__ hist,
-                                 float* __restrict__ dg, float* __restrict__ dl1, int b_total,
-                                 int n_sites, int u) {
-  extern __shared__ __align__(16) float smem[];
-  const Weights w = load_weights(smem, wx, wh, bx, bh, hw, hb, u);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int b = blockIdx.x * kJacWarps + warp;
-  if (b >= b_total) return;
-  float* h = smem + weight_floats(u) + warp * jac_warp_floats(u);
-  float* hn = h + u;
-  float* hp = hn + u;
-  float* dh = hp + u;
-  float* zb = dh + u;
-  float* dgh = zb + u;
-  const int32_t* s_row = samples + static_cast<int64_t>(b) * n_sites;
-  float* h_row = hist + static_cast<int64_t>(b) * n_sites * u;
-  float* g_row = dg + static_cast<int64_t>(b) * n_sites * 4 * u;
-  float* l_row = dl1 + static_cast<int64_t>(b) * n_sites;
-
-  forward_history(w, u, s_row, h_row, h, hn, n_sites, lane);
-  for (int j = lane; j < u; j += kWarp) dh[j] = 0.0f;
-  for (int n = n_sites - 1; n >= 0; --n) {
-    load_prev(h_row, hp, n, u, lane);
-    // head on h_n: d log p_n / d l1 = s_n - p1 = -d log p_n / d l0
-    float p0 = 0.0f, p1 = 0.0f;
-    for (int j = lane; j < u; j += kWarp) {
-      const float hc = h_row[n * u + j];
-      p0 = fmaf(hc, w.hw[2 * j], p0);
-      p1 = fmaf(hc, w.hw[2 * j + 1], p1);
-    }
-    const float l0 = warp_sum(p0) + w.hb[0];
-    const float l1 = warp_sum(p1) + w.hb[1];
-    const float d1 = static_cast<float>(s_row[n]) - sigmoidf_(l1 - l0);
-    if (lane == 0) l_row[n] = d1;
-    for (int j = lane; j < u; j += kWarp) dh[j] += (w.hw[2 * j + 1] - w.hw[2 * j]) * d1;
-    __syncwarp();
-    const float xr = n > 0 ? static_cast<float>(s_row[n - 1]) : 0.0f;
-    reverse_site(w, u, hp, xr, n > 0 ? 1.0f : 0.0f, dh, zb, dgh,
-                 g_row + static_cast<int64_t>(n) * 4 * u, lane);
-  }
-}
-
 __global__ void rollout_hist_kernel(const int32_t* __restrict__ samples, const float* wx,
                                     const float* wh, const float* bx, const float* bh,
                                     float* __restrict__ hist, int b_total, int n_sites, int u) {
@@ -253,7 +171,7 @@ __global__ void sweep_dgates_kernel(const int32_t* __restrict__ samples, const f
   const int t = blockIdx.x * kJacWarps + warp;  // trajectory = part * B + sample
   if (t >= parts * b_total) return;
   const int b = t % b_total;
-  float* hp = smem + weight_floats(u) + warp * jac_warp_floats(u) + 2 * u;
+  float* hp = smem + weight_floats(u) + warp * jac_warp_floats(u);
   float* dh = hp + u;
   float* zb = dh + u;
   float* dgh = zb + u;
@@ -280,25 +198,6 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 }
 
 }  // namespace rnnwf
-
-// hist: B*N*U floats, dg: B*N*4U, dl1: B*N (outputs, sample-major).
-extern "C" int rnnwf_jac_sweep(const void* samples, const void* wx, const void* wh,
-                               const void* bx, const void* bh, const void* hw, const void* hb,
-                               void* hist, void* dg, void* dl1, int b_total, int n_sites,
-                               int u, void* stream) {
-  using namespace rnnwf;
-  const size_t smem = jac_smem_bytes(u);
-  cudaError_t err = set_smem(jac_sweep_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (b_total + kJacWarps - 1) / kJacWarps;
-  jac_sweep_kernel<<<blocks, kJacWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(samples), static_cast<const float*>(wx),
-      static_cast<const float*>(wh), static_cast<const float*>(bx),
-      static_cast<const float*>(bh), static_cast<const float*>(hw),
-      static_cast<const float*>(hb), static_cast<float*>(hist), static_cast<float*>(dg),
-      static_cast<float*>(dl1), b_total, n_sites, u);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // hist: B*N*U floats (output).
 extern "C" int rnnwf_rollout_hist(const void* samples, const void* wx, const void* wh,

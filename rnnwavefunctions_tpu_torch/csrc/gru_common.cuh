@@ -6,10 +6,11 @@
 // memory in exactly this order, so the gradient kernel can accumulate into a
 // buffer of the same layout and hand back one flat weight-shaped vector.
 //
-// Work split (the cRNN kernels, B17, B20): one warp advances T trajectories
+// Work split (the cRNN kernels, B20): one warp advances T trajectories
 // (samples, or exchanged-sample suffixes) through one site at a time; the
-// latency kernels' block-wide split (K1, K2's replay and reverse sweep, B5,
-// B19, K3's base pass) is slice_product below, and the flip suffixes run on
+// latency kernels' block-wide split (K1, K2's replay and reverse sweep, which
+// B17 runs too, B5, B19, K3's base pass) is slice_product below, and the
+// flip suffixes run on
 // the tensor cores (csrc/tfim_flip.cu).  Lane j owns
 // hidden units j, j+32, ...; the hidden state of the warp's T trajectories
 // sits in shared memory as h[k*T + t], so one (broadcast) load of h[k]
@@ -45,10 +46,10 @@ __host__ __device__ inline int weight_floats_exact(int u) {
 
 // Dynamic shared memory of each kernel at width u, defined beside the kernel
 // and used both by its launch and by rnnwf_fits_shared_memory.
-size_t k2_smem_bytes(int u);       // K2's reverse sweep and weight cotangent
+size_t k2_smem_bytes(int u);       // K2's reverse sweep (also B17's) and weight cotangent
 size_t flip_base_smem_bytes(int u);
 size_t flip_suffix_smem_bytes(int u);
-size_t jac_smem_bytes(int u);      // B17, B20 (csrc/fused_jac.cu)
+size_t jac_smem_bytes(int u);      // B20 (csrc/fused_jac.cu)
 size_t rollout_smem_bytes(int u);  // B19 (csrc/fused_jac.cu)
 
 struct Weights {

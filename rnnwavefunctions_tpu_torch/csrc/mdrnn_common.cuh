@@ -35,7 +35,11 @@ __host__ __device__ inline int mdrnn_weight_floats(int u) {
 // used both by its launch and by rnnwf_fits_shared_memory.
 size_t mdrnn_sweep_smem_bytes(int nx, int u);
 size_t mdrnn_bwd_smem_bytes(int nx, int u);
-size_t mdrnn_suffix_smem_bytes(int nx, int u, int warps);
+// The suffix pass (mdrnn_flip.cu), kSuffixTraj trajectories per block.
+// Its row buffers are in device memory, so its shared memory does not
+// depend on Nx.
+constexpr int kSuffixTraj = 32;
+size_t mdrnn_suffix_smem_bytes(int u);
 
 // The seven weight tensors as device pointers, in the layout order.
 struct MWeightPtrs {

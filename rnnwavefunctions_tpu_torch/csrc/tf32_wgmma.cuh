@@ -1,0 +1,222 @@
+// Warpgroup products on the tensor cores in TF32, made float32-accurate by
+// the 3xTF32 split, for the flip suffix passes: K3/K4/B6 (csrc/tfim_flip.cu)
+// and B15/B16 (csrc/mdrnn_flip.cu).
+//
+// Each operand x = hi + lo, with hi = x with its low 13 mantissa bits
+// cleared and lo = (x - hi) cleared the same way; a k-step of 8 takes
+// lo.hi, then hi.lo, then hi.hi into float32 accumulators.  A (64 rows per
+// tile, the weights) comes from registers in the m16n8k8 A-fragment order
+// of each warp's 16 rows, loaded per k-step from a fragment table in
+// [k-step][tile][warp][lane][4] order and split there; B (8 rows of K per
+// k-step, N columns) from shared memory in wgmma's core-matrix layout
+// without swizzle, in two parts: the value itself, whose TF32 part the
+// tensor cores read, and its remainder lo.  The accumulators of tile m sit
+// in d[m]: d[m][4 cb + 2 rh + v] is row 16 warp + g + 8 rh, column
+// 8 cb + 2 t + v, for lane = 4 g + t.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rnnwf {
+
+constexpr int kGateRows = 64;  // rows per wgmma tile (its M)
+
+__host__ __device__ inline int pad8(int u) { return (u + 7) & ~7; }
+__host__ __device__ inline int pad64(int u) {
+  return (u + kGateRows - 1) / kGateRows * kGateRows;
+}
+
+// x = hi + lo, each a TF32 value (the low 13 of float32's 23 mantissa bits
+// cleared): hi is x cut to TF32, lo the rest cut the same way.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// The remainder lo of split_tf32, as a float.
+__device__ __forceinline__ float tf32_lo(float x) {
+  uint32_t hi, lo;
+  split_tf32(x, hi, lo);
+  return __uint_as_float(lo);
+}
+
+// Shared-memory matrix descriptor of wgmma for a K-major operand without
+// swizzle: start address, the byte step between 8 x 16-byte core matrices
+// along K (lbo) and along the 8-row groups (sbo).
+__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// Offset of (column n, row k) of a B operand of K extent kp: 8 x 4 core
+// matrices, contiguous along k (lbo = 128 bytes), groups of 8 columns
+// kp * 8 floats apart (sbo = kp * 32 bytes).
+__device__ __forceinline__ int state_at(int n, int k, int kp) {
+  return (n >> 3) * (kp * 8) + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// d += a . b for the warpgroup's 64 x N tile: a (64 x 8, TF32) in
+// registers, the m16n8k8 A fragment of each warp's 16 rows; b (8 x N) in
+// shared memory; d as the m16n8 accumulators of each warp's rows for the
+// N / 8 column blocks.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  static_assert(N == 32, "wgmma_tf32 takes N = 32");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Keeps the compiler from moving an access to r across an asynchronous
+// wgmma that reads or writes it.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// The A fragments of k-step ks for the MT tiles, one 16-byte load per tile
+// from the fragment table, split in registers.
+template <int MT>
+__device__ __forceinline__ void load_a(const float* wfrag, int ks, int warp, int lane,
+                                       uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const float4 a =
+        reinterpret_cast<const float4*>(wfrag)[((ks * MT + m) * 4 + warp) * 32 + lane];
+    split_tf32(a.x, hi[m][0], lo[m][0]);
+    split_tf32(a.y, hi[m][1], lo[m][1]);
+    split_tf32(a.z, hi[m][2], lo[m][2]);
+    split_tf32(a.w, hi[m][3], lo[m][3]);
+  }
+}
+
+// One k-step's three products for the MT tiles as one wgmma group: lo.hi,
+// then hi.lo, then hi.hi.  b_hi / b_lo: the two parts of B, sbo the byte
+// step between its 8-column groups.
+template <int MT, int N>
+__device__ __forceinline__ void issue_k_step(float (&d)[MT][N / 2], const uint32_t (&hi)[MT][4],
+                                             const uint32_t (&lo)[MT][4], const float* b_hi,
+                                             const float* b_lo, uint32_t sbo, int ks) {
+  const uint64_t dhi = smem_desc(b_hi + ks * 64, 128, sbo);
+  const uint64_t dlo = smem_desc(b_lo + ks * 64, 128, sbo);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int m = 0; m < MT; ++m) wgmma_tf32<N>(d[m], lo[m], dhi);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) wgmma_tf32<N>(d[m], hi[m], dlo);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) wgmma_tf32<N>(d[m], hi[m], dhi);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most kPending wgmma groups are pending; the fragments of
+// the groups that finished stay live up to here.
+template <int kPending, int MT>
+__device__ __forceinline__ void wait_groups(uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { pin(hi[m][i]); pin(lo[m][i]); }
+}
+
+template <int MT, int N>
+__device__ __forceinline__ void pin_all(float (&d)[MT][N / 2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) pin(d[m][i]);
+}
+
+// d += A . B over the k-steps [ks0, ks1) (at least one), whole warpgroup,
+// the A fragments loaded from the table per k-step: k-steps in pairs with
+// two fragment sets, so that the loads of one k-step overlap the previous
+// k-step's products.  after_issue() runs once, while the first k-step's
+// products are in flight.  Returns with every product done and d readable.
+template <int MT, int N, typename AfterIssue>
+__device__ __forceinline__ void product_k_steps(float (&d)[MT][N / 2], const float* wfrag,
+                                                const float* b_hi, const float* b_lo,
+                                                uint32_t sbo, int ks0, int ks1, int warp,
+                                                int lane, AfterIssue&& after_issue) {
+  uint32_t hi0[MT][4], lo0[MT][4], hi1[MT][4] = {}, lo1[MT][4] = {};
+  load_a<MT>(wfrag, ks0, warp, lane, hi0, lo0);
+  for (int ks = ks0; ks < ks1; ks += 2) {
+    issue_k_step<MT, N>(d, hi0, lo0, b_hi, b_lo, sbo, ks);
+    if (ks == ks0) after_issue();
+    if (ks + 1 < ks1) {
+      wait_groups<1, MT>(hi1, lo1);
+      load_a<MT>(wfrag, ks + 1, warp, lane, hi1, lo1);
+      issue_k_step<MT, N>(d, hi1, lo1, b_hi, b_lo, sbo, ks + 1);
+    }
+    if (ks + 2 < ks1) {
+      wait_groups<1, MT>(hi0, lo0);
+      load_a<MT>(wfrag, ks + 2, warp, lane, hi0, lo0);
+    }
+  }
+  wait_groups<0, MT>(hi0, lo0);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { pin(hi1[m][i]); pin(lo1[m][i]); }
+  pin_all<MT, N>(d);
+}
+
+// The A fragments of k-steps 0..KA-1 from the table, split, to be held in
+// registers for a whole kernel (those past ks_n zero).
+template <int KA, int MT>
+__device__ __forceinline__ void load_a_all(const float* wfrag, int ks_n, int warp, int lane,
+                                           uint32_t (&hi)[KA][MT][4], uint32_t (&lo)[KA][MT][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KA; ++ks) {
+    if (ks < ks_n) {
+      load_a<MT>(wfrag, ks, warp, lane, hi[ks], lo[ks]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) { hi[ks][m][i] = 0u; lo[ks][m][i] = 0u; }
+    }
+  }
+}
+
+// d += A . B over the k-steps [ks0, ks1) (at least one, ks1 <= KA), whole
+// warpgroup, from A fragments held in registers: every k-step issued back
+// to back as one wgmma group (the accumulator chain needs no fence between
+// them), then one wait.  after_issue() runs while the products are in
+// flight.  Returns with every product done and d readable.
+template <int KA, int MT, int N, typename AfterIssue>
+__device__ __forceinline__ void product_held_a(float (&d)[MT][N / 2],
+                                               const uint32_t (&hi)[KA][MT][4],
+                                               const uint32_t (&lo)[KA][MT][4],
+                                               const float* b_hi, const float* b_lo,
+                                               uint32_t sbo, int ks0, int ks1,
+                                               AfterIssue&& after_issue) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int ks = 0; ks < KA; ++ks) {
+    if (ks >= ks0 && ks < ks1) {
+      const uint64_t dhi = smem_desc(b_hi + ks * 64, 128, sbo);
+      const uint64_t dlo = smem_desc(b_lo + ks * 64, 128, sbo);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) wgmma_tf32<N>(d[m], lo[ks][m], dhi);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) wgmma_tf32<N>(d[m], hi[ks][m], dlo);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) wgmma_tf32<N>(d[m], hi[ks][m], dhi);
+    }
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  after_issue();
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  pin_all<MT, N>(d);
+}
+
+}  // namespace rnnwf

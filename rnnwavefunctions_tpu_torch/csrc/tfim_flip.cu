@@ -69,18 +69,13 @@
 // The TPU kernel's wavefront groups, lane packing and VMEM spill rings are
 // TPU-only and have no counterpart here.
 #include "gru_common.cuh"
+#include "tf32_wgmma.cuh"
 
 namespace rnnwf {
 
 constexpr int kBaseP = 2;      // samples per base-pass block
 static_assert(kBaseP <= kSlices, "a base block's first slices update one sample each");
-constexpr int kGateRows = 64;  // gate columns per wgmma tile (its M)
 constexpr int kTraj = 32;      // trajectories per suffix block (its N)
-
-__host__ __device__ inline int pad8(int u) { return (u + 7) & ~7; }
-__host__ __device__ inline int pad64(int u) {
-  return (u + kGateRows - 1) / kGateRows * kGateRows;
-}
 // The slices' threads and the bookkeeping warp.
 __host__ __device__ inline int base_threads(int u) { return kSlices * warp_round(u) + kWarp; }
 
@@ -281,97 +276,6 @@ __global__ void flip_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
   }
 }
 
-// x = hi + lo, each a TF32 value (the low 13 of float32's 23 mantissa bits
-// cleared): hi is x cut to TF32, lo the rest cut the same way.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// Shared-memory matrix descriptor of wgmma for a K-major operand without
-// swizzle: start address, the byte step between 8 x 16-byte core matrices
-// along K (lbo) and along the 8-row groups (sbo).
-__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
-}
-
-// d += a . b for the warpgroup's 64 x kTraj tile: a (64 x 8, TF32) in
-// registers, the m16n8k8 A fragment of each warp's 16 rows; b (8 x kTraj)
-// in shared memory; d as the m16n8 accumulators of each warp's rows for
-// the four 8-column blocks.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// Keeps the compiler from moving an access to r across an asynchronous
-// wgmma that reads or writes it.
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-// Offset of (trajectory n, unit k) in a state buffer: 8 x 4 core matrices,
-// contiguous along k (lbo = 128 bytes), groups of 8 trajectories kp * 8
-// floats apart (sbo).
-__device__ __forceinline__ int state_at(int n, int k, int kp) {
-  return (n >> 3) * (kp * 8) + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
-}
-
-// The A fragments (W_h^T) of k-step ks for the MT tiles, one 16-byte load
-// per tile, split in registers.
-template <int MT>
-__device__ __forceinline__ void load_a(const float* wfrag, int ks, int warp, int lane,
-                                       uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const float4 a =
-        reinterpret_cast<const float4*>(wfrag)[((ks * MT + m) * 4 + warp) * kWarp + lane];
-    split_tf32(a.x, hi[m][0], lo[m][0]);
-    split_tf32(a.y, hi[m][1], lo[m][1]);
-    split_tf32(a.z, hi[m][2], lo[m][2]);
-    split_tf32(a.w, hi[m][3], lo[m][3]);
-  }
-}
-
-// One k-step's three products for the MT tiles as one wgmma group: lo.hi,
-// then hi.lo, then hi.hi (B = the states and their remainders at k-step ks).
-template <int MT>
-__device__ __forceinline__ void issue_k_step(float (&d)[MT][16], const uint32_t (&hi)[MT][4],
-                                             const uint32_t (&lo)[MT][4], const float* states,
-                                             int sf, int kp, int ks) {
-  const uint64_t b_hi = smem_desc(states + ks * 64, 128, kp * 32);
-  const uint64_t b_lo = smem_desc(states + sf + ks * 64, 128, kp * 32);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-  for (int m = 0; m < MT; ++m) wgmma_tf32(d[m], lo[m], b_hi);
-#pragma unroll
-  for (int m = 0; m < MT; ++m) wgmma_tf32(d[m], hi[m], b_lo);
-#pragma unroll
-  for (int m = 0; m < MT; ++m) wgmma_tf32(d[m], hi[m], b_hi);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Waits until at most N wgmma groups are pending; the fragments of the
-// groups that finished stay live up to here.
-template <int N, int MT>
-__device__ __forceinline__ void wait_groups(uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) { pin(hi[m][i]); pin(lo[m][i]); }
-}
-
 // kPerFlip: out[b, f] is the flipped configuration's log p (B6), else its
 // ratio term exp(0.5 (lpf - lp)) (K3/K4).  MG: 64-row tiles per gate, U
 // rounded up to 64 MG.
@@ -462,30 +366,8 @@ flip_suffix_kernel(const int32_t* __restrict__ samples, const float* wx, const f
 #pragma unroll
       for (int i = 0; i < 16; ++i) pin(d[m][i]);
     }
-    // k-steps in pairs, two fragment sets: the loads of one k-step overlap
-    // the previous k-step's products
-    uint32_t hi0[MT][4], lo0[MT][4], hi1[MT][4] = {}, lo1[MT][4] = {};
-    load_a<MT>(wfrag, 0, warp, lane, hi0, lo0);
-    for (int ks = 0; ks < ks_n; ks += 2) {
-      issue_k_step<MT>(d, hi0, lo0, states, sf, kp, ks);
-      if (ks + 1 < ks_n) {
-        wait_groups<1, MT>(hi1, lo1);
-        load_a<MT>(wfrag, ks + 1, warp, lane, hi1, lo1);
-        issue_k_step<MT>(d, hi1, lo1, states, sf, kp, ks + 1);
-      }
-      if (ks + 2 < ks_n) {
-        wait_groups<1, MT>(hi0, lo0);
-        load_a<MT>(wfrag, ks + 2, warp, lane, hi0, lo0);
-      }
-    }
-    wait_groups<0, MT>(hi0, lo0);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) { pin(hi1[m][i]); pin(lo1[m][i]); }
-#pragma unroll
-      for (int i = 0; i < 16; ++i) pin(d[m][i]);
-    }
+    product_k_steps<MT, kTraj>(d, wfrag, states, states + sf, kp * 32, 0, ks_n, warp, lane,
+                               [] {});
     // the gate update on the accumulators: the r, z, c of a unit are the
     // same register of tiles mg, MG + mg, 2 MG + mg
     float q0[8], q1[8];

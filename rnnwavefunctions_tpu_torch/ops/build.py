@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _EXCHANGE = ([_P, _U, _U] + [_P] * 13 + [_I] * 4 + [_F, _F, _I, _I, _P], _I)
 # C entry points: name -> (argument types, result type); pointers and the
 # stream go as void*, and the launches return a CUDA error code
@@ -41,7 +42,8 @@ SIGNATURES = {
     "rnnwf_gru_log_prob": ([_P] * 8 + [_I, _I, _I, _P], _I),
     "rnnwf_gru_replay": ([_P] * 11 + [_I, _I, _I, _P], _I),
     "rnnwf_gru_log_prob_bwd": ([_P] * 10 + [_I, _I, _I, _P], _I),
-    "rnnwf_gru_bwd_partial_floats": ([_I, _I, _I], ctypes.c_longlong),
+    "rnnwf_gru_bwd_partial_floats": ([_I, _I, _I], _LL),
+    "rnnwf_gru_bwd_sweep": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "rnnwf_tfim_flip_ratio_sum": ([_P] * 13 + [_I, _I, _I, _P], _I),
     "rnnwf_tfim_sample_and_flip_sum": ([_U, _U] + [_P] * 13 + [_I, _I, _I, _P], _I),
     "rnnwf_tfim_flip_log_probs": ([_P] * 12 + [_I, _I, _I, _P], _I),
@@ -49,7 +51,7 @@ SIGNATURES = {
     "rnnwf_gru_sample": ([_U, _U] + [_P] * 8 + [_I, _I, _I, _P], _I),
     "rnnwf_crnn_log_amp_parts": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "rnnwf_crnn_log_amp_bwd": ([_P] * 14 + [_I] * 4 + [_P], _I),
-    "rnnwf_crnn_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
+    "rnnwf_crnn_bwd_partial_floats": ([_I, _I], _LL),
     "rnnwf_j1j2_num_bonds": ([_I, _I, _I], _I),
     "rnnwf_j1j2_exchange_offdiag": _EXCHANGE,
     "rnnwf_j1j2_sample_and_exchange": _EXCHANGE,
@@ -57,10 +59,10 @@ SIGNATURES = {
     "rnnwf_mdrnn_log_prob": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_sample": ([_U, _U] + [_P] * 9 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_log_prob_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),
-    "rnnwf_mdrnn_bwd_partial_floats": ([_I, _I], ctypes.c_longlong),
-    "rnnwf_mdrnn_flip_ratio_sum": ([_P] * 13 + [_I] * 4 + [_P], _I),
-    "rnnwf_mdrnn_sample_and_flip_sum": ([_U, _U] + [_P] * 13 + [_I] * 4 + [_P], _I),
-    "rnnwf_jac_sweep": ([_P] * 10 + [_I] * 3 + [_P], _I),
+    "rnnwf_mdrnn_bwd_partial_floats": ([_I, _I], _LL),
+    "rnnwf_mdrnn_flip_ratio_sum": ([_P] * 14 + [_LL] + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_sample_and_flip_sum": ([_U, _U] + [_P] * 14 + [_LL] + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_suffix_scratch_floats": ([_I] * 4 + [ctypes.POINTER(_LL)], _I),
     "rnnwf_rollout_hist": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "rnnwf_sweep_dgates": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "rnnwf_sr_cg_solve": ([_P] * 4 + [_I, _I, _P], _I),

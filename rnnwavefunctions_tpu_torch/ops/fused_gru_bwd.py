@@ -167,8 +167,10 @@ def gru_log_prob_bwd_stages(weights: Weights, samples: torch.Tensor, g: torch.Te
     return _launch(weights, samples, g, None)
 
 
-def _launch(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
-            replay: Optional[Replay]):
+def _checked(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
+             replay: Optional[Replay]) -> Tuple[int, int, int, Replay]:
+    """(B, N, U, replay) after the argument checks of stages b and c; runs
+    stage a when no replay is handed over."""
     u = check_weights(weights)
     b, n = check_samples(samples)
     check_supported(n, u, samples.device)
@@ -178,16 +180,38 @@ def _launch(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
             f"{tuple(g.shape)} {g.dtype}"
         )
     if replay is None:
-        replay = launch_replay(weights, samples)
-    else:
-        shapes = ((b, n + 1, u + 3), (b, n, 4 * u), (b, n))
-        for t, shape in zip((replay.rows, replay.gates, replay.p1), shapes):
-            if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
-                    or t.device != samples.device):
-                raise ValueError(
-                    f"replay tensor {tuple(t.shape)} {t.dtype} on {t.device}; K2 takes "
-                    f"contiguous float32 {shape} on {samples.device}"
-                )
+        return b, n, u, launch_replay(weights, samples)
+    shapes = ((b, n + 1, u + 3), (b, n, 4 * u), (b, n))
+    for t, shape in zip((replay.rows, replay.gates, replay.p1), shapes):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != samples.device):
+            raise ValueError(
+                f"replay tensor {tuple(t.shape)} {t.dtype} on {t.device}; K2 takes "
+                f"contiguous float32 {shape} on {samples.device}"
+            )
+    return b, n, u, replay
+
+
+def launch_reverse(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
+                   replay: Optional[Replay] = None) -> Tuple[Replay, Reverse]:
+    """Stages a (unless ``replay`` is given) and b alone on CUDA tensors:
+    (Replay, Reverse).  B17 runs it with g = 1 (``fused_jac.jac_sweep``;
+    the caller counts the launch)."""
+    b, n, u, replay = _checked(weights, samples, g, replay)
+    rev = Reverse(torch.empty(b, n + 1, 4 * u + 1, dtype=torch.float32, device=samples.device))
+    with torch.cuda.device(samples.device):
+        err = load_library().lib.rnnwf_gru_bwd_sweep(
+            samples.data_ptr(), g.data_ptr(), weights[1].data_ptr(), weights[4].data_ptr(),
+            replay.rows.data_ptr(), replay.gates.data_ptr(), replay.p1.data_ptr(),
+            rev.cot.data_ptr(), b, n, u, stream_of(samples),
+        )
+    check(err, "rnnwf_gru_bwd_sweep")
+    return replay, rev
+
+
+def _launch(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
+            replay: Optional[Replay]):
+    b, n, u, replay = _checked(weights, samples, g, replay)
     dev = samples.device
     lib = load_library().lib
     sizes = [w.numel() for w in weights]

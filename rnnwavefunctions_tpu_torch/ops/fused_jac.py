@@ -1,47 +1,83 @@
 """B17, B19, B20: the per-sample jacobian sweeps of minSR, and the
 contractions that turn their outputs into per-sample weight rows.
 
-Counterpart of ``rnnwavefunctions_tpu/ops/fused_jac.py`` for one GRU layer.
-The CUDA kernels are in ``csrc/fused_jac.cu``:
+Counterpart of ``rnnwavefunctions_tpu/ops/fused_jac.py`` for one GRU layer:
 
 * B17 ``jac_sweep`` (the JAX ``jac_sweep`` and its spill variant B18, which
-  differ only in where the TPU kernel kept its outputs): forward replay and
-  reverse sweep of a pRNN, returning ``(hist, dg, dl1)``;
-* B19 ``rollout_hist``: the forward replay alone, ``hist``;
+  differ only in where the TPU kernel kept its outputs) runs K2's replay and
+  reverse sweep (``csrc/tfim_flip.cu``, ``csrc/fused_gru_bwd.cu``) with the
+  cotangent g = 1 for every sample and without K2's sum over samples; it
+  returns ``JacSweep``: log p and the per-(sample, site) rows of K2's
+  matrices A and C, from which the JAX outputs ``(hist, dg, dl1)`` are
+  read column for column;
+* B19 ``rollout_hist``: the cRNN's forward replay alone, ``hist``;
 * B20 ``sweep_dgates``: the reverse sweep seeded by P cotangent sets on the
   hidden states (the cRNN's Re and Im parts), ``dg`` per part, one launch.
+  B19 and B20 are in ``csrc/fused_jac.cu``.
 
 Layouts are sample-major: ``hist`` (S, N, U) holds the post-step state h_n,
 ``dg`` (S, N, 4U) the gate cotangents ``[da_r | da_z | da_c | dgh_c]`` (the
 input pre-activations' ``da`` and, sharing its first 2U entries, the
 recurrent ones ``[da_r | da_z | dgh_c]``), ``dl1`` (S, N) the head's
 ``s_n - sigmoid(l1 - l0)``.  Each per-sample weight row is then one batched
-matrix product with the sample as the batch (``trunk_rows_from_sweep``),
-left to the library as the JAX package leaves them to XLA.
+matrix product with the sample as the batch (``prnn1d_rows``: A_s^T C_s;
+``trunk_rows_from_sweep`` for the cRNN), left to the library as the JAX
+package leaves them to XLA.
 
 Every wrapper runs its plain version for CPU tensors and launches its
-kernel for CUDA tensors, counting launches in ``launches``.  The plain
-versions are the same site loops written with tensor ops.
+kernels for CUDA tensors, counting calls in ``launches``.  The plain
+versions are the same site loops written with tensor ops (B17's are K2's
+staged plain stages a and b).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .build import check, load_library
 from .fused_gru import (
     CRNN_FAMILY,
-    GRU_FAMILY,
     Weights,
     check_samples,
     check_supported,
     check_weights,
     gru_layer,
     is_cpu_call,
-    logp2,
+    replay_plain,
     spin_input,
     stream_of,
 )
+from .fused_gru_bwd import launch_reverse, reverse_plain
+
+
+class JacSweep(NamedTuple):
+    """B17's output: the joint log p and K2's rows per (sample, site) with
+    g = 1, A (B, N + 1, U + 3) ``[h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]`` and
+    C (B, N + 1, 4U + 1) ``[da_r | da_z | dac r | dac | dl1_{n-1}]``
+    (``fused_gru.Replay``, ``fused_gru_bwd.Reverse``)."""
+
+    lp: torch.Tensor
+    rows: torch.Tensor
+    cot: torch.Tensor
+
+    @property
+    def hist(self) -> torch.Tensor:
+        """(B, N, U) the states h_n."""
+        return self.rows[:, 1:, : self.rows.shape[2] - 3]
+
+    @property
+    def dg(self) -> torch.Tensor:
+        """(B, N, 4U) ``[da_r | da_z | da_c | dgh_c]``, the JAX kernel's order."""
+        u = self.rows.shape[2] - 3
+        c = self.cot[:, :-1]
+        return torch.cat([c[..., : 2 * u], c[..., 3 * u : 4 * u], c[..., 2 * u : 3 * u]], dim=-1)
+
+    @property
+    def dl1(self) -> torch.Tensor:
+        """(B, N) s_n - p(s_n = 1)."""
+        return self.cot[:, 1:, -1]
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
@@ -96,16 +132,13 @@ def sweep_dgates_plain(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor
     return torch.stack(out, dim=2)
 
 
-def jac_sweep_plain(weights: Weights, samples: torch.Tensor):
-    """B17's function: ``(hist, dg, dl1)`` of the pRNN's log p.  The head's
+def jac_sweep_plain(weights: Weights, samples: torch.Tensor) -> JacSweep:
+    """B17's function, K2's plain stages a and b with g = 1: the head's
     d log p_n / d l1 = s_n - sigmoid(l1 - l0) = -d log p_n / d l0 seeds the
-    reverse sweep with ``dout = (hw[:, 1] - hw[:, 0]) dl1``."""
-    trunk, (hw, hb) = weights[:4], weights[4:]
-    hist = rollout_hist_plain(trunk, samples)
-    logits = hist @ hw + hb
-    dl1 = samples.to(torch.float32) - torch.sigmoid(logits[..., 1] - logits[..., 0])
-    dout = dl1[..., None] * (hw[:, 1] - hw[:, 0])
-    return hist, sweep_dgates_plain(trunk, samples, hist, dout[None])[0], dl1
+    reverse sweep through ``hw[:, 1] - hw[:, 0]``."""
+    replay = replay_plain(weights, samples)
+    g = torch.ones(samples.shape[0], dtype=torch.float32, device=samples.device)
+    return JacSweep(replay.lp, replay.rows, reverse_plain(weights, samples, g, replay).cot)
 
 
 # ---------------------------------------------------------------------------
@@ -113,26 +146,16 @@ def jac_sweep_plain(weights: Weights, samples: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def jac_sweep(weights: Weights, samples: torch.Tensor):
-    """B17: ``(hist (B, N, U), dg (B, N, 4U), dl1 (B, N))`` of the pRNN's
-    log p for (B, N) int32 samples and the 6-tuple of kernel weights."""
+def jac_sweep(weights: Weights, samples: torch.Tensor) -> JacSweep:
+    """B17: ``JacSweep`` of the pRNN's log p for (B, N) int32 samples and
+    the 6-tuple of kernel weights: K2's replay, then its reverse sweep with
+    g = 1."""
     if is_cpu_call(samples, *weights):
         return jac_sweep_plain(weights, samples)
-    u = check_weights(weights)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device, GRU_FAMILY)
-    dev = samples.device
-    hist = torch.empty(b, n, u, dtype=torch.float32, device=dev)
-    dg = torch.empty(b, n, 4 * u, dtype=torch.float32, device=dev)
-    dl1 = torch.empty(b, n, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = load_library().lib.rnnwf_jac_sweep(
-            samples.data_ptr(), *[w.data_ptr() for w in weights], hist.data_ptr(),
-            dg.data_ptr(), dl1.data_ptr(), b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_jac_sweep")
+    g = torch.ones(samples.shape[0], dtype=torch.float32, device=samples.device)
+    replay, rev = launch_reverse(weights, samples, g)
     jac_sweep.launches += 1
-    return hist, dg, dl1
+    return JacSweep(replay.lp, replay.rows, rev.cot)
 
 
 jac_sweep.launches = 0
@@ -222,16 +245,21 @@ def trunk_rows_from_sweep(hist: torch.Tensor, dg: torch.Tensor, x0: torch.Tensor
 
 def prnn1d_rows(weights: Weights, samples: torch.Tensor):
     """The single-layer pRNN's ``(log p (B,), per-sample rows of log p)``
-    through one B17 launch, the rows a tree ``{"rnn": [layer], "head":
-    {"w", "b"}}`` of (B, ...) leaves (the JAX package's
-    ``fused_jac.prnn1d_rows``)."""
-    hw, hb = weights[4:]
-    hist, dg, dl1 = jac_sweep(weights, samples)
-    dlogits = torch.stack([-dl1, dl1], dim=-1)  # (B, N, 2)
+    through one B17 call, the rows a tree ``{"rnn": [layer], "head": {"w",
+    "b"}}`` of (B, ...) leaves (the JAX package's ``fused_jac.prnn1d_rows``).
+    Each sample's rows are one product G_s = A_s^T C_s (U + 3, 4U + 1), read
+    as K2's stage c reads its sum over samples: rows h and 1 against
+    ``[da_r | da_z | dac r]`` give W_h and b_h, rows 1, 1 - s and s against
+    ``[da_r | da_z | dac]`` give b_x and W_x, rows h and 1 against dl1 the
+    head's second column (its first is the negative)."""
+    sweep = jac_sweep(weights, samples)
+    u = sweep.rows.shape[2] - 3
+    gm = sweep.rows.transpose(1, 2) @ sweep.cot  # (B, U + 3, 4U + 1)
+    dgh, dl1 = gm[..., : 3 * u], gm[..., 4 * u]
+    da = torch.cat([dgh[..., : 2 * u], gm[..., 3 * u : 4 * u]], dim=-1)
     rows = {
-        "rnn": [trunk_rows_from_sweep(hist, dg, input_onehot_rows(samples))],
-        "head": {"w": hist.transpose(1, 2) @ dlogits, "b": dlogits.sum(dim=1)},
+        "rnn": [{"wx": da[:, u + 1 :], "wh": dgh[:, :u], "bx": da[:, u], "bh": dgh[:, u]}],
+        "head": {"w": torch.stack([-dl1[:, :u], dl1[:, :u]], dim=-1),
+                 "b": torch.stack([-dl1[:, u], dl1[:, u]], dim=-1)},
     }
-    logits = hist @ hw + hb
-    log_prob = logp2(logits[..., 0], logits[..., 1], samples.to(torch.float32)).sum(dim=1)
-    return log_prob, rows
+    return sweep.lp, rows

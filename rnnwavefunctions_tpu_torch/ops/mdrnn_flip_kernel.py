@@ -16,13 +16,16 @@ from the base history otherwise; the flipped spin is also the vertical
 input of the site below it, one row later.
 
 The CUDA kernels are ``csrc/mdrnn_flip.cu`` (with the sweep of
-``csrc/fused_mdrnn.cu`` as base pass, sample mode on or off).  The plain
-versions below run the same base pass and recompute every flip's suffix
-explicitly, all flips of a sample side by side.
+``csrc/fused_mdrnn.cu`` as base pass, sample mode on or off; the suffix
+pass runs each site's two recurrent products as one 3xTF32 product on the
+tensor cores, its row buffers in device memory).  The plain versions below run the same base pass and
+recompute every flip's suffix explicitly, all flips of a sample side by
+side.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -119,14 +122,22 @@ def sample_and_flip_sum_plain(weights: Weights, uniforms: torch.Tensor, nx: int,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _scratch(b: int, ns: int, u: int, dev):
+def _scratch(b: int, nx: int, ny: int, u: int, dev):
+    """hist, pfx, terms, lp, ratio and the suffix pass's row buffers (sized
+    by the library)."""
+    ns = nx * ny
+    rows = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        check(load_library().lib.rnnwf_mdrnn_suffix_scratch_floats(
+            b, nx, ny, u, ctypes.byref(rows)), "rnnwf_mdrnn_suffix_scratch_floats")
     f32 = dict(dtype=torch.float32, device=dev)
     return (
-        torch.empty(b * ns * u, **f32),  # cell-output history
-        torch.empty(b * ns, **f32),      # pfx
-        torch.empty(b * ns, **f32),      # per-flip ratio terms
-        torch.empty(b, **f32),           # base log p
-        torch.empty(b, **f32),           # ratio sum
+        torch.empty(b * ns * u, **f32),            # cell-output history
+        torch.empty(b * ns, **f32),                # pfx
+        torch.empty(b * ns, **f32),                # per-flip ratio terms
+        torch.empty(b, **f32),                     # base log p
+        torch.empty(b, **f32),                     # ratio sum
+        torch.empty(rows.value, **f32),            # row buffers
     )
 
 
@@ -138,13 +149,13 @@ def mdrnn_flip_ratio_sum(weights: Weights, samples: torch.Tensor
     u = check_weights(weights)
     b, nx, ny = check_samples(samples)
     check_supported(nx, ny, u, samples.device)
-    hist, pfx, terms, lp, ratio = _scratch(b, nx * ny, u, samples.device)
+    hist, pfx, terms, lp, ratio, rows = _scratch(b, nx, ny, u, samples.device)
     lib = load_library().lib
     with torch.cuda.device(samples.device):
         err = lib.rnnwf_mdrnn_flip_ratio_sum(
             samples.data_ptr(), *weight_ptrs(weights), hist.data_ptr(), pfx.data_ptr(),
-            terms.data_ptr(), lp.data_ptr(), ratio.data_ptr(), b, nx, ny, u,
-            stream_of(samples),
+            terms.data_ptr(), lp.data_ptr(), ratio.data_ptr(), rows.data_ptr(), rows.numel(),
+            b, nx, ny, u, stream_of(samples),
         )
     check(err, "rnnwf_mdrnn_flip_ratio_sum")
     mdrnn_flip_ratio_sum.launches += 1
@@ -168,13 +179,13 @@ def mdrnn_sample_and_flip_sum(weights: Weights, num_samples: int, nx: int, ny: i
     dev = weights[0].device
     check_supported(nx, ny, u, dev)
     samples = torch.empty(num_samples, nx, ny, dtype=torch.int32, device=dev)
-    hist, pfx, terms, lp, ratio = _scratch(num_samples, nx * ny, u, dev)
+    hist, pfx, terms, lp, ratio, rows = _scratch(num_samples, nx, ny, u, dev)
     lib = load_library().lib
     with torch.cuda.device(dev):
         err = lib.rnnwf_mdrnn_sample_and_flip_sum(
             seed, offset, *weight_ptrs(weights), samples.data_ptr(), hist.data_ptr(),
-            pfx.data_ptr(), terms.data_ptr(), lp.data_ptr(), ratio.data_ptr(),
-            num_samples, nx, ny, u, stream_of(weights[0]),
+            pfx.data_ptr(), terms.data_ptr(), lp.data_ptr(), ratio.data_ptr(), rows.data_ptr(),
+            rows.numel(), num_samples, nx, ny, u, stream_of(weights[0]),
         )
     check(err, "rnnwf_mdrnn_sample_and_flip_sum")
     mdrnn_sample_and_flip_sum.launches += 1

@@ -12,9 +12,14 @@ call with CUDA events over 20 launches after 2 warm-ups: K1, K2 and, where
 the checkout has them, K1 storing K2's replay and K2 from that replay
 (``GRULogProb``'s forward and backward); ``torch.nn.GRU`` (cuDNN) forward
 and backward on K1's trunk; K3, K4, B5, B6a, B6b, K3 at N=1000 with B=64 (5
-launches), B19 and ``torch.nn.GRU`` forward on B19's inputs; then K3's and
-K2's launches apart by ``torch.profiler`` over 10 calls.  The card's name
-and power limit come first, a JSON line last.
+launches), B19 and ``torch.nn.GRU`` forward on B19's inputs; B17 and B18
+(N=1000, S=64); B15 and B16 at the MDRNN flagship (16x16, U=50, B=500,
+``MDRNN2D`` seed 2468 with ``chip_smoke.py``'s noise and halved recurrent
+matrices; 5 launches) and, where the checkout takes them, B16 at each
+suffix tile T and B17/B18 with one and two samples per reverse-sweep block;
+then K3's, K2's, B16's and B17/B18's launches apart by ``torch.profiler``
+over 10 calls (B16 over 3).  The card's name and power
+limit come first, a JSON line last.
 """
 
 from __future__ import annotations
@@ -71,6 +76,17 @@ def _profiled(fn, parts, calls: int = 10) -> dict:
                        if key in e.key) / 1e3 / calls for label, key in parts.items()}
 
 
+def _mdrnn(pkg, dev):
+    gen = torch.Generator().manual_seed(2468)
+    model = pkg.MDRNN2D(16, 16, 50, impl="kernel", device=dev).init(gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen).to(dev))
+        model.cell.wh.mul_(0.5)
+        model.cell.wv.mul_(0.5)
+    return tuple(t.detach() for t in model.weights())
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="", help="a name printed with the results")
@@ -79,6 +95,7 @@ def main() -> None:
         raise SystemExit("kernel_times needs a CUDA device")
     import rnnwavefunctions_tpu_torch as pkg
     from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd, fused_jac
+    from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
     from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -118,9 +135,27 @@ def main() -> None:
         "B19": _cuda_ms(lambda: fused_jac.rollout_hist(trunk, s)),
         "cuDNN GRU": _cuda_ms(lambda: gru(x0)),
     })
-    split = _profiled(lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4),
-                      {"K3 base pass": "flip_base_kernel", "K3 suffix pass": "flip_suffix_kernel",
-                       "K3 ratio sum": "flip_sum_kernel"})
+    s_long = (torch.rand(64, 1000, generator=gen) < 0.5).to(torch.int32).to(dev)
+    times["B17"] = _cuda_ms(lambda: fused_jac.jac_sweep(w, s))
+    times["B18"] = _cuda_ms(lambda: fused_jac.jac_sweep(w, s_long), reps=10)
+    wm = _mdrnn(pkg, dev)
+    lat = (torch.rand(500, 16, 16, generator=gen) < 0.5).to(torch.int32).to(dev)
+    times["B15"] = _cuda_ms(lambda: mk.mdrnn_flip_ratio_sum(wm, lat), reps=5)
+    times["B16"] = _cuda_ms(lambda: mk.mdrnn_sample_and_flip_sum(wm, 500, 16, 16, 3, 4), reps=5)
+    split = _profiled(lambda: mk.mdrnn_sample_and_flip_sum(wm, 500, 16, 16, 3, 4),
+                      {"B16 base pass": "mdrnn_sweep_kernel", "B16 suffix pass": "suffix_kernel",
+                       "B16 ratio sum": "mdrnn_flip_sum_kernel"}, calls=3)
+    # B17's launches: this tree's replay and reverse sweep, or the one
+    # warp-per-sample kernel of earlier trees
+    for name, s_in in (("B17", s), ("B18", s_long)):
+        split.update(_profiled(lambda: fused_jac.jac_sweep(w, s_in),
+                               {f"{name} replay": "flip_base_kernel",
+                                f"{name} reverse sweep": "bwd_sweep_kernel",
+                                f"{name} one-warp kernel": "jac_sweep_kernel"}))
+    split.update(_profiled(lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4),
+                           {"K3 base pass": "flip_base_kernel",
+                            "K3 suffix pass": "flip_suffix_kernel",
+                            "K3 ratio sum": "flip_sum_kernel"}))
     # K2's launches: this tree's stages a-c and the chunk sum, or the one
     # warp-per-sample kernel of earlier trees
     split.update(_profiled(lambda: fused_gru_bwd.gru_log_prob_bwd(w, s, g),

@@ -419,23 +419,42 @@ def test_b12_b14_match_plain(cuda, nx, ny):
         torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
 
 
-@pytest.mark.parametrize("nx,ny", MDRNN_SHAPES)
-def test_b13_b15_b16_match_plain(cuda, nx, ny):
-    w, s = _mdrnn_weights(nx, ny, 50, cuda), _lattices(nx, ny, cuda)
+# the suffix pass's tile edges: (nx, ny, U, B, scale of W_h and W_v): one
+# site to the 16x16 flagship, non-square and one-wide lattices, B=37 (not a
+# multiple of the 32 trajectories of a block), one sample and B=33, both
+# row-tile counts (U <= 64 and past it), and the widest lattice the family
+# covers.  On the two wide lattices the recurrent matrices are halved, as
+# chip_smoke.py's: at their full size the states grow along the sweep until
+# log p nears 1e12, where float32 keeps no digit of the absolute tolerance.
+MDRNN_FLIP_EDGES = [(nx, ny, 50, B, 1.0) for nx, ny in MDRNN_SHAPES + [(1, 1)]] + [
+    (4, 3, 50, 1, 1.0), (5, 4, 50, 1, 1.0), (3, 5, 50, 33, 1.0), (4, 4, 7, B, 1.0),
+    (4, 4, 100, B, 1.0), (16, 16, 50, B, 0.5), ("widest", 2, 50, 3, 0.5),
+]
+
+
+@pytest.mark.parametrize("nx,ny,u,b,scale", MDRNN_FLIP_EDGES)
+def test_b13_b15_b16_match_plain(cuda, nx, ny, u, b, scale):
+    if nx == "widest":
+        nx = max(v for v in range(1, 513) if fused_mdrnn.supports(v, ny, u, cuda))
+    w = tuple(scale * t if i in (2, 3) else t
+              for i, t in enumerate(_mdrnn_weights(nx, ny, u, cuda)))
+    s = (torch.rand(b, nx, ny, generator=torch.Generator().manual_seed(1)) < 0.5).to(
+        torch.int32).to(cuda)
     tol = 1e-5 * nx * ny
     ratio, lp = mk.mdrnn_flip_ratio_sum(w, s)
     ratio_p, lp_p = mk.flip_ratio_sum_plain(w, s)
     torch.testing.assert_close(ratio, ratio_p, rtol=1e-4, atol=0)
     torch.testing.assert_close(lp, lp_p, atol=tol, rtol=0)
-    s13, lp13 = fused_mdrnn.mdrnn_sample(w, B, nx, ny, 3, 5)
-    s16, lp16, ratio16 = mk.mdrnn_sample_and_flip_sum(w, B, nx, ny, 3, 5)
-    assert s16.shape == (B, nx, ny) and bool(((s16 == 0) | (s16 == 1)).all())
+    assert torch.equal(mk.mdrnn_flip_ratio_sum(w, s)[0], ratio)
+    s13, lp13 = fused_mdrnn.mdrnn_sample(w, b, nx, ny, 3, 5)
+    s16, lp16, ratio16 = mk.mdrnn_sample_and_flip_sum(w, b, nx, ny, 3, 5)
+    assert s16.shape == (b, nx, ny) and bool(((s16 == 0) | (s16 == 1)).all())
     assert torch.equal(s13, s16)
     torch.testing.assert_close(lp13, fused_mdrnn.log_prob_plain(w, s13), atol=tol, rtol=0)
     torch.testing.assert_close(lp16, lp13, atol=0, rtol=0)
     torch.testing.assert_close(ratio16, mk.flip_ratio_sum_plain(w, s16)[0], rtol=1e-4, atol=0)
-    again, _, _ = mk.mdrnn_sample_and_flip_sum(w, B, nx, ny, 3, 5)
-    assert torch.equal(again, s16)
+    again, _, ratio_again = mk.mdrnn_sample_and_flip_sum(w, b, nx, ny, 3, 5)
+    assert torch.equal(again, s16) and torch.equal(ratio_again, ratio16)
 
 
 def test_mdrnn_training_step_runs_b12_b14_b16(cuda):
@@ -468,21 +487,30 @@ def test_mdrnn_coverage_on_the_card(cuda):
 # ---- minSR: the jacobian sweeps B17, B19, B20 and the CG solve B21
 
 
-@pytest.mark.parametrize("n,b", [(100, B), (1000, 16)], ids=["n100", "n1000"])
-def test_b17_matches_plain(cuda, n, b):
-    """B17 at the flagship chain length and at N=1000, where the TPU kernel
-    takes its spill variant B18; then the rows and log p through it."""
+@pytest.mark.parametrize("b,n", [(b, n) for b in (1, 3, 64, 500) for n in (1, 2, 100, 1000)])
+def test_b17_matches_plain(cuda, b, n):
+    """B17 (K2's replay and reverse sweep with g = 1) at one sample, a
+    ragged 3, the N=1000 chain's 64 and the flagship 500, over one site, two,
+    the flagship chain and N=1000, where the TPU kernel takes its spill
+    variant B18 (the sweep takes one sample per block below B=264 on an
+    H100, two at B=500); then the rows and log p through it, the rows
+    against the plain ones up to N=100."""
     w = _weights(50, cuda)
     s = (torch.rand(b, n, generator=torch.Generator().manual_seed(3)) < 0.5).to(
         torch.int32).to(cuda)
     before = fused_jac.jac_sweep.launches
     got = fused_jac.jac_sweep(w, s)
     assert fused_jac.jac_sweep.launches == before + 1
-    for a, ref in zip(got, fused_jac.jac_sweep_plain(w, s)):
+    want = fused_jac.jac_sweep_plain(w, s)
+    for a, ref in zip((got.hist, got.dg, got.dl1), (want.hist, want.dg, want.dl1)):
         _close_to_max(a, ref)
     lp, rows = fused_jac.prnn1d_rows(w, s)
     torch.testing.assert_close(lp, fused_gru.log_prob_plain(w, s), atol=1e-5 * n, rtol=0)
     assert rows["rnn"][0]["wh"].shape == (b, 50, 150) and rows["head"]["w"].shape == (b, 50, 2)
+    if n <= 100:  # the plain rows on the CPU
+        _, rows_p = fused_jac.prnn1d_rows(tuple(t.cpu() for t in w), s.cpu())
+        for a, ref in zip(interop.tree_leaves(rows), interop.tree_leaves(rows_p)):
+            _close_to_max(a.cpu(), ref)
 
 
 @pytest.mark.parametrize("b,u", [(b, u) for b in (1, 5, 500) for u in (12, 50)])

@@ -125,11 +125,13 @@ def test_mdrnn_rows_match_jax(nx, ny):
                        jjacobian.log_amp_rows(jans, params, jnp.asarray(s)))
 
 
-def test_b17_plain_matches_pallas_interpret():
-    """B17's plain version against the JAX kernel in interpret mode, output
-    by output (the JAX layouts are feature-major, the port's sample-major),
-    then the rows and log p of prnn1d_rows on an odd batch."""
-    n, b = 6, 5
+@pytest.mark.parametrize("n,b", [(1, 4), (6, 5), (100, 3)], ids=["n1", "odd-b", "long"])
+def test_b17_plain_matches_pallas_interpret(n, b):
+    """B17's plain version (K2's plain replay and reverse sweep with g = 1)
+    against the JAX kernel in interpret mode, output by output: the JAX
+    layouts are feature-major, the port's A and C rows are read column for
+    column as (hist, dg, dl1); then the rows and log p of prnn1d_rows (one
+    product A_s^T C_s per sample)."""
     jans = JPRNN1D(num_sites=n, units=(U,))
     params, model = _pair(jans, PRNN1D(n, (U,), device="cpu"), seed=13)
     s = _chains(b, n, seed=14)
@@ -138,8 +140,9 @@ def test_b17_plain_matches_pallas_interpret():
         want_lp, want_rows = jfused_jac.prnn1d_rows(jans, params, jnp.asarray(s))
     w = tuple(t.detach() for t in model.weights())
     got = fused_jac.jac_sweep(w, torch.from_numpy(s))
-    for g, ref in zip(got, (np.transpose(hist, (2, 0, 1)), np.transpose(dg, (2, 0, 1)),
-                            np.asarray(dl1).T)):
+    for g, ref in zip((got.hist, got.dg, got.dl1),
+                      (np.transpose(hist, (2, 0, 1)), np.transpose(dg, (2, 0, 1)),
+                       np.asarray(dl1).T)):
         np.testing.assert_allclose(g.numpy(), ref, rtol=1e-4, atol=2e-6)
     got_lp, got_rows = fused_jac.prnn1d_rows(w, torch.from_numpy(s))
     np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp), atol=1e-5 * n)
