@@ -26,8 +26,12 @@ Phases (each prints its time; any failure raises and exits non-zero):
    (open, J2=0); B11's samples in the zero-magnetisation sector, its
    (Re, Im) log psi equal to B7's and its energies to B10's on its own
    samples, its draws a function of (seed, offset), and its frequencies at
-   N=4 over 20k draws against the exact |psi|^2.
-7. The four J1-J2 kernels and their plain versions timed with CUDA events.
+   N=4 over 20k draws against the exact |psi|^2; B10 and B11 with the mask
+   off, and at U=91 (two 64-row tiles per gate in the suffix pass).
+7. The four J1-J2 kernels and their plain versions timed with CUDA events;
+   B10's and B11's four launches (base pass, bond lists, the tensor-core
+   suffix pass, sum) timed apart by ``torch.profiler``; their FP32 and
+   (B10, B11) tensor-core bounds.
 8. VMC training of J1-J2 at N=10, J2=0.2, Marshall sign on (500 steps)
    against exact diagonalization; every J1-J2 kernel must have launched.
 9. 50 steps of the J1-J2 flagship (the complex U(1) cRNN, one GRU layer of
@@ -36,14 +40,17 @@ Phases (each prints its time; any failure raises and exits non-zero):
    must be finite and falling.
 10. The 2D MDRNN kernels B12-B16 against their plain versions at the
    flagship shapes (16x16, U=50, B=500, perturbed weights) and on the
-   non-square 5x3 and 3x6 lattices: B12 log p, B14 per tensor, B15 ratio and
-   log p, B16 against B12 and B15 on its own samples, B13's draws equal to
-   B16's for the same (seed, offset) and a function of it, and the sampler's
-   frequencies at 2x2 over 20k draws against the exact density.
-11. The five MDRNN kernels and their plain versions timed with CUDA events;
-   B16's three launches (base pass, suffix pass, ratio sum) timed apart by
-   ``torch.profiler``; their FP32 and (B15, B16) tensor-core bounds; the
-   lattice widths and unit counts the MDRNN kernels cover.
+   non-square 5x3 and 3x6 lattices: B12 log p and B12 storing B14's replay,
+   B14 per tensor alone and from that replay, the same bits twice, B15 ratio
+   and log p, B16 against B12 and B15 on its own samples, B13's draws equal
+   to B16's for the same (seed, offset) and a function of it, and the
+   sampler's frequencies at 2x2 over 20k draws against the exact density.
+11. The five MDRNN kernels and their plain versions timed with CUDA events,
+   B12 storing and B14 from its replay beside them; B16's three launches
+   (base pass, suffix pass, ratio sum) and B14's (replay, reverse sweep,
+   weight cotangent, chunk sum) timed apart by ``torch.profiler``; their
+   FP32 and (B15, B16) tensor-core bounds; the lattice widths and unit
+   counts the MDRNN kernels cover.
 12. VMC training of the 2D TFIM at 3x3, Bx=3 (MDRNN2D, U=50) against exact
    diagonalization; every MDRNN kernel must have launched.
 13. 50 steps of the 2D flagship (MDRNN2D 16x16, U=50, on
@@ -101,7 +108,7 @@ its plain version's, its library yardstick's where one exists,
 ``bound_ms``, the least time the card could take for the work on this run's
 inputs in FP32, and ``tc_bound_ms``, that least time with the recurrent
 products on the tensor cores, for the kernels that run them there (K3, K4,
-B6a, B6b, B15, B16; null for the others).  The last line is ``{"ok": true,
+B6a, B6b, B10, B11, B15, B16; null for the others).  The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -271,12 +278,25 @@ def mdrnn_tc_bound(steps: int, u: int, nbytes: float) -> float:
 
 def exchange_site_steps(samples: torch.Tensor, ham) -> int:
     """The suffix site steps the exchange sum needs on these samples: each
-    anti-aligned bond (a, b) with a < b recomputes sites a..N-1."""
+    anti-aligned bond (a, b) with a < b recomputes sites a+1..N-1 (site a's
+    state is the base pass's, and its flipped terms come from there)."""
     n = samples.shape[1]
     _, _, _, mask = ham.connected(samples)
     idx = torch.arange(n, device=samples.device)
     start = torch.cat([torch.minimum(idx, (idx + gap) % n) for gap in (1, 2)])
-    return int(((n - start) * mask).sum())
+    return int(((n - 1 - start) * mask).sum())
+
+
+def exchange_tc_bound(base_steps: int, suffix_steps: int, u: int, nbytes: float) -> float:
+    """The least time, in ms, of B10/B11 (csrc/j1j2_exchange.cu), whose
+    suffix products run on the tensor cores: the base pass's cRNN site steps
+    at the FP32 peak; each suffix step's 6U^2 operations of its 3U x U
+    product at the TF32 peak and its other 30U + 2 (4U + 10) (input gates,
+    activations, update, two heads and their log-softmax) at the FP32 peak;
+    or the bytes over the memory rate where that is larger."""
+    t_ops = (base_steps * site_flops(u, 2) / FP32_FLOPS
+             + suffix_steps * (6 * u * u / TF32_FLOPS + (30 * u + 2 * (4 * u + 10)) / FP32_FLOPS))
+    return 1e3 * max(t_ops, nbytes / HBM_BYTES_PER_S)
 
 
 class Phase:
@@ -672,6 +692,24 @@ def main() -> None:
             worst11 = max(worst11, ep_lp, *(max_err(a, b) for a, b in zip(k11[:2], p11[:2])))
             again, *_ = jk.j1j2_sample_and_exchange(wc, S_FLAG, N_FLAG, 7, 1, u1=True, **info)
             require(bool((again == s11).all()), "B11 draws are a function of (seed, offset)")
+        # the mask off, on random samples; and U=91, the cRNN family's widest
+        # on an H100, whose suffix pass takes two 64-row tiles per gate
+        wide = tuple(t.detach() for t in perturbed_model(pkg, N_FLAG, 91, 4322, dev,
+                                                         cls="CRNNU1").weights())
+        for label, wts, u1, s_in in (("mask off, random samples", wc, False, samples),
+                                     ("U=91", wide, True, sector)):
+            k10 = jk.j1j2_exchange_offdiag(wts, s_in, u1=u1, **flag_info)
+            p10 = jk.exchange_offdiag_plain(wts, s_in, u1=u1, **flag_info)
+            s11, *k11 = jk.j1j2_sample_and_exchange(wts, S_FLAG, N_FLAG, 7, 1, u1=u1, **flag_info)
+            p11 = jk.exchange_offdiag_plain(wts, s11, u1=u1, **flag_info)
+            torch.cuda.synchronize()
+            er, ep = rel_energy(k10[:2], p10[:2]), rel_energy(k11[:2], p11[:2])
+            el = max(max_err(a, b) for a, b in zip((*k10[2:], *k11[2:]), (*p10[2:], *p11[2:])))
+            print(f"B10 and B11 ({label}, open, J2=0.2): energy relative err {er:.3e} and "
+                  f"{ep:.3e} (tol {rel_tol:.0e}); log psi max abs err {el:.3e} (tol {lp_tol:.1e})")
+            require(er <= rel_tol and ep <= rel_tol and el <= lp_tol, f"B10/B11 ({label})")
+            worst10 = max(worst10, el, *(max_err(a, b) for a, b in zip(k10[:2], p10[:2])))
+            worst11 = max(worst11, el, *(max_err(a, b) for a, b in zip(k11[:2], p11[:2])))
         record["B10 j1j2_exchange_offdiag"]["max_abs_err"] = worst10
         record["B11 j1j2_sample_and_exchange"]["max_abs_err"] = worst11
 
@@ -711,13 +749,20 @@ def main() -> None:
             record[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
                   f"plain {record[name]['plain_ms']:.4f} ms")
+        for name in ("B10 j1j2_exchange_offdiag", "B11 j1j2_sample_and_exchange"):
+            print_launches(name.split()[0], pairs[name][0],
+                           {"base pass": "exchange_base_kernel",
+                            "bond lists": "exchange_list_kernel",
+                            "tensor-core suffix pass exchange_suffix_kernel":
+                                "exchange_suffix_kernel", "sum": "exchange_sum_kernel"})
 
     # bounds at the main paths' shapes, from this run's inputs
     b_, n_, u_ = S_FLAG, N_FLAG, U_FLAG
     w6 = 4 * sum(t.numel() for t in w)
     w8 = 4 * sum(t.numel() for t in wc)
     steps_flip = b_ * n_ + b_ * n_ * (n_ - 1) // 2
-    steps_exchange = b_ * n_ + exchange_site_steps(s11, configs["open, J2=0.2"])
+    suffix_exchange = exchange_site_steps(s11, configs["open, J2=0.2"])
+    steps_exchange = b_ * n_ + suffix_exchange
     work = {
         "K1 gru_log_prob": (b_ * n_ * site_flops(u_, 1), 4 * b_ * n_ + w6 + 4 * b_),
         "K2 gru_log_prob_bwd": (b_ * n_ * bwd_site_flops(u_, 1), 4 * b_ * n_ + 4 * b_ + 2 * w6),
@@ -731,9 +776,11 @@ def main() -> None:
                                          w8 + 4 * b_ * n_ + 16 * b_),
     }
     print(f"exchange site steps on the J1-J2 flagship samples: {steps_exchange} "
-          f"({steps_exchange / (b_ * n_ * n_):.3f} of B N^2)")
+          f"({steps_exchange / (b_ * n_ * n_):.3f} of B N^2), {suffix_exchange} in the suffixes")
     for name, (flops, nbytes) in work.items():
         record[name]["bound_ms"], record[name]["bound_by"] = bound(flops, nbytes)
+        if name.split()[0] in ("B10", "B11"):
+            record[name]["tc_bound_ms"] = exchange_tc_bound(b_ * n_, suffix_exchange, u_, nbytes)
         tc = record[name].get("tc_bound_ms")
         tc_txt = "" if tc is None else (f"; tensor-core bound {tc:.4f} ms, share "
                                         f"{tc / record[name]['ms']:.1%}")
@@ -812,6 +859,9 @@ def main() -> None:
         gm = torch.randn(b, generator=gen).to(dev)
         gk = fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, gm)
         gp = fused_mdrnn.log_prob_bwd_plain(w, s, gm)
+        replay = fused_mdrnn.mdrnn_log_prob(w, s, store=True)
+        gr = fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, gm, replay=replay)
+        again = fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, gm)
         torch.cuda.synchronize()
         for name, a, c in zip(("uh", "uv", "wh", "wv", "b", "head_w", "head_b"), gk, gp):
             r = rel(a, c)
@@ -819,6 +869,14 @@ def main() -> None:
                   f"(tol {rel_tol:.0e})")
             require(r <= rel_tol, f"B14 d{name} ({label})")
             worst["B14 mdrnn_log_prob_bwd"] = max(worst["B14 mdrnn_log_prob_bwd"], max_err(a, c))
+        er = max(rel(a, c) for a, c in zip(gr, gp))
+        same = all(torch.equal(a, c) for a, c in zip(gr, gk))
+        twice = all(torch.equal(a, c) for a, c in zip(again, gk))
+        print(f"B14 ({label}) from B12's stored replay: relative err {er:.3e} (tol "
+              f"{rel_tol:.0e}), the bits of B14 alone: {same}; B14 twice, the same bits: "
+              f"{twice}; B12 storing gives B12's log p: {bool(torch.equal(replay.lp, lk))}")
+        require(er <= rel_tol and same and twice and bool(torch.equal(replay.lp, lk)),
+                f"B14 from the replay, and its bits ({label})")
 
         rk, l15 = mk.mdrnn_flip_ratio_sum(w, s)
         rp, l15p = mk.flip_ratio_sum_plain(w, s)
@@ -905,10 +963,23 @@ def main() -> None:
             record[name]["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
                   f"plain {record[name]['plain_ms']:.4f} ms")
+        replay = fused_mdrnn.mdrnn_log_prob(wm, s16, store=True)
+        store_ms = cuda_ms(lambda: fused_mdrnn.mdrnn_log_prob(wm, s16, store=True), reps=10)
+        from_replay_ms = cuda_ms(
+            lambda: fused_mdrnn_bwd.mdrnn_log_prob_bwd(wm, s16, g2, replay=replay), reps=10)
+        print(f"B12 storing B14's replay: {store_ms:.4f} ms; B14 from that replay (as the "
+              f"training step runs it): {from_replay_ms:.4f} ms")
         print_launches("B16", lambda: mk.mdrnn_sample_and_flip_sum(wm, S_FLAG, NX_FLAG, NY_FLAG,
                                                                    3, 4),
                        {"base pass": "mdrnn_sweep_kernel", "suffix pass": "mdrnn_tc_suffix_kernel",
                         "ratio sum": "mdrnn_flip_sum_kernel"}, calls=5)
+        b14_parts = {"replay": "mdrnn_sweep_kernel", "reverse sweep": "mdrnn_bwd_sweep_kernel",
+                     "weight cotangent": "mdrnn_bwd_weights_kernel",
+                     "chunk sum": "sum_partials_kernel"}
+        print_launches("B14", lambda: fused_mdrnn_bwd.mdrnn_log_prob_bwd(wm, s16, g2), b14_parts)
+        print_launches("B14 from the replay",
+                       lambda: fused_mdrnn_bwd.mdrnn_log_prob_bwd(wm, s16, g2, replay=replay),
+                       {k: v for k, v in b14_parts.items() if k != "replay"})
         b_, m_, u_ = S_FLAG, ns, U_FLAG
         wb = 4 * sum(t.numel() for t in wm)
         steps_sweep = b_ * m_

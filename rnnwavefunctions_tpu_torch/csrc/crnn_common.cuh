@@ -122,14 +122,21 @@ __device__ __forceinline__ void crnn_site(const CWeights& c, int u, const float*
                lp0[t], lp1[t], ph0[t], ph1[t]);
 }
 
-// The sampling decision of the cRNN samplers (ops/fused_crnn.py:216-222):
-// s = 1 iff u >= p0, clamped to the allowed class, since the exp/log round
-// trip can leave a masked class a sliver of probability.
-__device__ __forceinline__ float crnn_draw(float uni, float lp0, float lp1) {
-  float s = uni >= expf(lp0) ? 1.0f : 0.0f;
-  if (lp1 < 0.5f * kLogZero) s = 0.0f;
-  if (lp0 < 0.5f * kLogZero) s = 1.0f;
-  return s;
+// The sampling decision of the cRNN samplers (ops/fused_crnn.py:216-222)
+// from the amplitude logits, num_up counting the ups before site n: s = 1
+// iff u >= p0, with p0 = sigmoid(l0 - l1), crnn_logps's exp(lp0) to float32
+// rounding (renormalising two allowed classes leaves it as it is); under
+// the mask a site whose down class is forbidden draws 1, one whose up class
+// alone is forbidden 0, as the plain sampler's clamp does.  One tanhf: the
+// logits' whole log-softmax is the books' work, off the decision's path.
+__device__ __forceinline__ float crnn_decide(float uni, float l0, float l1, int n, float num_up,
+                                             int n_sites, bool u1) {
+  if (u1 && 2 * n >= n_sites) {
+    const float baseline = static_cast<float>(n_sites / 2 - 1);
+    if (baseline - (static_cast<float>(n) - num_up) < 0.0f) return 1.0f;
+    if (baseline - num_up < 0.0f) return 0.0f;
+  }
+  return uni >= sigmoid_tanh(l0 - l1) ? 1.0f : 0.0f;
 }
 
 }  // namespace rnnwf

@@ -1,6 +1,8 @@
 // B12 and B13: the 2D MDRNN's boustrophedon sweep, teacher-forced (joint
 // log p of given samples) or sampling (draws the samples and their log p),
-// and the base pass of B15/B16, which also stores the history.
+// the base pass of B15/B16, which also stores the history and the prefixes,
+// and B14's replay (its stage 1, csrc/fused_mdrnn_bwd.cu), which stores the
+// history and the head's p(s = 1) per (sample, site).
 //
 // Replaces: rnnwavefunctions_tpu/ops/fused_mdrnn.py::mdrnn_log_prob (B12)
 // and ::mdrnn_sample (B13), both _make_sweep_kernel; and the base pass of
@@ -34,11 +36,17 @@ size_t mdrnn_sweep_smem_bytes(int nx, int u) {
   return sizeof(float) * (mdrnn_weight_floats(u) + kSweepWarps * sweep_warp_floats(nx, u));
 }
 
-template <bool kSample, bool kHist>
+// What the sweep stores beside log p: nothing (B12, B13), B15/B16's base
+// pass (the history and the corrected running prefix pfx) or B14's replay
+// (the history and p1 = p(s = 1)); `extra` is pfx or p1, (B, NS).
+enum class MStore { kNone, kFlip, kReplay };
+
+template <bool kSample, MStore kStore>
 __global__ void mdrnn_sweep_kernel(int32_t* __restrict__ samples, uint32_t seed,
                                    uint32_t offset, MWeightPtrs src, float* __restrict__ hist,
-                                   float* __restrict__ pfx, float* __restrict__ lp,
+                                   float* __restrict__ extra, float* __restrict__ lp,
                                    int b_total, int nx, int ny, int u) {
+  constexpr bool kHist = kStore != MStore::kNone;
   extern __shared__ __align__(16) float smem[];
   const MWeights w = load_mdrnn_weights(smem, src, u);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -77,7 +85,9 @@ __global__ void mdrnn_sweep_kernel(int32_t* __restrict__ samples, uint32_t seed,
     if (lane == 0) {
       srow[x] = s;
       if constexpr (kSample) s_lat[x * ny + y] = static_cast<int32_t>(s);
-      if constexpr (kHist) pfx[static_cast<int64_t>(b) * ns + m] = acc - cmp;
+      if constexpr (kStore == MStore::kFlip) extra[static_cast<int64_t>(b) * ns + m] = acc - cmp;
+      if constexpr (kStore == MStore::kReplay)
+        extra[static_cast<int64_t>(b) * ns + m] = expf(logp2(l0[0], l1[0], 1.0f));
     }
     __syncwarp();
     xh[0] = s;
@@ -86,18 +96,18 @@ __global__ void mdrnn_sweep_kernel(int32_t* __restrict__ samples, uint32_t seed,
   if (lane == 0) lp[b] = acc - cmp;
 }
 
-template <bool kSample, bool kHist>
+template <bool kSample, MStore kStore>
 cudaError_t launch_sweep(int32_t* samples, uint32_t seed, uint32_t offset, const MWeightPtrs& w,
-                         float* hist, float* pfx, float* lp, int b_total, int nx, int ny, int u,
-                         cudaStream_t stream) {
+                         float* hist, float* extra, float* lp, int b_total, int nx, int ny,
+                         int u, cudaStream_t stream) {
   const size_t smem = mdrnn_sweep_smem_bytes(nx, u);
-  cudaError_t err = cudaFuncSetAttribute(mdrnn_sweep_kernel<kSample, kHist>,
+  cudaError_t err = cudaFuncSetAttribute(mdrnn_sweep_kernel<kSample, kStore>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (b_total + kSweepWarps - 1) / kSweepWarps;
-  mdrnn_sweep_kernel<kSample, kHist><<<blocks, kSweepWarps * kWarp, smem, stream>>>(
-      samples, seed, offset, w, hist, pfx, lp, b_total, nx, ny, u);
+  mdrnn_sweep_kernel<kSample, kStore><<<blocks, kSweepWarps * kWarp, smem, stream>>>(
+      samples, seed, offset, w, hist, extra, lp, b_total, nx, ny, u);
   return cudaGetLastError();
 }
 
@@ -105,15 +115,15 @@ cudaError_t launch_mdrnn_sweep(bool sample, int32_t* samples, uint32_t seed, uin
                                const MWeightPtrs& w, float* hist, float* pfx, float* lp,
                                int b_total, int nx, int ny, int u, cudaStream_t stream) {
   if (hist != nullptr) {
-    return sample ? launch_sweep<true, true>(samples, seed, offset, w, hist, pfx, lp, b_total,
-                                             nx, ny, u, stream)
-                  : launch_sweep<false, true>(samples, seed, offset, w, hist, pfx, lp, b_total,
-                                              nx, ny, u, stream);
+    return sample ? launch_sweep<true, MStore::kFlip>(samples, seed, offset, w, hist, pfx, lp,
+                                                      b_total, nx, ny, u, stream)
+                  : launch_sweep<false, MStore::kFlip>(samples, seed, offset, w, hist, pfx, lp,
+                                                       b_total, nx, ny, u, stream);
   }
-  return sample ? launch_sweep<true, false>(samples, seed, offset, w, hist, pfx, lp, b_total, nx,
-                                            ny, u, stream)
-                : launch_sweep<false, false>(samples, seed, offset, w, hist, pfx, lp, b_total,
-                                             nx, ny, u, stream);
+  return sample ? launch_sweep<true, MStore::kNone>(samples, seed, offset, w, hist, pfx, lp,
+                                                    b_total, nx, ny, u, stream)
+                : launch_sweep<false, MStore::kNone>(samples, seed, offset, w, hist, pfx, lp,
+                                                     b_total, nx, ny, u, stream);
 }
 
 }  // namespace rnnwf
@@ -139,5 +149,20 @@ extern "C" int rnnwf_mdrnn_sample(unsigned int seed, unsigned int offset, const 
   return static_cast<int>(launch_mdrnn_sweep(
       true, static_cast<int32_t*>(samples), seed, offset, mweight_ptrs(uh, uv, wh, wv, b, hw, hb),
       nullptr, nullptr, static_cast<float*>(lp), b_total, nx, ny, u,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B12 storing B14's replay: the joint log p (lp, B floats), the cell-output
+// history in visit order (hist, B*NS*U) and the head's p(s = 1) per (sample,
+// visit position) (p1, B*NS).
+extern "C" int rnnwf_mdrnn_replay(const void* samples, const void* uh, const void* uv,
+                                  const void* wh, const void* wv, const void* b, const void* hw,
+                                  const void* hb, void* hist, void* p1, void* lp, int b_total,
+                                  int nx, int ny, int u, void* stream) {
+  using namespace rnnwf;
+  return static_cast<int>(launch_sweep<false, MStore::kReplay>(
+      static_cast<int32_t*>(const_cast<void*>(samples)), 0u, 0u,
+      mweight_ptrs(uh, uv, wh, wv, b, hw, hb), static_cast<float*>(hist),
+      static_cast<float*>(p1), static_cast<float*>(lp), b_total, nx, ny, u,
       static_cast<cudaStream_t>(stream)));
 }

@@ -6,12 +6,12 @@
 // memory in exactly this order, so the gradient kernel can accumulate into a
 // buffer of the same layout and hand back one flat weight-shaped vector.
 //
-// Work split (the cRNN kernels, B20): one warp advances T trajectories
-// (samples, or exchanged-sample suffixes) through one site at a time; the
-// latency kernels' block-wide split (K1, K2's replay and reverse sweep, which
-// B17 runs too, B5, B19, K3's base pass) is slice_product below, and the
-// flip suffixes run on
-// the tensor cores (csrc/tfim_flip.cu).  Lane j owns
+// Work split (B7, B9, B20): one warp advances T trajectories (samples)
+// through one site at a time; the latency kernels' block-wide split (K1,
+// K2's replay and reverse sweep, which B17 runs too, B5, B19, K3's base
+// pass, the base pass of B8/B10/B11 and B14's reverse sweep) is
+// slice_product below, and the flip and exchange suffixes run on the
+// tensor cores (csrc/tfim_flip.cu, csrc/j1j2_exchange.cu).  Lane j owns
 // hidden units j, j+32, ...; the hidden state of the warp's T trajectories
 // sits in shared memory as h[k*T + t], so one (broadcast) load of h[k]
 // serves T trajectories while each wh row entry is loaded once per site.

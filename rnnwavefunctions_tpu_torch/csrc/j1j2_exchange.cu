@@ -13,55 +13,100 @@
 // _make_sample_kernel).
 //
 // Bound on the H100: the exchange suffixes.  Exchanging bond (a, b) leaves
-// sites < a untouched, so only sites a..N-1 are recomputed, from the stored
-// hidden state h[a-1] (prefix sharing): about B * (number of anti-aligned
-// bonds) * N/2 cRNN site steps, ~2.5e6 at the J1-J2 flagship (B=500,
-// N=100, U=50, J2 != 0), each a 3U x U product plus two heads and the mask,
-// ~40 GFLOP per call.  The products read their weights from shared memory,
-// so the limit is shared-memory bandwidth and issue rate, not HBM.  B8 does
-// only the B*N base steps (B7's work) and is bound, as B7, by the latency of
-// N dependent site steps per sample.
+// sites < a untouched and site a's state, so only sites a+1..N-1 are
+// recomputed, from the stored hidden state h[a] (prefix sharing): about
+// B * (number of anti-aligned bonds) * N/2 cRNN site steps, ~2.5e6 at the
+// J1-J2 flagship (B=500, N=100, U=50, J2 != 0), each a 3U x U product
+// (6U^2 of its 6U^2 + 38U + 20 operations) plus two heads and the mask,
+// ~40 GFLOP per call.  B8 does only the B*N base steps (B7's work) and is
+// bound, as B7, by the latency of N dependent site steps per sample.
 //
-// Design: four launches.
-//   1. Base pass, one warp per sample: (in sample mode) draws each spin from
-//      a Philox uniform with the mask's clamp, and stores the hidden history
-//      h[n], the Kahan-corrected prefixes pfx_re[n], pfx_im[n] and the
-//      up-counts before each site, cup[n].  B8 runs this launch alone in
-//      sample mode and stores no history, only the spins and log |psi|^2;
-//      the arithmetic is the same code, so B8 draws B11's spins bit for bit.
-//   2. Bond lists, one warp per bond: the samples whose bond is
-//      anti-aligned, in sample order (a ballot per 32 samples); the others
-//      get a term of exactly 0 and no work.  The TPU kernel ran every bond
-//      and multiplied the aligned ones by 0.
-//   3. Suffix pass, one warp per (bond, group of 4 listed samples): the 4
-//      trajectories restart at site a from h[a-1] (zero at a = 0), the
-//      prefix pfx[a-1] and the up-count cup[a], and teacher-force sites
-//      a..N-1 with the targets flipped at a and b; the U(1) mask uses each
-//      exchanged trajectory's own running count.  They share the bond, so
-//      they have one length and run in lockstep, and each weight load feeds
-//      4 products.  Warps run longest suffix first: the periodic wrap bonds
-//      (0, N-1), (0, N-2) and (1, N-1), which are full-length trajectories,
-//      then the NN and NNN bonds by start site.
+// Design: four launches (K3's, csrc/tfim_flip.cu, with a second head, the
+// U(1) mask and bond lists).
+//   1. Base pass, a block per kExP samples: its kSlices x U32 threads split
+//      each site's product by unit and by quarter of k (slice_product,
+//      gru_common.cuh); after a barrier the first kExP slices update one
+//      sample each, store h[n] to the history and reduce their four head
+//      terms (amplitude and phase logits) by shuffles per warp; after a
+//      second barrier every thread sums the warps' terms in warp order, so
+//      all hold the same logits and (in sample mode) take the same decision
+//      from a Philox uniform (crnn_decide: one tanhf, the mask's clamp).
+//      One more warp keeps the samples' books off that path: it draws the
+//      uniforms of 32 sites at once (a lane per site) ahead of the
+//      decisions, forms the masked log-probabilities and phases
+//      (crnn_logps), Kahan-adds both parts of log psi and stores the spins,
+//      the corrected prefixes pfx_re[n], pfx_im[n], the up-counts before
+//      each site cup[n], and site n's amplitude and phase terms with the
+//      target flipped, fl_re[n], fl_im[n].  B8 runs this launch alone in
+//      sample mode and stores no history, only the spins and
+//      log |psi|^2; the arithmetic is the same code, so B8 draws B11's
+//      spins bit for bit.
+//   2. Bond lists, one warp per start site a: the (bond, sample) terms of
+//      the bonds that start at a (NN (a, a+1), NNN (a, a+2), the wraps
+//      (0, N-1), (0, N-2), (1, N-1)) whose bond is anti-aligned, by bond,
+//      then sample (a ballot per 32 samples); the others get a term of
+//      exactly 0 and no work.  The TPU kernel ran every bond and multiplied
+//      the aligned ones by 0.
+//   3. Suffix pass on the tensor cores, a block (one warpgroup) per tile of
+//      32 listed trajectories that share the start site a, so all have one
+//      length N-1-a; tiles run by start site, longest first (the wraps
+//      start at 0 and 1).  NN and NNN trajectories of one start fill one
+//      tile, each column with its own second flip site.  A trajectory
+//      starts at site a+1 from h[a] with input 1 - s_a, up-count
+//      cup[a] + 1 - s_a and the sums pfx[a-1] + fl[a] (site a's state is
+//      the base pass's own; its flipped terms come from it).  Each site is
+//      the product W_h^T (3U x U) . H^T (U x 32) by wgmma m64n32k8 in
+//      3xTF32 (tf32_wgmma.cuh; each gate padded to 64 rows, so a unit's r,
+//      z, c land in one thread's accumulators, which start from b_h); the
+//      four logits of a trajectory are shuffle sums over each warp's units,
+//      added over the warps in order; warp 3's lane t keeps trajectory t's
+//      up-count and two Kahan pairs and applies the U(1) mask with that
+//      count, as crnn_logps does.  Padding columns repeat the tile's last
+//      listed trajectory and write nothing.
 //   4. A per-sample sum of the bond terms in a fixed order (NN bonds
 //      ascending, then NNN, then the wraps), as the TPU kernel adds them, so
-//      the result does not depend on how warps were scheduled.
+//      the result does not depend on how blocks were scheduled.
 // The TPU kernel's wavefront groups, lane packing and VMEM spill rings are
 // TPU-only and have no counterpart here.
 #include "crnn_common.cuh"
+#include "tf32_wgmma.cuh"
 
 namespace rnnwf {
 
-constexpr int kExBaseWarps = 4;
-constexpr int kExSufWarps = 8;
-constexpr int kExSufT = 4;
+constexpr int kExP = 2;        // samples per base-pass block
+static_assert(kExP <= kSlices, "a base block's first slices update one sample each");
+constexpr int kExTraj = 32;    // trajectories per suffix block (its N)
 constexpr int kExListWarps = 4;
 
+// The base pass's threads: the slices and the bookkeeping warp.
+__host__ __device__ inline int ex_base_threads(int u) { return kSlices * warp_round(u) + kWarp; }
+
+// Base pass, after the weights: h and hn (kExP*U each), the slices' sums,
+// the head partials [sample][warp of its slice][4] and two blocks of
+// uniforms [block parity][site % 32][sample].
+__host__ __device__ inline int ex_base_buffer_floats(int u) {
+  return 2 * kExP * u + slice_part_floats(u, kExP) + (warp_round(u) / kWarp) * kExP * 4 +
+         2 * kWarp * kExP;
+}
+
+// Suffix pass, in this order: the states of the block's trajectories as the
+// product's B operand in two parts (the state and its remainder below TF32),
+// each kExTraj x Kp in wgmma's core-matrix layout (Kp = U rounded up to 8);
+// W_h^T in wgmma's A-fragment order (Kp/8 k-steps x 3 Ug/64 tiles x 4 warps
+// x 32 lanes x 4, Ug = U rounded up to 64); the input gates wx[x] + bx for
+// x = 0, 1 (2 x 3 x Ug); b_h (3 x Ug); the amplitude and phase heads (Ug x 2
+// each) and their biases (4), every padded entry zero; the head partials
+// [site parity][warp][trajectory][4].
+__host__ __device__ inline int ex_suffix_floats(int u) {
+  const int ug = pad64(u);
+  return 2 * kExTraj * pad8(u) + (pad8(u) / 8) * (3 * ug / kGateRows) * 4 * kWarp * 4 +
+         6 * ug + 3 * ug + 4 * ug + 4 + 2 * 4 * kExTraj * 4;
+}
+
 size_t exchange_base_smem_bytes(int u) {
-  return sizeof(float) * (crnn_weight_floats(u) + kExBaseWarps * 2 * u);
+  return sizeof(float) * (crnn_weight_floats(u) + ex_base_buffer_floats(u));
 }
-size_t exchange_suffix_smem_bytes(int u) {
-  return sizeof(float) * (crnn_weight_floats(u) + kExSufWarps * 2 * u * kExSufT);
-}
+size_t exchange_suffix_smem_bytes(int u) { return sizeof(float) * ex_suffix_floats(u); }
 
 // The bond families of one call.
 struct Bonds {
@@ -73,13 +118,14 @@ struct Bonds {
 };
 
 __host__ __device__ inline int num_bonds(int n, int has_nnn, int periodic) {
-  return (n - 1) + (has_nnn ? n - 2 : 0) + (periodic ? (has_nnn ? 3 : 1) : 0);
+  return (n > 1 ? n - 1 : 0) + (has_nnn && n > 2 ? n - 2 : 0) +
+         (periodic ? (has_nnn ? 3 : 1) : 0);
 }
 
 // Bond k in the summation order: NN (k, k+1), then NNN (k, k+2), then the
 // wraps (0, N-1) at el_nn and (0, N-2), (1, N-1) at el_nnn.
-__device__ __forceinline__ void bond_at(const Bonds& bs, int k, int& a, int& b, float& el) {
-  const int nn = bs.n - 1, nnn = bs.has_nnn ? bs.n - 2 : 0;
+__host__ __device__ inline void bond_at(const Bonds& bs, int k, int& a, int& b, float& el) {
+  const int nn = bs.n > 1 ? bs.n - 1 : 0, nnn = bs.has_nnn && bs.n > 2 ? bs.n - 2 : 0;
   if (k < nn) { a = k; b = k + 1; el = bs.el_nn; return; }
   k -= nn;
   if (k < nnn) { a = k; b = k + 2; el = bs.el_nnn; return; }
@@ -89,192 +135,414 @@ __device__ __forceinline__ void bond_at(const Bonds& bs, int k, int& a, int& b, 
   el = k == 0 ? bs.el_nn : bs.el_nnn;
 }
 
-// Launch slot -> bond, longest suffix first: the wraps, then NN a and
-// NNN a side by side for a = 0, 1, ...
-__device__ __forceinline__ int bond_of_slot(const Bonds& bs, int slot) {
-  const int nn = bs.n - 1, nnn = bs.has_nnn ? bs.n - 2 : 0;
-  const int wraps = num_bonds(bs.n, bs.has_nnn, bs.periodic) - nn - nnn;
-  if (slot < wraps) return nn + nnn + slot;
-  slot -= wraps;
-  if (!bs.has_nnn) return slot;
-  return (slot & 1) ? nn + (slot >> 1) : (slot >> 1);
-}
+// What the base pass stores for the suffix pass, each (B, N) unless stated.
+struct ExBase {
+  float* hist;    // (B, N, U) states h[n]
+  float* pfx_re;  // corrected prefix Re log psi(sites <= n)
+  float* pfx_im;
+  float* cup;     // ups before site n
+  float* fl_re;   // site n's Re term with its target flipped, 0.5 log p
+  float* fl_im;   // and its phase
+  float* lp_re;   // (B,) Re log psi; log |psi|^2 without kHistory (B8)
+  float* lp_im;   // (B,) Im log psi
+};
 
-// kHistory: store hist, the prefixes and the up-counts for the suffix pass
-// and write (Re, Im) log psi; off (B8), only lp_re is written, as
-// log |psi|^2 = 2 Re log psi.
+// kHistory: store the suffix pass's inputs and write (Re, Im) log psi; off
+// (B8), only lp_re is written, as log |psi|^2 = 2 Re log psi.
 template <bool kSample, bool kHistory>
 __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
-                                     uint32_t offset, WeightPtrs wp, float* __restrict__ hist,
-                                     float* __restrict__ pfx_re, float* __restrict__ pfx_im,
-                                     float* __restrict__ cup, float* __restrict__ lp_re,
-                                     float* __restrict__ lp_im, int b_total, int n_sites,
-                                     int u, int u1) {
+                                     uint32_t offset, WeightPtrs wp, ExBase out, int b_total,
+                                     int n_sites, int u, int u1) {
   extern __shared__ __align__(16) float smem[];
   const CWeights c = load_crnn_weights(smem, wp, u);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int b = blockIdx.x * kExBaseWarps + warp;
-  if (b >= b_total) return;
-  float* h = smem + crnn_weight_floats(u) + warp * 2 * u;
-  float* hn = h + u;
-  for (int j = lane; j < u; j += kWarp) h[j] = 0.0f;
-  __syncwarp();
+  const int u32 = warp_round(u), nw = u32 / kWarp;
+  const int ks = threadIdx.x / u32, j = threadIdx.x - ks * u32;
+  const int lane = threadIdx.x % kWarp;
+  const bool books = ks == kSlices;  // the last warp: lane p keeps sample p
+  float* h = smem + crnn_weight_floats(u);
+  float* hn = h + kExP * u;
+  float* part = hn + kExP * u;
+  float* red = part + slice_part_floats(u, kExP);
+  float* uni = red + nw * kExP * 4;
+  for (int i = threadIdx.x; i < kExP * u; i += blockDim.x) h[i] = 0.0f;
+  // padding slots past the batch repeat the last sample and store nothing
+  int bs[kExP];
+  int64_t row[kExP];
+  bool own[kExP];
+#pragma unroll
+  for (int p = 0; p < kExP; ++p) {
+    const int b = blockIdx.x * kExP + p;
+    own[p] = b < b_total;
+    bs[p] = min(b, b_total - 1);
+    row[p] = static_cast<int64_t>(bs[p]) * n_sites;
+  }
+  // thread (p, j) of the first kExP slices updates unit j of sample p
+  const int b_mine = blockIdx.x * kExP + min(ks, kExP - 1);
+  const int64_t row_mine = static_cast<int64_t>(min(b_mine, b_total - 1)) * n_sites;
+  __syncthreads();
 
-  const int64_t row = static_cast<int64_t>(b) * n_sites;
-  float* h_row = kHistory ? hist + row * u : nullptr;
-  float x[1] = {0.0f}, up[1] = {0.0f}, lp0[1], lp1[1], ph0[1], ph1[1];
+  float x[kExP], up[kExP];
   float re = 0.0f, rec = 0.0f, im = 0.0f, imc = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kExP; ++p) { x[p] = 0.0f; up[p] = 0.0f; }
   for (int n = 0; n < n_sites; ++n) {
-    crnn_site<1>(c, u, h, hn, x, n > 0 ? 1.0f : 0.0f, n, up, n_sites, u1 != 0, lp0, lp1, ph0,
-                 ph1, lane);
-    float s;
-    if constexpr (kSample) {
-      s = crnn_draw(uniform23(seed, offset, static_cast<uint32_t>(b), static_cast<uint32_t>(n)),
-                    lp0[0], lp1[0]);
-    } else {
-      s = static_cast<float>(samples[row + n]);
-    }
-    kadd(re, rec, 0.5f * (s > 0.5f ? lp1[0] : lp0[0]));
-    kadd(im, imc, s > 0.5f ? ph1[0] : ph0[0]);
-    if constexpr (kHistory) {
-      for (int j = lane; j < u; j += kWarp) h_row[n * u + j] = hn[j];
-    }
-    if (lane == 0) {
-      if constexpr (kSample) samples[row + n] = static_cast<int32_t>(s);
-      if constexpr (kHistory) {
-        pfx_re[row + n] = re - rec;
-        pfx_im[row + n] = im - imc;
-        cup[row + n] = up[0];
+    // the uniforms of sites n..n+31, drawn at once, lane = site - n
+    float* uni_n = uni + ((n / kWarp) & 1) * kWarp * kExP + (n % kWarp) * kExP;
+    if (books) {
+      if constexpr (kSample) {
+        if (n % kWarp == 0) {
+#pragma unroll
+          for (int p = 0; p < kExP; ++p)
+            uni_n[lane * kExP + p] = uniform23(seed, offset, static_cast<uint32_t>(bs[p]),
+                                               static_cast<uint32_t>(n + lane));
+        }
       }
+    } else if (j < u) {
+      slice_product<kExP>(c.w, u, ks, j, h, part);
     }
-    x[0] = s;
-    up[0] += s;
+    __syncthreads();
+    if (ks < kExP) {
+      float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (j < u) {
+        float xt = x[0];
+#pragma unroll
+        for (int p = 1; p < kExP; ++p) xt = ks == p ? x[p] : xt;
+        const float hv =
+            slice_update<kExP>(c.w, u, j, ks, h, part, xt, n > 0 ? 1.0f : 0.0f).h;
+        hn[j * kExP + ks] = hv;
+        if constexpr (kHistory) {
+          if (b_mine < b_total) out.hist[(row_mine + n) * u + j] = hv;
+        }
+        q[0] = hv * c.w.hw[2 * j];
+        q[1] = hv * c.w.hw[2 * j + 1];
+        q[2] = hv * c.pw[2 * j];
+        q[3] = hv * c.pw[2 * j + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = warp_sum(q[i]);
+      if (lane == 0)
+        *reinterpret_cast<float4*>(red + (ks * nw + j / kWarp) * 4) =
+            make_float4(q[0], q[1], q[2], q[3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < kExP; ++p) {
+      float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int v = 0; v < nw; ++v) {
+        const float4 r = reinterpret_cast<const float4*>(red)[p * nw + v];
+        l[0] += r.x;
+        l[1] += r.y;
+        l[2] += r.z;
+        l[3] += r.w;
+      }
+      const float l0 = l[0] + c.w.hb[0], l1 = l[1] + c.w.hb[1];
+      float s;
+      if constexpr (kSample) {
+        s = crnn_decide(uni_n[p], l0, l1, n, up[p], n_sites, u1 != 0);
+      } else {
+        s = static_cast<float>(samples[row[p] + n]);
+      }
+      if (books && lane == p) {
+        float lp0, lp1, ph0, ph1;
+        crnn_logps(l0, l1, l[2] + c.pb[0], l[3] + c.pb[1], n, up[p], n_sites, u1 != 0, lp0, lp1,
+                   ph0, ph1);
+        const bool one = s > 0.5f;
+        kadd(re, rec, 0.5f * (one ? lp1 : lp0));
+        kadd(im, imc, one ? ph1 : ph0);
+        if (own[p]) {
+          if constexpr (kSample) samples[row[p] + n] = static_cast<int32_t>(s);
+          if constexpr (kHistory) {
+            out.pfx_re[row[p] + n] = re - rec;
+            out.pfx_im[row[p] + n] = im - imc;
+            out.cup[row[p] + n] = up[p];
+            out.fl_re[row[p] + n] = 0.5f * (one ? lp0 : lp1);
+            out.fl_im[row[p] + n] = one ? ph0 : ph1;
+          }
+        }
+      }
+      x[p] = s;
+      up[p] += s;
+    }
     float* tmp = h; h = hn; hn = tmp;
   }
-  if (lane == 0) {
-    if constexpr (kHistory) {
-      lp_re[b] = re - rec;
-      lp_im[b] = im - imc;
-    } else {
-      lp_re[b] = 2.0f * (re - rec);
+  if (books) {
+#pragma unroll
+    for (int p = 0; p < kExP; ++p) {
+      if (lane != p || !own[p]) continue;
+      if constexpr (kHistory) {
+        out.lp_re[bs[p]] = re - rec;
+        out.lp_im[bs[p]] = im - imc;
+      } else {
+        out.lp_re[bs[p]] = 2.0f * (re - rec);
+      }
     }
   }
 }
 
-// Bond k's list of the samples it exchanges (anti-aligned, nonzero element),
-// in sample order, and their count; the other samples' terms are set to 0.
+// Start site a's list: the terms (k B + b) of the bonds k that start at a,
+// by bond, then sample, whose bond is anti-aligned with a nonzero element;
+// meta[a] is the list's offset in lists (B times the bonds that start
+// before a) and meta[N + a] its length.  The other terms are set to 0.
 __global__ void exchange_list_kernel(const int32_t* __restrict__ samples, Bonds bs,
-                                     int32_t* __restrict__ lists, int32_t* __restrict__ counts,
+                                     int32_t* __restrict__ lists, int32_t* __restrict__ meta,
                                      float* __restrict__ terms_re, float* __restrict__ terms_im,
                                      int b_total, int n_bonds) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int k = blockIdx.x * kExListWarps + warp;
-  if (k >= n_bonds) return;
-  int a, bsite;
-  float el;
-  bond_at(bs, k, a, bsite, el);
-  const int64_t base = static_cast<int64_t>(k) * b_total;
+  const int a = blockIdx.x * kExListWarps + warp;
+  if (a >= bs.n) return;
+  int before = 0;
+  for (int k = lane; k < n_bonds; k += kWarp) {
+    int ka, kb;
+    float el;
+    bond_at(bs, k, ka, kb, el);
+    before += ka < a;
+  }
+  before = __reduce_add_sync(0xffffffffu, before);
+  int32_t* list = lists + static_cast<int64_t>(before) * b_total;
   int count = 0;
-  for (int b0 = 0; b0 < b_total; b0 += kWarp) {
-    const int b = b0 + lane;
-    bool live = false;
-    if (b < b_total) {
-      const int32_t* s_row = samples + static_cast<int64_t>(b) * bs.n;
-      live = el != 0.0f && s_row[a] != s_row[bsite];
-      if (!live) {
-        terms_re[base + b] = 0.0f;
-        terms_im[base + b] = 0.0f;
+  for (int k = 0; k < n_bonds; ++k) {
+    int ka, kb;
+    float el;
+    bond_at(bs, k, ka, kb, el);
+    if (ka != a) continue;
+    const int64_t base = static_cast<int64_t>(k) * b_total;
+    for (int b0 = 0; b0 < b_total; b0 += kWarp) {
+      const int b = b0 + lane;
+      bool live = false;
+      if (b < b_total) {
+        const int32_t* s_row = samples + static_cast<int64_t>(b) * bs.n;
+        live = el != 0.0f && kb < bs.n && s_row[a] != s_row[kb];
+        if (!live) {
+          terms_re[base + b] = 0.0f;
+          terms_im[base + b] = 0.0f;
+        }
       }
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) list[count + __popc(mask & ((1u << lane) - 1u))] = static_cast<int32_t>(base + b);
+      count += __popc(mask);
     }
-    const unsigned mask = __ballot_sync(0xffffffffu, live);
-    if (live) lists[base + count + __popc(mask & ((1u << lane) - 1u))] = b;
-    count += __popc(mask);
-  }
-  if (lane == 0) counts[k] = count;
-}
-
-__global__ void exchange_suffix_kernel(const int32_t* __restrict__ samples, WeightPtrs wp,
-                                       Bonds bs, const float* __restrict__ hist,
-                                       const float* __restrict__ pfx_re,
-                                       const float* __restrict__ pfx_im,
-                                       const float* __restrict__ cup,
-                                       const float* __restrict__ lp_re,
-                                       const float* __restrict__ lp_im,
-                                       const int32_t* __restrict__ lists,
-                                       const int32_t* __restrict__ counts,
-                                       float* __restrict__ terms_re, float* __restrict__ terms_im,
-                                       int b_total, int n_bonds, int u, int u1) {
-  extern __shared__ __align__(16) float smem[];
-  const CWeights c = load_crnn_weights(smem, wp, u);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n_sites = bs.n;
-  const int groups = (b_total + kExSufT - 1) / kExSufT;
-  const int gw = blockIdx.x * kExSufWarps + warp;
-  const int slot = gw / groups;
-  if (slot >= n_bonds) return;
-  const int k = bond_of_slot(bs, slot);
-  const int grp = gw - slot * groups;
-  const int count = counts[k];
-  if (grp * kExSufT >= count) return;
-  int a, bsite;
-  float el;
-  bond_at(bs, k, a, bsite, el);
-  float* h = smem + crnn_weight_floats(u) + warp * 2 * u * kExSufT;
-  float* hn = h + u * kExSufT;
-
-  const int32_t* list = lists + static_cast<int64_t>(k) * b_total;
-  int sample_of[kExSufT];
-  int64_t rows[kExSufT];
-  float x[kExSufT], up[kExSufT], re[kExSufT], rec[kExSufT], im[kExSufT], imc[kExSufT];
-  float lp0[kExSufT], lp1[kExSufT], ph0[kExSufT], ph1[kExSufT];
-#pragma unroll
-  for (int t = 0; t < kExSufT; ++t) {
-    sample_of[t] = list[min(grp * kExSufT + t, count - 1)];  // padding repeats the last listed sample
-    rows[t] = static_cast<int64_t>(sample_of[t]) * n_sites;
-    if (a > 0) {
-      const float* hf = hist + (rows[t] + a - 1) * u;
-      for (int j = lane; j < u; j += kWarp) h[j * kExSufT + t] = hf[j];
-      x[t] = static_cast<float>(samples[rows[t] + a - 1]);
-      re[t] = pfx_re[rows[t] + a - 1];
-      im[t] = pfx_im[rows[t] + a - 1];
-    } else {
-      for (int j = lane; j < u; j += kWarp) h[j * kExSufT + t] = 0.0f;
-      x[t] = 0.0f;
-      re[t] = 0.0f;
-      im[t] = 0.0f;
-    }
-    up[t] = cup[rows[t] + a];
-    rec[t] = 0.0f;
-    imc[t] = 0.0f;
-  }
-  __syncwarp();
-  for (int n = a; n < n_sites; ++n) {
-    crnn_site<kExSufT>(c, u, h, hn, x, n > 0 ? 1.0f : 0.0f, n, up, n_sites, u1 != 0, lp0, lp1,
-                       ph0, ph1, lane);
-    const bool flip = n == a || n == bsite;
-#pragma unroll
-    for (int t = 0; t < kExSufT; ++t) {
-      float s = static_cast<float>(samples[rows[t] + n]);
-      if (flip) s = 1.0f - s;
-      kadd(re[t], rec[t], 0.5f * (s > 0.5f ? lp1[t] : lp0[t]));
-      kadd(im[t], imc[t], s > 0.5f ? ph1[t] : ph0[t]);
-      x[t] = s;
-      up[t] += s;
-    }
-    float* tmp = h; h = hn; hn = tmp;
   }
   if (lane == 0) {
-    const int64_t base = static_cast<int64_t>(k) * b_total;
+    meta[a] = before * b_total;
+    meta[bs.n + a] = count;
+  }
+}
+
+// What the suffix pass reads of the base pass.
+struct ExIn {
+  const float* hist;
+  const float* pfx_re;
+  const float* pfx_im;
+  const float* cup;
+  const float* fl_re;
+  const float* fl_im;
+  const float* lp_re;
+  const float* lp_im;
+};
+
+// MG: 64-row tiles per gate, U rounded up to 64 MG.  tiles: the blocks of
+// each start site (enough for its longest possible list).
+template <int MG>
+__global__ void __launch_bounds__(4 * kWarp)
+exchange_suffix_kernel(const int32_t* __restrict__ samples, WeightPtrs wp, Bonds bs, ExIn in,
+                       const int32_t* __restrict__ lists, const int32_t* __restrict__ meta,
+                       float* __restrict__ terms_re, float* __restrict__ terms_im, int b_total,
+                       int tiles, int u, int u1) {
+  constexpr int MT = 3 * MG, UG = MG * kGateRows;
+  const int n_sites = bs.n;
+  const int a = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - a * tiles) * kExTraj;
+  const int count = meta[n_sites + a];
+  if (t0 >= count) return;  // uniform over the block, before any barrier
+  const int32_t* list = lists + meta[a];
+
+  extern __shared__ __align__(16) float smem[];
+  const int kp = pad8(u), ks_n = kp / 8, g3 = 3 * u, sf = kExTraj * kp;
+  const float* wx = wp.p[0];
+  const float* wh = wp.p[1];
+  const float* bx = wp.p[2];
+  const float* bh = wp.p[3];
+  float* states = smem;                            // [state, lo][kExTraj x kp]
+  float* wfrag = states + 2 * sf;                  // [k-step][tile][warp][lane][4]
+  float* gxs = wfrag + ks_n * MT * 4 * kWarp * 4;  // [x][gate][unit]
+  float* bhs = gxs + 6 * UG;                       // [gate][unit]
+  float* hws = bhs + 3 * UG;                       // [unit][amplitude 2 | phase 2]
+  float* hbs = hws + 4 * UG;                       // amplitude b (2), phase b (2)
+  float* red = hbs + 4;                            // [parity][warp][trajectory][4]
+  // A fragment i of lane (g, t) in warp w: rows 16 w + g (+8 for odd i),
+  // columns t (+4 for i >= 2) of the tile; row (gate m / MG, unit
+  // 64 (m % MG) + row) of W_h^T is W_h's column
+  for (int i = threadIdx.x; i < ks_n * MT * 4 * kWarp * 4; i += blockDim.x) {
+    const int e = i & 3, l = (i >> 2) & (kWarp - 1), w = (i >> 7) & 3, tile = i >> 9;
+    const int ks = tile / MT, m = tile - ks * MT;
+    const int k = 8 * ks + (l & 3) + 4 * (e >> 1);
+    const int uu = (m % MG) * kGateRows + 16 * w + (l >> 2) + 8 * (e & 1);
+    wfrag[i] = (k < u && uu < u) ? wh[k * g3 + (m / MG) * u + uu] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < 3 * UG; i += blockDim.x) {
+    const int gate = i / UG, unit = i - gate * UG, col = gate * u + unit;
+    gxs[i] = unit < u ? wx[col] + bx[col] : 0.0f;
+    gxs[3 * UG + i] = unit < u ? wx[g3 + col] + bx[col] : 0.0f;
+    bhs[i] = unit < u ? bh[col] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < UG; i += blockDim.x) {
+    const bool on = i < u;
+    hws[4 * i] = on ? wp.p[4][2 * i] : 0.0f;
+    hws[4 * i + 1] = on ? wp.p[4][2 * i + 1] : 0.0f;
+    hws[4 * i + 2] = on ? wp.p[6][2 * i] : 0.0f;
+    hws[4 * i + 3] = on ? wp.p[6][2 * i + 1] : 0.0f;
+  }
+  if (threadIdx.x < 2) {
+    hbs[threadIdx.x] = wp.p[5][threadIdx.x];
+    hbs[2 + threadIdx.x] = wp.p[7][threadIdx.x];
+  }
+  // the trajectories' states h[a] and their remainders below TF32,
+  // zero-padded to kp units; padding columns repeat the last listed term
+  for (int i = threadIdx.x; i < kExTraj * kp; i += blockDim.x) {
+    const int n = i / kp, k = i - n * kp;
+    const int b = list[min(t0 + n, count - 1)] % b_total;
+    const float v = k < u ? in.hist[(static_cast<int64_t>(b) * n_sites + a) * u + k] : 0.0f;
+    states[state_at(n, k, kp)] = v;
+    states[sf + state_at(n, k, kp)] = tf32_lo(v);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  // the thread's trajectories 8 cb + 2 t + v (e = 2 cb + v): their samples,
+  // second flip sites and inputs
+  int sample_of[8], second[8];
+  float x[8];
 #pragma unroll
-    for (int t = 0; t < kExSufT; ++t) {
-      if (grp * kExSufT + t >= count) continue;
-      const int b = sample_of[t];
-      const float d_re = (re[t] - rec[t]) - lp_re[b];
-      const float d_im = (im[t] - imc[t]) - lp_im[b];
-      const float mag = el * expf(d_re);
-      terms_re[base + b] = mag * cosf(d_im);
-      terms_im[base + b] = mag * sinf(d_im);
+  for (int e = 0; e < 8; ++e) {
+    const int term = list[min(t0 + 8 * (e >> 1) + 2 * t + (e & 1), count - 1)];
+    int ka;
+    float el;
+    bond_at(bs, term / b_total, ka, second[e], el);
+    sample_of[e] = term % b_total;
+    x[e] = 1.0f - static_cast<float>(samples[static_cast<int64_t>(sample_of[e]) * n_sites + a]);
+  }
+  // lane n of warp 3 (whose rows hold the padding units, so it updates the
+  // fewest) keeps trajectory n's up-count and Kahan pairs
+  const int my_term = list[min(t0 + lane, count - 1)];
+  const int my_b = my_term % b_total;
+  const int64_t my_row = static_cast<int64_t>(my_b) * n_sites;
+  int my_second, my_a;
+  float my_el;
+  bond_at(bs, my_term / b_total, my_a, my_second, my_el);
+  float re = 0.0f, rec = 0.0f, im = 0.0f, imc = 0.0f, up = 0.0f;
+  if (warp == 3) {
+    re = (a > 0 ? in.pfx_re[my_row + a - 1] : 0.0f) + in.fl_re[my_row + a];
+    im = (a > 0 ? in.pfx_im[my_row + a - 1] : 0.0f) + in.fl_im[my_row + a];
+    up = in.cup[my_row + a] + (1.0f - static_cast<float>(samples[my_row + a]));
+  }
+
+  for (int n = a + 1; n < n_sites; ++n) {
+    const int par = (n - a - 1) & 1;
+    // accumulators from b_h: tile m holds gate m / MG, units 64 (m % MG) + row
+    float d[MT][16];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int base = (m / MG) * UG + (m % MG) * kGateRows + 16 * warp + g;
+      const float b0 = bhs[base], b1 = bhs[base + 8];
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb) {
+        d[m][4 * cb] = b0; d[m][4 * cb + 1] = b0;
+        d[m][4 * cb + 2] = b1; d[m][4 * cb + 3] = b1;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pin(d[m][i]);
     }
+    product_k_steps<MT, kExTraj>(d, wfrag, states, states + sf, kp * 32, 0, ks_n, warp, lane,
+                                 [] {});
+    // the gate update on the accumulators: the r, z, c of a unit are the
+    // same register of tiles mg, MG + mg, 2 MG + mg
+    float q[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q[i][e] = 0.0f;
+#pragma unroll
+    for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int unit = mg * kGateRows + 16 * warp + g + 8 * rh;
+        if (unit >= kp) continue;
+        const float4 hw = reinterpret_cast<const float4*>(hws)[unit];
+        const float* gx = gxs + unit;
+        const float gx0[3] = {gx[0], gx[UG], gx[2 * UG]};
+        const float gx1[3] = {gx[3 * UG], gx[4 * UG], gx[5 * UG]};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = 4 * (e >> 1) + 2 * rh + (e & 1);
+          const int at = state_at(8 * (e >> 1) + 2 * t + (e & 1), unit, kp);
+          const bool up_spin = x[e] > 0.5f;
+          const float rg = sigmoid_tanh((up_spin ? gx1[0] : gx0[0]) + d[mg][i]);
+          const float zg = sigmoid_tanh((up_spin ? gx1[1] : gx0[1]) + d[MG + mg][i]);
+          const float cg = tanhf((up_spin ? gx1[2] : gx0[2]) + rg * d[2 * MG + mg][i]);
+          // in place: only this thread reads or writes the element here
+          const float hu = zg * states[at] + (1.0f - zg) * cg;
+          const float hv = unit < u ? hu : 0.0f;
+          states[at] = hv;
+          states[sf + at] = tf32_lo(hv);
+          q[0][e] = fmaf(hv, hw.x, q[0][e]);
+          q[1][e] = fmaf(hv, hw.y, q[1][e]);
+          q[2][e] = fmaf(hv, hw.z, q[2][e]);
+          q[3][e] = fmaf(hv, hw.w, q[3][e]);
+        }
+      }
+    // the heads: sums over the warp's units (the lanes of one t), then over
+    // the warps in order
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int off = 4; off < kWarp; off <<= 1)
+          q[i][e] += __shfl_xor_sync(0xffffffffu, q[i][e], off);
+    float* red_n = red + (par * 4 + warp) * kExTraj * 4;
+    if (g == 0) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        reinterpret_cast<float4*>(red_n)[8 * (e >> 1) + 2 * t + (e & 1)] =
+            make_float4(q[0][e], q[1][e], q[2][e], q[3][e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float s = static_cast<float>(samples[static_cast<int64_t>(sample_of[e]) * n_sites + n]);
+      x[e] = n == second[e] ? 1.0f - s : s;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (warp == 3) {
+      const float4* red_p = reinterpret_cast<const float4*>(red + par * 4 * kExTraj * 4);
+      float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float4 r = red_p[w * kExTraj + lane];
+        l[0] += r.x;
+        l[1] += r.y;
+        l[2] += r.z;
+        l[3] += r.w;
+      }
+      float lp0, lp1, ph0, ph1;
+      crnn_logps(l[0] + hbs[0], l[1] + hbs[1], l[2] + hbs[2], l[3] + hbs[3], n, up, n_sites,
+                 u1 != 0, lp0, lp1, ph0, ph1);
+      float s = static_cast<float>(samples[my_row + n]);
+      if (n == my_second) s = 1.0f - s;
+      const bool one = s > 0.5f;
+      kadd(re, rec, 0.5f * (one ? lp1 : lp0));
+      kadd(im, imc, one ? ph1 : ph0);
+      up += s;
+    }
+  }
+  if (warp == 3 && t0 + lane < count) {
+    const float d_re = (re - rec) - in.lp_re[my_b];
+    const float d_im = (im - imc) - in.lp_im[my_b];
+    const float mag = my_el * expf(d_re);
+    terms_re[my_term] = mag * cosf(d_im);
+    terms_im[my_term] = mag * sinf(d_im);
   }
 }
 
@@ -295,19 +563,39 @@ __global__ void exchange_sum_kernel(const float* __restrict__ terms_re,
 
 template <bool kSample, bool kHistory>
 cudaError_t launch_exchange_base(int32_t* samples, uint32_t seed, uint32_t offset,
-                                 const WeightPtrs& wp, float* hist, float* pfx_re,
-                                 float* pfx_im, float* cup, float* lp_re, float* lp_im,
-                                 int b_total, int n_sites, int u, int u1, cudaStream_t st) {
+                                 const WeightPtrs& wp, const ExBase& out, int b_total,
+                                 int n_sites, int u, int u1, cudaStream_t st) {
   const size_t smem = exchange_base_smem_bytes(u);
   cudaError_t err = cudaFuncSetAttribute(exchange_base_kernel<kSample, kHistory>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  exchange_base_kernel<kSample, kHistory><<<(b_total + kExBaseWarps - 1) / kExBaseWarps,
-                                            kExBaseWarps * kWarp, smem, st>>>(
-      samples, seed, offset, wp, hist, pfx_re, pfx_im, cup, lp_re, lp_im, b_total, n_sites, u,
-      u1);
+  exchange_base_kernel<kSample, kHistory><<<(b_total + kExP - 1) / kExP, ex_base_threads(u),
+                                            smem, st>>>(samples, seed, offset, wp, out,
+                                                        b_total, n_sites, u, u1);
   return cudaGetLastError();
+}
+
+template <int MG>
+cudaError_t launch_exchange_suffix(const int32_t* samples, const WeightPtrs& wp,
+                                   const Bonds& bs, const ExIn& in, const int32_t* lists,
+                                   const int32_t* meta, float* terms_re, float* terms_im,
+                                   int b_total, int tiles, int u, int u1, cudaStream_t st) {
+  const size_t smem = exchange_suffix_smem_bytes(u);
+  cudaError_t err = cudaFuncSetAttribute(exchange_suffix_kernel<MG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  exchange_suffix_kernel<MG><<<bs.n * tiles, 4 * kWarp, smem, st>>>(
+      samples, wp, bs, in, lists, meta, terms_re, terms_im, b_total, tiles, u, u1);
+  return cudaGetLastError();
+}
+
+// The most bonds that start at one site, those that start at site 0 (NN,
+// NNN and the wraps (0, N-1), (0, N-2)): the suffix pass gives each start
+// site the blocks of that many lists.
+inline int max_bonds_per_start(const Bonds& bs) {
+  return (bs.n > 1) + (bs.has_nnn && bs.n > 2) + (bs.periodic ? 1 + (bs.has_nnn != 0) : 0);
 }
 
 template <bool kSample>
@@ -316,48 +604,45 @@ int launch_exchange(void* samples_v, uint32_t seed, uint32_t offset, const Weigh
                     int b_total, int n_sites, int u, int u1, float el_nn, float el_nnn,
                     int has_nnn, int periodic, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int32_t* samples = static_cast<int32_t*>(samples_v);
-  float* hist = static_cast<float*>(hist_v);
-  const int64_t bn = static_cast<int64_t>(b_total) * n_sites;
-  float* pfx_re = static_cast<float*>(pfx_v);
-  float* pfx_im = pfx_re + bn;
-  float* cup = pfx_im + bn;
+  if (pad64(u) > 2 * kGateRows) return static_cast<int>(cudaErrorInvalidValue);
   const int n_bonds = num_bonds(n_sites, has_nnn, periodic);
   const int64_t kb = static_cast<int64_t>(n_bonds) * b_total;
+  if (kb > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);  // terms are int32
+  int32_t* samples = static_cast<int32_t*>(samples_v);
+  const int64_t bn = static_cast<int64_t>(b_total) * n_sites;
+  float* pfx = static_cast<float*>(pfx_v);
+  float* out = static_cast<float*>(out_v);
+  const ExBase base{static_cast<float*>(hist_v), pfx, pfx + bn, pfx + 2 * bn, pfx + 3 * bn,
+                    pfx + 4 * bn, out + 2 * b_total, out + 3 * b_total};
   float* terms_re = static_cast<float*>(terms_v);
   float* terms_im = terms_re + kb;
   int32_t* lists = static_cast<int32_t*>(order_v);
-  int32_t* counts = lists + kb;
-  float* eoff_re = static_cast<float*>(out_v);
-  float* eoff_im = eoff_re + b_total;
-  float* lp_re = eoff_im + b_total;
-  float* lp_im = lp_re + b_total;
+  int32_t* meta = lists + kb;
   const Bonds bs{n_sites, has_nnn, periodic, el_nn, el_nnn};
 
-  cudaError_t err = launch_exchange_base<kSample, true>(
-      samples, seed, offset, wp, hist, pfx_re, pfx_im, cup, lp_re, lp_im, b_total, n_sites, u,
-      u1, st);
+  cudaError_t err = launch_exchange_base<kSample, true>(samples, seed, offset, wp, base,
+                                                        b_total, n_sites, u, u1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  exchange_list_kernel<<<(n_bonds + kExListWarps - 1) / kExListWarps, kExListWarps * kWarp, 0,
-                         st>>>(samples, bs, lists, counts, terms_re, terms_im, b_total, n_bonds);
+  exchange_list_kernel<<<(n_sites + kExListWarps - 1) / kExListWarps, kExListWarps * kWarp, 0,
+                         st>>>(samples, bs, lists, meta, terms_re, terms_im, b_total, n_bonds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem_suf = exchange_suffix_smem_bytes(u);
-  err = cudaFuncSetAttribute(exchange_suffix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_suf));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t warps = static_cast<int64_t>(n_bonds) * ((b_total + kExSufT - 1) / kExSufT);
-  const int blocks = static_cast<int>((warps + kExSufWarps - 1) / kExSufWarps);
-  exchange_suffix_kernel<<<blocks, kExSufWarps * kWarp, smem_suf, st>>>(
-      samples, wp, bs, hist, pfx_re, pfx_im, cup, lp_re, lp_im, lists, counts, terms_re,
-      terms_im, b_total, n_bonds, u, u1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (max_bonds_per_start(bs) * b_total + kExTraj - 1) / kExTraj;
+  if (tiles > 0) {
+    const ExIn in{base.hist, base.pfx_re, base.pfx_im, base.cup, base.fl_re, base.fl_im,
+                  base.lp_re, base.lp_im};
+    err = pad64(u) == kGateRows
+              ? launch_exchange_suffix<1>(samples, wp, bs, in, lists, meta, terms_re, terms_im,
+                                          b_total, tiles, u, u1, st)
+              : launch_exchange_suffix<2>(samples, wp, bs, in, lists, meta, terms_re, terms_im,
+                                          b_total, tiles, u, u1, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
-  exchange_sum_kernel<<<(b_total + 127) / 128, 128, 0, st>>>(terms_re, terms_im, eoff_re,
-                                                             eoff_im, b_total, n_bonds);
+  exchange_sum_kernel<<<(b_total + 127) / 128, 128, 0, st>>>(terms_re, terms_im, out,
+                                                             out + b_total, b_total, n_bonds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,10 +654,11 @@ extern "C" int rnnwf_j1j2_num_bonds(int n_sites, int has_nnn, int periodic) {
   return rnnwf::num_bonds(n_sites, has_nnn, periodic);
 }
 
-// Scratch (allocated by the caller): hist B*N*U floats; pfx 3*B*N floats
-// (Re and Im prefixes, up-counts); terms 2*K*B floats; order K*B + K ints
-// (the bond lists, then their counts), K = rnnwf_j1j2_num_bonds.  out: 4*B
-// floats (eoff_re, eoff_im, lp_re, lp_im).  seed and offset are unused.
+// Scratch (allocated by the caller): hist B*N*U floats; pfx 5*B*N floats
+// (the Re and Im prefixes, the up-counts, site n's flipped Re and Im
+// terms); terms 2*K*B floats; order K*B + 2*N ints (the start sites'
+// lists, then their offsets and lengths), K = rnnwf_j1j2_num_bonds.  out:
+// 4*B floats (eoff_re, eoff_im, lp_re, lp_im).  seed and offset are unused.
 extern "C" int rnnwf_j1j2_exchange_offdiag(const void* samples, unsigned int seed,
                                            unsigned int offset, const void* wx, const void* wh,
                                            const void* bx, const void* bh, const void* aw,
@@ -410,9 +696,10 @@ extern "C" int rnnwf_crnn_sample(unsigned int seed, unsigned int offset, const v
                                  const void* ab, const void* pw, const void* pb, void* samples,
                                  void* lp, int b_total, int n_sites, int u, int u1,
                                  void* stream) {
+  rnnwf::ExBase out{};
+  out.lp_re = static_cast<float*>(lp);
   return static_cast<int>(rnnwf::launch_exchange_base<true, false>(
       static_cast<int32_t*>(samples), seed, offset,
-      rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), nullptr, nullptr, nullptr, nullptr,
-      static_cast<float*>(lp), nullptr, b_total, n_sites, u, u1,
+      rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), out, b_total, n_sites, u, u1,
       static_cast<cudaStream_t>(stream)));
 }

@@ -34,6 +34,8 @@ __host__ __device__ inline int mdrnn_weight_floats(int u) {
 // Dynamic shared memory of each MDRNN kernel, defined beside the kernel and
 // used both by its launch and by rnnwf_fits_shared_memory.
 size_t mdrnn_sweep_smem_bytes(int nx, int u);
+// B14's reverse sweep (its column buffers); SIZE_MAX past U = 128, where
+// its register tiles of Wh and Wv end.
 size_t mdrnn_bwd_smem_bytes(int nx, int u);
 // The suffix pass (mdrnn_flip.cu), kSuffixTraj trajectories per block.
 // Its row buffers are in device memory, so its shared memory does not

@@ -1,6 +1,7 @@
 // Warpgroup products on the tensor cores in TF32, made float32-accurate by
-// the 3xTF32 split, for the flip suffix passes: K3/K4/B6 (csrc/tfim_flip.cu)
-// and B15/B16 (csrc/mdrnn_flip.cu).
+// the 3xTF32 split, for the flip and exchange suffix passes: K3/K4/B6
+// (csrc/tfim_flip.cu), B10/B11 (csrc/j1j2_exchange.cu) and B15/B16
+// (csrc/mdrnn_flip.cu).
 //
 // Each operand x = hi + lo, with hi = x with its low 13 mantissa bits
 // cleared and lo = (x - hi) cleared the same way; a k-step of 8 takes

@@ -58,8 +58,9 @@ SIGNATURES = {
     "rnnwf_crnn_sample": ([_U, _U] + [_P] * 10 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_log_prob": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_sample": ([_U, _U] + [_P] * 9 + [_I] * 4 + [_P], _I),
-    "rnnwf_mdrnn_log_prob_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),
-    "rnnwf_mdrnn_bwd_partial_floats": ([_I, _I], _LL),
+    "rnnwf_mdrnn_replay": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_log_prob_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    "rnnwf_mdrnn_bwd_partial_floats": ([_I, _I, _I], _LL),
     "rnnwf_mdrnn_flip_ratio_sum": ([_P] * 14 + [_LL] + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_sample_and_flip_sum": ([_U, _U] + [_P] * 14 + [_LL] + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_suffix_scratch_floats": ([_I] * 4 + [ctypes.POINTER(_LL)], _I),

@@ -4,8 +4,10 @@ whose backward is B14.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/fused_mdrnn.py`` (``mdrnn_log_prob``,
 ``mdrnn_sample``, ``make_mdrnn_log_prob_fn``).  The CUDA kernels are
-``csrc/fused_mdrnn.cu``; the plain PyTorch versions below are the same site
-loop in visit order written with tensor ops.
+``csrc/fused_mdrnn.cu``; when a gradient follows, B12 stores B14's replay
+(``Replay``) and B14 (``ops/fused_mdrnn_bwd.py``) starts from it.  The plain
+PyTorch versions below are the same site loop in visit order written with
+tensor ops (the replay's is ``replay_plain``).
 
 Visit order: left to right on even rows, right to left on odd rows
 (``visit_order``).  Each site consumes the spin and cell output of its
@@ -27,7 +29,7 @@ its kernel launches in its ``launches`` attribute.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +135,26 @@ def sample_plain(weights: Weights, uniforms: torch.Tensor, nx: int, ny: int):
     return to_lattice(spins, nx, ny), lp
 
 
+class Replay(NamedTuple):
+    """B14's replay, B12 storing (stage 1 of ``csrc/fused_mdrnn_bwd.cu``):
+    the joint log p and, per (sample, visit position), what the reverse
+    sweep and the weight cotangent read."""
+
+    lp: torch.Tensor    # (B,)
+    hist: torch.Tensor  # (B, NS, U) the cell outputs h_m in visit order
+    p1: torch.Tensor    # (B, NS) the head's p(s_m = 1)
+
+
+def replay_plain(weights: Weights, samples: torch.Tensor) -> Replay:
+    """The plain replay: ``sweep_plain``'s teacher-forced history and log p,
+    and the head's p(s = 1) on that history."""
+    _, nx, ny = samples.shape
+    _, lp, hist, _ = sweep_plain(weights, nx, ny, samples=samples)
+    logits = hist @ weights[5] + weights[6]
+    p1 = torch.exp(logp2(logits[..., 0], logits[..., 1], torch.ones_like(logits[..., 0])))
+    return Replay(lp, hist, p1)
+
+
 def log_prob_bwd_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
     """VJP of ``log_prob_plain`` for cotangent ``g`` (B,): autograd through
     the plain loop.  Returns the seven weight gradients."""
@@ -196,20 +218,42 @@ def weight_ptrs(weights: Weights):
 # B12 and B13 wrappers and the autograd Function (B12 forward, B14 backward)
 # ---------------------------------------------------------------------------
 
-def mdrnn_log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
-    """B12: (B, Nx, Ny) int32 samples -> (B,) float32 joint log p (no
-    gradient)."""
-    if is_cpu_call(samples, *weights):
-        return log_prob_plain(weights, samples)
+def launch_replay(weights: Weights, samples: torch.Tensor) -> Replay:
+    """Launches B12 storing B14's replay on CUDA tensors (the callers count
+    the launch: B12's wrapper, or B14's as its stage 1)."""
     u = check_weights(weights)
     b, nx, ny = check_samples(samples)
     check_supported(nx, ny, u, samples.device)
-    out = torch.empty(b, dtype=torch.float32, device=samples.device)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                       device=samples.device)
+    out = Replay(empty(b), empty(b, nx * ny, u), empty(b, nx * ny))
     lib = load_library().lib
     with torch.cuda.device(samples.device):
-        err = lib.rnnwf_mdrnn_log_prob(samples.data_ptr(), *weight_ptrs(weights),
-                                       out.data_ptr(), b, nx, ny, u, stream_of(samples))
-    check(err, "rnnwf_mdrnn_log_prob")
+        err = lib.rnnwf_mdrnn_replay(samples.data_ptr(), *weight_ptrs(weights),
+                                     out.hist.data_ptr(), out.p1.data_ptr(), out.lp.data_ptr(),
+                                     b, nx, ny, u, stream_of(samples))
+    check(err, "rnnwf_mdrnn_replay")
+    return out
+
+
+def mdrnn_log_prob(weights: Weights, samples: torch.Tensor, store: bool = False):
+    """B12: (B, Nx, Ny) int32 samples -> (B,) float32 joint log p (no
+    gradient); with ``store``, the ``Replay`` that B14 starts from (its
+    ``lp`` the same log p)."""
+    if is_cpu_call(samples, *weights):
+        return replay_plain(weights, samples) if store else log_prob_plain(weights, samples)
+    if store:
+        out = launch_replay(weights, samples)
+    else:
+        u = check_weights(weights)
+        b, nx, ny = check_samples(samples)
+        check_supported(nx, ny, u, samples.device)
+        out = torch.empty(b, dtype=torch.float32, device=samples.device)
+        lib = load_library().lib
+        with torch.cuda.device(samples.device):
+            err = lib.rnnwf_mdrnn_log_prob(samples.data_ptr(), *weight_ptrs(weights),
+                                           out.data_ptr(), b, nx, ny, u, stream_of(samples))
+        check(err, "rnnwf_mdrnn_log_prob")
     mdrnn_log_prob.launches += 1
     return out
 
@@ -247,11 +291,18 @@ mdrnn_sample.launches = 0
 
 class MDRNNLogProb(torch.autograd.Function):
     """log p(samples) with B12 forward and B14 backward (the counterpart of
-    ``make_mdrnn_log_prob_fn``'s ``custom_vjp``)."""
+    ``make_mdrnn_log_prob_fn``'s ``custom_vjp``).  On the card, when a
+    weight needs its gradient, the forward is B12 storing B14's replay, and
+    the backward starts from it (one forward sweep per step, not two)."""
 
     @staticmethod
     def forward(ctx, samples, *weights):
         ctx.save_for_backward(samples, *weights)
+        ctx.replay = None
+        if samples.is_cuda and any(ctx.needs_input_grad[1:]):
+            replay = mdrnn_log_prob(weights, samples, store=True)
+            ctx.replay = replay._replace(lp=None)  # ctx keeps no reference to its output
+            return replay.lp
         return mdrnn_log_prob(weights, samples)
 
     @staticmethod
@@ -259,7 +310,7 @@ class MDRNNLogProb(torch.autograd.Function):
         from .fused_mdrnn_bwd import mdrnn_log_prob_bwd
 
         samples, *weights = ctx.saved_tensors
-        grads = mdrnn_log_prob_bwd(tuple(weights), samples, g.contiguous())
+        grads = mdrnn_log_prob_bwd(tuple(weights), samples, g.contiguous(), replay=ctx.replay)
         return (None, *grads)
 
 

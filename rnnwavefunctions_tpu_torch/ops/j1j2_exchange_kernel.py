@@ -78,7 +78,8 @@ def sample_and_exchange_plain(weights: Weights, uniforms: torch.Tensor, *, u1: b
 def _launch(name: str, weights: Weights, samples: torch.Tensor, seed: int, offset: int,
             u1: bool, el_nn: float, el_nnn: float, has_nnn: bool, periodic: bool):
     """Allocates the scratch and runs the four launches of B10 (``samples``
-    read) or B11 (``samples`` written)."""
+    read) or B11 (``samples`` written): the base pass, the bond lists, the
+    suffix pass on the tensor cores and the per-sample sum."""
     b, n = samples.shape
     u = weights[1].shape[0]
     dev = samples.device
@@ -86,9 +87,10 @@ def _launch(name: str, weights: Weights, samples: torch.Tensor, seed: int, offse
     k = lib.rnnwf_j1j2_num_bonds(n, int(has_nnn), int(periodic))
     f32 = dict(dtype=torch.float32, device=dev)
     hist = torch.empty(b * n * u, **f32)
-    pfx = torch.empty(3, b * n, **f32)     # Re and Im prefixes, up-counts
+    pfx = torch.empty(5, b * n, **f32)     # Re and Im prefixes, up-counts, flipped site terms
     terms = torch.empty(2, k * b, **f32)   # Re and Im term of each (bond, sample)
-    order = torch.empty(k * b + k, dtype=torch.int32, device=dev)  # anti-aligned lists, counts
+    # the start sites' lists of exchanged terms, then their offsets and lengths
+    order = torch.empty(k * b + 2 * n, dtype=torch.int32, device=dev)
     out = torch.empty(4, b, **f32)         # eoff_re, eoff_im, lp_re, lp_im
     with torch.cuda.device(dev):
         err = getattr(lib, name)(

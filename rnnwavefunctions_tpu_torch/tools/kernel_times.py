@@ -17,9 +17,13 @@ launches), B19 and ``torch.nn.GRU`` forward on B19's inputs; B17 and B18
 ``MDRNN2D`` seed 2468 with ``chip_smoke.py``'s noise and halved recurrent
 matrices; 5 launches) and, where the checkout takes them, B16 at each
 suffix tile T and B17/B18 with one and two samples per reverse-sweep block;
-then K3's, K2's, B16's and B17/B18's launches apart by ``torch.profiler``
-over 10 calls (B16 over 3).  The card's name and power
-limit come first, a JSON line last.
+B8, B10 and B11 at the J1-J2 flagship (``CRNNU1`` seed 4321, J1J2(100,
+J2=0.2), open chain, zero-magnetisation samples); B12, B12 storing B14's
+replay where the checkout has it, B14 and B14 from that replay at the MDRNN
+flagship; then K3's, K2's, B16's, B17/B18's, B10's, B11's and B14's (alone
+and from the replay) launches apart by ``torch.profiler`` over 10 calls
+(B16 over 3).  The card's name and power limit come first, a JSON line
+last.
 """
 
 from __future__ import annotations
@@ -94,7 +98,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
     import rnnwavefunctions_tpu_torch as pkg
-    from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd, fused_jac
+    from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_gru, fused_gru_bwd, fused_jac
+    from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
+    from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
     from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
     from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
@@ -102,7 +108,8 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
     w = _model(pkg, "PRNN1D", 100, 50, 1234, dev)
-    trunk = _model(pkg, "CRNNU1", 100, 50, 4321, dev)[:4]
+    wc = _model(pkg, "CRNNU1", 100, 50, 4321, dev)
+    trunk = wc[:4]
     gen = torch.Generator().manual_seed(99)
     s = (torch.rand(500, 100, generator=gen) < 0.5).to(torch.int32).to(dev)
     g = torch.randn(500, generator=gen).to(dev)
@@ -163,6 +170,37 @@ def main() -> None:
                             "K2 weight cotangent": "bwd_weights_kernel",
                             "K2 chunk sum": "sum_partials_kernel",
                             "K2 one-warp kernel": "gru_bwd_kernel"}))
+    # the J1-J2 kernels on zero-magnetisation samples, and their launches:
+    # base pass, bond lists, suffix pass, sum
+    info = pkg.J1J2(100, j2=0.2).exchange_kernel_info
+    sector = (torch.rand(500, 100, generator=gen).argsort(dim=1) < 50).to(torch.int32).to(dev)
+    b10 = lambda: jk.j1j2_exchange_offdiag(wc, sector, u1=True, **info)  # noqa: E731
+    b11 = lambda: jk.j1j2_sample_and_exchange(wc, 500, 100, 3, 4, u1=True, **info)  # noqa: E731
+    times["B8"] = _cuda_ms(lambda: fused_crnn.crnn_sample(wc, 500, 100, 3, 4, True))
+    times["B10"] = _cuda_ms(b10)
+    times["B11"] = _cuda_ms(b11)
+    for name, fn in (("B10", b10), ("B11", b11)):
+        split.update(_profiled(fn, {f"{name} base pass": "exchange_base_kernel",
+                                    f"{name} bond lists": "exchange_list_kernel",
+                                    f"{name} suffix pass": "exchange_suffix_kernel",
+                                    f"{name} sum": "exchange_sum_kernel"}))
+    # B12 and B14, and B14 from B12's stored replay where the checkout has it
+    gm = torch.randn(500, generator=gen).to(dev)
+    times["B12"] = _cuda_ms(lambda: fused_mdrnn.mdrnn_log_prob(wm, lat), reps=10)
+    times["B14"] = _cuda_ms(lambda: fused_mdrnn_bwd.mdrnn_log_prob_bwd(wm, lat, gm), reps=10)
+    b14_parts = {"B14 replay": "mdrnn_sweep_kernel", "B14 reverse sweep": "mdrnn_bwd_sweep_kernel",
+                 "B14 weight cotangent": "mdrnn_bwd_weights_kernel",
+                 "B14 chunk sum": "sum_partials_kernel", "B14 one-warp kernel": "mdrnn_bwd_kernel"}
+    split.update(_profiled(lambda: fused_mdrnn_bwd.mdrnn_log_prob_bwd(wm, lat, gm), b14_parts))
+    if "store" in inspect.signature(fused_mdrnn.mdrnn_log_prob).parameters:
+        mreplay = fused_mdrnn.mdrnn_log_prob(wm, lat, store=True)
+        times["B12 storing"] = _cuda_ms(lambda: fused_mdrnn.mdrnn_log_prob(wm, lat, store=True),
+                                        reps=10)
+        from_replay = lambda: fused_mdrnn_bwd.mdrnn_log_prob_bwd(  # noqa: E731
+            wm, lat, gm, replay=mreplay)
+        times["B14 from replay"] = _cuda_ms(from_replay, reps=10)
+        split.update({f"{k} (from replay)": v for k, v in _profiled(
+            from_replay, {k: v for k, v in b14_parts.items() if k != "B14 replay"}).items()})
     times.update({k: v for k, v in split.items() if v > 0})
     print(json.dumps({"label": args.label, "ms": times}))
 

@@ -1,8 +1,9 @@
 """PyTorch port: the CUDA kernels K1-K4, B5-B11, B12-B16 and B17-B21 against
-their plain versions on the card, at small shapes with ragged batches, and the
-training steps that launch them.  They skip without a CUDA device (a CUDA
-kernel has no CPU mode).  This file imports no JAX, so on a machine
-with a card and without JAX it runs as
+their plain versions on the card, at small shapes with ragged batches (B10,
+B11, B8 and B14 also over their kernels' edges, B14 stage by stage against
+its staged plain version), and the training steps that launch them.  They
+skip without a CUDA device (a CUDA kernel has no CPU mode).  This file
+imports no JAX, so on a machine with a card and without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -377,6 +378,48 @@ def test_b8_matches_b11_and_plain(cuda, u1):
         assert float(np.abs(freq - probs).max()) <= 0.01
 
 
+# B10, B11 and B8 over their kernels' edges: (N, periodic, J2, u1, U) with N
+# even and odd, with and without the wrap bonds (which start at sites 0 and
+# 1, in those start sites' lists), J2 = 0 (NN lists alone) and J2 != 0 (NN
+# and NNN trajectories in one tile), the mask on and off, U below, at and
+# past one 64-row gate tile, and the cRNN family's widest, 91; a short
+# chain whose wraps repeat its bonds.  Random samples where the mask is off;
+# at odd N it is off (the sector there holds a forbidden class).
+EXCHANGE_EDGES = [
+    (N, False, 0.2, True, 50), (N, True, 0.2, True, 50), (N, False, 0.0, True, 50),
+    (N, True, 0.0, True, 50), (N, False, 0.2, False, 50), (N - 1, True, 0.2, False, 50),
+    (N - 1, False, 0.0, False, 16), (N, True, 0.2, True, 7), (N, True, 0.2, True, 64),
+    (N, True, 0.2, True, 91), (N, False, 0.2, True, 91), (4, True, 0.2, True, 16),
+]
+
+
+@pytest.mark.parametrize("n,periodic,j2,u1,u", EXCHANGE_EDGES)
+def test_exchange_kernels_over_edges(cuda, n, periodic, j2, u1, u):
+    w = _crnn_weights(u, cuda)
+    s = _sector(cuda, n=n) if u1 else _samples(cuda, n=n)
+    info = J1J2(n, j2=j2, periodic=periodic, marshall_sign=periodic).exchange_kernel_info
+    before = jk.j1j2_exchange_offdiag.launches
+    got = jk.j1j2_exchange_offdiag(w, s, u1=u1, **info)
+    assert jk.j1j2_exchange_offdiag.launches == before + 1
+    want = jk.exchange_offdiag_plain(w, s, u1=u1, **info)
+    for a, b in zip(got[:2], want[:2]):
+        _close_to_max(a, b)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, atol=1e-5 * n, rtol=0)
+    again = jk.j1j2_exchange_offdiag(w, s, u1=u1, **info)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    s11, *rest = jk.j1j2_sample_and_exchange(w, B, n, 3, 5, u1=u1, **info)
+    if u1:
+        assert bool((s11.sum(dim=1) == n // 2).all())
+    for a, b in zip(rest, jk.j1j2_exchange_offdiag(w, s11, u1=u1, **info)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    for a, b in zip(rest[:2], jk.exchange_offdiag_plain(w, s11, u1=u1, **info)[:2]):
+        _close_to_max(a, b)
+    s8, lp8 = fused_crnn.crnn_sample(w, B, n, 3, 5, u1)
+    assert torch.equal(s8, s11)
+    torch.testing.assert_close(lp8, 2.0 * rest[2], atol=0, rtol=0)
+
+
 def test_crnn_coverage_on_the_card(cuda):
     assert fused_crnn.supports(100, (50,), cuda)
     assert not fused_crnn.supports(100, (256,), cuda)
@@ -417,6 +460,43 @@ def test_b12_b14_match_plain(cuda, nx, ny):
     for a, b in zip(fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g),
                     fused_mdrnn.log_prob_bwd_plain(w, s, g)):
         torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
+
+
+# B14's edges: one site, one-wide lattices, both row parities' ends, a
+# narrow U, the flagship's, and the widest U the MDRNN family takes at 4x4
+MDRNN_BWD_EDGES = [(nx, ny, 50) for nx, ny in MDRNN_SHAPES + [(1, 1)]] + [
+    (4, 4, 8), (4, 4, "widest")]
+
+
+@pytest.mark.parametrize("nx,ny,u", MDRNN_BWD_EDGES)
+def test_b14_stages_match_staged_plain(cuda, nx, ny, u):
+    """B14's three stages against ``log_prob_bwd_staged_plain``'s: the
+    replay (B12 storing), C's rows and the gradients; the same bits twice,
+    and from a replay that B12 stored."""
+    if u == "widest":
+        u = max(v for v in range(1, 257) if fused_mdrnn.supports(nx, ny, v, cuda))
+    w, s = _mdrnn_weights(nx, ny, u, cuda), _lattices(nx, ny, cuda)
+    g = _cotangent(B, cuda)
+    before = fused_mdrnn_bwd.mdrnn_log_prob_bwd.launches
+    grads, replay, cot = fused_mdrnn_bwd.mdrnn_log_prob_bwd_stages(w, s, g)
+    want, want_replay, want_cot = fused_mdrnn_bwd.log_prob_bwd_stages_plain(w, s, g)
+    torch.testing.assert_close(replay.lp, want_replay.lp, atol=1e-5 * nx * ny, rtol=0)
+    _close_to_max(replay.hist, want_replay.hist)
+    torch.testing.assert_close(replay.p1, want_replay.p1, atol=1e-5, rtol=0)
+    _close_to_max(cot, want_cot)
+    for a, b in zip(grads, want):
+        _close_to_max(a, b)
+    for a, b in zip(grads, fused_mdrnn.log_prob_bwd_plain(w, s, g)):
+        _close_to_max(a, b)
+    again = fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g)
+    stored = fused_mdrnn.mdrnn_log_prob(w, s, store=True)
+    from_replay = fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g, replay=stored)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+    assert all(torch.equal(a, b) for a, b in zip(from_replay, grads))
+    assert torch.equal(stored.lp, fused_mdrnn.mdrnn_log_prob(w, s))
+    assert fused_mdrnn_bwd.mdrnn_log_prob_bwd.launches == before + 3
+    with pytest.raises(ValueError, match="replay tensor"):
+        fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g, replay=stored._replace(p1=stored.p1[1:]))
 
 
 # the suffix pass's tile edges: (nx, ny, U, B, scale of W_h and W_v): one
