@@ -20,24 +20,33 @@ Phases (each prints its time; any failure raises and exits non-zero):
 5. 50 steps of the flagship (N=100, one GRU layer of 50 units, S=500, Adam
    at lr 5e-3): steps/s and the first and last energies, which must be
    finite and falling.
-6. The J1-J2 kernels B7, B9, B10 and B11 against their plain versions at
-   the J1-J2 flagship shapes (N=100, U=50, B=500, perturbed weights) for
-   (open, no Marshall sign, J2=0.2), (periodic, Marshall sign, J2=0.2) and
-   (open, J2=0); B11's samples in the zero-magnetisation sector, its
-   (Re, Im) log psi equal to B7's and its energies to B10's on its own
-   samples, its draws a function of (seed, offset), and its frequencies at
-   N=4 over 20k draws against the exact |psi|^2; B10 and B11 with the mask
-   off, and at U=91 (two 64-row tiles per gate in the suffix pass).
-7. The four J1-J2 kernels and their plain versions timed with CUDA events;
-   B10's and B11's four launches (base pass, bond lists, the tensor-core
-   suffix pass, sum) timed apart by ``torch.profiler``; their FP32 and
-   (B10, B11) tensor-core bounds.
+6. The J1-J2 kernels B7, B9 (alone and from its replay, which the step
+   runs as its forward; the same bits twice and from the replay; the
+   replay's outputs against its plain twin), B10 and B11 against their
+   plain versions at the J1-J2 flagship shapes (N=100, U=50, B=500,
+   perturbed weights) for (open, no Marshall sign, J2=0.2), (periodic,
+   Marshall sign, J2=0.2) and (open, J2=0); B11's samples in the
+   zero-magnetisation sector, its (Re, Im) log psi equal to B7's and its
+   energies to B10's on its own samples, its draws a function of (seed,
+   offset), and its frequencies at N=4 over 20k draws against the exact
+   |psi|^2; B10 and B11 with the mask off, and B7, B9, B10 and B11 at the
+   cRNN family's widest U on the card (two 64-row tiles per gate in the
+   suffix pass).
+7. The J1-J2 kernels and their plain versions timed with CUDA events, B9's
+   replay and B9 from it beside them; B9's four launches (the replay, the
+   reverse sweep, the weight cotangent, the chunk sum) and B10's and B11's
+   four (base pass, bond lists, the tensor-core suffix pass, sum) timed
+   apart by ``torch.profiler``; their FP32 and (B10, B11) tensor-core
+   bounds.
 8. VMC training of J1-J2 at N=10, J2=0.2, Marshall sign on (500 steps)
-   against exact diagonalization; every J1-J2 kernel must have launched.
+   against exact diagonalization; every J1-J2 kernel must have launched
+   (B7 by the evaluation of log psi after training, under no_grad).
 9. 50 steps of the J1-J2 flagship (the complex U(1) cRNN, one GRU layer of
    50 units, on J1J2(N=100, J2=0.2), open chain, S=500, Adam at lr 5e-3):
    steps/s and the first and last energies beside the DMRG energy, which
-   must be finite and falling.
+   must be finite and falling; the steps launch B9's replay and B9 from it
+   once each, B7 only the evaluation after them; and, by ``torch.profiler``
+   over 5 more steps, each step's launches by kernel name.
 10. The 2D MDRNN kernels B12-B16 against their plain versions at the
    flagship shapes (16x16, U=50, B=500, perturbed weights) and on the
    non-square 5x3 and 3x6 lattices: B12 log p and B12 storing B14's replay,
@@ -79,14 +88,16 @@ Phases (each prints its time; any failure raises and exits non-zero):
    jacobian sweep B17 (K2's replay and reverse sweep with g = 1) at N=100,
    U=50, B=500 (history, gate cotangents, dl1, read from its A and C rows,
    then the per-sample rows and log p against the plain rows) and at
-   N=1000, S=64 (where the TPU kernel takes its spill variant B18); B19 and
-   B20 (both parts) on B11's in-sector samples of the J1-J2 flagship model,
-   and its rows against the plain rows; the CG solve B21 on the TFIM
+   N=1000, S=64 (where the TPU kernel takes its spill variant B18); B19
+   storing the gates and B20 (both parts) from them, and B20 alone, on
+   B11's in-sector samples of the J1-J2 flagship model, and its rows
+   against the plain rows; the CG solve B21 on the TFIM
    flagship's (S, S) Gram and the J1-J2 flagship's (2S, 2S) Gram against
    the plain CG, with its relative residual beside the Cholesky solve's.
 19. The minSR kernels, their plain versions and their library yardsticks
-   (``torch.nn.GRU``, i.e. cuDNN, for B19; Cholesky for B21) timed with CUDA
-   events, B19 beside cuDNN; B17's and B18's two launches (the replay, the
+   (``torch.nn.GRU``, i.e. cuDNN, beside B19 not storing, which computes the
+   same history; Cholesky for B21) timed with CUDA events, B19 storing the
+   gates as the step runs it, B20 from the stored gates and alone; B17's and B18's two launches (the replay, the
    reverse sweep) timed apart by ``torch.profiler``; their bounds, and the
    widths their kernel families cover.
 20. minSR accuracy: TFIM N=20 (PRNN1D(20, (50,)), S=500, lr 5e-2) in 50-step
@@ -99,7 +110,8 @@ Phases (each prints its time; any failure raises and exits non-zero):
    and 10 steps of the N=1000, S=64 chain: steps/s and the first and last
    energies, which must be finite and falling.
 
-The second-last line is a JSON object with one entry per kernel: its
+The second-last line is a JSON object with one entry per kernel (B9's
+replay, launched apart as the J1-J2 step's forward, has its own): its
 launches on its main path (phase 5 for K1-K4, phase 9 for B7-B11, phase 13
 for B12-B16, phase 17's parity run for B5, B6 and B8, phase 21's TFIM
 flagship for B17 and B21, its J1-J2 flagship for B19 and B20, its N=1000
@@ -144,6 +156,9 @@ SOURCES = {
                        "rnnwavefunctions_tpu/ops/fused_crnn.py:245"),
     "B9 crnn_log_amp_bwd": ("rnnwavefunctions_tpu_torch/csrc/fused_crnn_bwd.cu",
                             "rnnwavefunctions_tpu/ops/fused_crnn_bwd.py:196"),
+    # B9's stage a, launched apart as the J1-J2 step's forward
+    "B9 replay": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
+                  "rnnwavefunctions_tpu/ops/fused_crnn_bwd.py:196"),
     "B10 j1j2_exchange_offdiag": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
                                   "rnnwavefunctions_tpu/ops/j1j2_exchange_kernel.py:542"),
     "B11 j1j2_sample_and_exchange": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
@@ -232,11 +247,10 @@ def mdrnn_bwd_site_flops(u: int) -> int:
     return 12 * u * u + 40 * u + 20
 
 
-def jac_bwd_site_flops(u: int) -> int:
-    """Operations of one reverse site of the jacobian sweeps: the gates
-    recomputed from h_{n-1} (a 3U x U product), the recurrent cotangent
-    (another), and the elementwise chains."""
-    return 12 * u * u + 60 * u
+def jac_stored_site_flops(u: int) -> int:
+    """Operations of one reverse site of B20 from the stored gates: the
+    recurrent cotangent's 3U x U product and the elementwise chains."""
+    return 6 * u * u + 30 * u
 
 
 def jac_sweep_site_flops(u: int) -> int:
@@ -403,6 +417,7 @@ def main() -> None:
         "B7 crnn_log_amp_parts": fused_crnn.crnn_log_amp_parts,
         "B8 crnn_sample": fused_crnn.crnn_sample,
         "B9 crnn_log_amp_bwd": fused_crnn_bwd.crnn_log_amp_bwd,
+        "B9 replay": fused_crnn.crnn_replay,
         "B10 j1j2_exchange_offdiag": jk.j1j2_exchange_offdiag,
         "B11 j1j2_sample_and_exchange": jk.j1j2_sample_and_exchange,
         "B12 mdrnn_log_prob": fused_mdrnn.mdrnn_log_prob,
@@ -631,6 +646,9 @@ def main() -> None:
         "open, J2=0": pkg.J1J2(N_FLAG),
     }
     flag_info = configs["open, J2=0.2"].exchange_kernel_info
+    # the widths the kernel families take at N=100 on this card
+    gru_u = max(u for u in range(1, 257) if fused_gru.supports(N_FLAG, (u,), dev))
+    crnn_u = max(u for u in range(1, 257) if fused_crnn.supports(N_FLAG, (u,), dev))
 
     with Phase("6 J1-J2 kernels against their plain versions (N=100, U=50, B=500)"):
         worst = 0.0
@@ -645,19 +663,43 @@ def main() -> None:
             worst = max(worst, e)
         record["B7 crnn_log_amp_parts"]["max_abs_err"] = worst
 
-        worst = 0.0
+        # B9 alone and from its replay (CRNNLogAmpParts' forward), on the
+        # flagship weights with the mask on and off and at the family's widest
+        worst = worst_replay = 0.0
         names = ("wx", "wh", "bx", "bh", "ampl_w", "ampl_b", "phase_w", "phase_b")
-        for u1 in (True, False):
-            gk = fused_crnn_bwd.crnn_log_amp_bwd(wc, sector, g_re, g_im, u1)
-            gp = fused_crnn_bwd.log_amp_bwd_plain(wc, sector, g_re, g_im, u1)
+        wide = tuple(t.detach() for t in perturbed_model(pkg, N_FLAG, crnn_u, 4322, dev,
+                                                         cls="CRNNU1").weights())
+        for label, wts, u1 in (("u1=True", wc, True), ("u1=False", wc, False),
+                               (f"U={crnn_u}, u1=True", wide, True)):
+            gk = fused_crnn_bwd.crnn_log_amp_bwd(wts, sector, g_re, g_im, u1)
+            gp = fused_crnn_bwd.log_amp_bwd_plain(wts, sector, g_re, g_im, u1)
+            replay = fused_crnn.crnn_replay(wts, sector, u1)
+            gr = fused_crnn_bwd.crnn_log_amp_bwd(wts, sector, g_re, g_im, u1, replay=replay)
+            again = fused_crnn_bwd.crnn_log_amp_bwd(wts, sector, g_re, g_im, u1)
+            want = fused_crnn.replay_plain(wts, sector, u1)
             torch.cuda.synchronize()
             for name, a, b in zip(names, gk, gp):
                 r = rel(a, b)
-                print(f"B9 d{name} (u1={u1}): max abs err {max_err(a, b):.3e}, "
+                print(f"B9 d{name} ({label}): max abs err {max_err(a, b):.3e}, "
                       f"relative {r:.3e} (tol {rel_tol:.0e})")
-                require(r <= rel_tol, f"B9 d{name}")
+                require(r <= rel_tol, f"B9 d{name} ({label})")
                 worst = max(worst, max_err(a, b))
+            er = max(rel(a, b) for a, b in zip(gr, gp))
+            same = all(torch.equal(a, b) for a, b in zip(gr, gk))
+            twice = all(torch.equal(a, b) for a, b in zip(again, gk))
+            e_lp = max(max_err(replay.re, want.re), max_err(replay.im, want.im))
+            e_st = max(rel(getattr(replay, k), getattr(want, k))
+                       for k in ("rows", "gates", "seeds"))
+            print(f"B9 ({label}) from its replay: relative err {er:.3e} (tol {rel_tol:.0e}), the "
+                  f"bits of B9 alone: {same}; B9 twice, the same bits: {twice}; the replay's "
+                  f"(Re, Im) log psi against plain B7 {e_lp:.3e} (tol {lp_tol:.1e}), its rows, "
+                  f"gates and seeds against the plain replay {e_st:.3e} (tol {rel_tol:.0e})")
+            require(er <= rel_tol and same and twice and e_lp <= lp_tol and e_st <= rel_tol,
+                    f"B9 from its replay, its bits and the replay ({label})")
+            worst_replay = max(worst_replay, e_lp, *(max_err(getattr(replay, k), getattr(want, k))
+                                                     for k in ("rows", "gates", "seeds")))
         record["B9 crnn_log_amp_bwd"]["max_abs_err"] = worst
+        record["B9 replay"]["max_abs_err"] = worst_replay
 
         worst10 = worst11 = 0.0
         for label, ham in configs.items():
@@ -692,22 +734,23 @@ def main() -> None:
             worst11 = max(worst11, ep_lp, *(max_err(a, b) for a, b in zip(k11[:2], p11[:2])))
             again, *_ = jk.j1j2_sample_and_exchange(wc, S_FLAG, N_FLAG, 7, 1, u1=True, **info)
             require(bool((again == s11).all()), "B11 draws are a function of (seed, offset)")
-        # the mask off, on random samples; and U=91, the cRNN family's widest
-        # on an H100, whose suffix pass takes two 64-row tiles per gate
-        wide = tuple(t.detach() for t in perturbed_model(pkg, N_FLAG, 91, 4322, dev,
-                                                         cls="CRNNU1").weights())
+        # the mask off, on random samples; and the cRNN family's widest U on
+        # this card, whose suffix pass takes two 64-row tiles per gate
         for label, wts, u1, s_in in (("mask off, random samples", wc, False, samples),
-                                     ("U=91", wide, True, sector)):
+                                     (f"U={crnn_u}", wide, True, sector)):
             k10 = jk.j1j2_exchange_offdiag(wts, s_in, u1=u1, **flag_info)
             p10 = jk.exchange_offdiag_plain(wts, s_in, u1=u1, **flag_info)
             s11, *k11 = jk.j1j2_sample_and_exchange(wts, S_FLAG, N_FLAG, 7, 1, u1=u1, **flag_info)
             p11 = jk.exchange_offdiag_plain(wts, s11, u1=u1, **flag_info)
+            k7 = fused_crnn.crnn_log_amp_parts(wts, s_in, u1)
             torch.cuda.synchronize()
             er, ep = rel_energy(k10[:2], p10[:2]), rel_energy(k11[:2], p11[:2])
-            el = max(max_err(a, b) for a, b in zip((*k10[2:], *k11[2:]), (*p10[2:], *p11[2:])))
+            el = max(max_err(a, b) for a, b in zip((*k10[2:], *k11[2:], *k7),
+                                                   (*p10[2:], *p11[2:], *p10[2:])))
             print(f"B10 and B11 ({label}, open, J2=0.2): energy relative err {er:.3e} and "
-                  f"{ep:.3e} (tol {rel_tol:.0e}); log psi max abs err {el:.3e} (tol {lp_tol:.1e})")
-            require(er <= rel_tol and ep <= rel_tol and el <= lp_tol, f"B10/B11 ({label})")
+                  f"{ep:.3e} (tol {rel_tol:.0e}); log psi (and B7's) max abs err {el:.3e} "
+                  f"(tol {lp_tol:.1e})")
+            require(er <= rel_tol and ep <= rel_tol and el <= lp_tol, f"B7/B10/B11 ({label})")
             worst10 = max(worst10, el, *(max_err(a, b) for a, b in zip(k10[:2], p10[:2])))
             worst11 = max(worst11, el, *(max_err(a, b) for a, b in zip(k11[:2], p11[:2])))
         record["B10 j1j2_exchange_offdiag"]["max_abs_err"] = worst10
@@ -736,6 +779,8 @@ def main() -> None:
             "B9 crnn_log_amp_bwd": (
                 lambda: fused_crnn_bwd.crnn_log_amp_bwd(wc, s11, g_re, g_im, True),
                 lambda: fused_crnn_bwd.log_amp_bwd_plain(wc, s11, g_re, g_im, True)),
+            "B9 replay": (lambda: fused_crnn.crnn_replay(wc, s11, True),
+                          lambda: fused_crnn.replay_plain(wc, s11, True)),
             "B10 j1j2_exchange_offdiag": (
                 lambda: jk.j1j2_exchange_offdiag(wc, s11, u1=True, **flag_info),
                 lambda: jk.exchange_offdiag_plain(wc, s11, u1=True, **flag_info)),
@@ -749,6 +794,18 @@ def main() -> None:
             record[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
                   f"plain {record[name]['plain_ms']:.4f} ms")
+        # B9 from its replay (CRNNLogAmpParts' backward in the training step),
+        # and its launches apart
+        replay = fused_crnn.crnn_replay(wc, s11, True)
+        t_from = cuda_ms(lambda: fused_crnn_bwd.crnn_log_amp_bwd(wc, s11, g_re, g_im, True,
+                                                                 replay=replay), reps=20)
+        print(f"B9 from its replay {t_from:.4f} ms; the replay {record['B9 replay']['ms']:.4f} ms "
+              f"(B7 {record['B7 crnn_log_amp_parts']['ms']:.4f})")
+        print_launches("B9", pairs["B9 crnn_log_amp_bwd"][0],
+                       {"replay exchange_base_kernel": "exchange_base_kernel",
+                        "reverse sweep bwd_sweep_kernel": "bwd_sweep_kernel",
+                        "weight cotangent bwd_weights_kernel": "bwd_weights_kernel",
+                        "chunk sum sum_partials_kernel": "sum_partials_kernel"})
         for name in ("B10 j1j2_exchange_offdiag", "B11 j1j2_sample_and_exchange"):
             print_launches(name.split()[0], pairs[name][0],
                            {"base pass": "exchange_base_kernel",
@@ -770,6 +827,10 @@ def main() -> None:
         "K4 tfim_flip_ratio_sum": (steps_flip * site_flops(u_, 1), 4 * b_ * n_ + w6 + 8 * b_),
         "B7 crnn_log_amp_parts": (b_ * n_ * site_flops(u_, 2), 4 * b_ * n_ + w8 + 8 * b_),
         "B9 crnn_log_amp_bwd": (b_ * n_ * bwd_site_flops(u_, 2), 4 * b_ * n_ + 8 * b_ + 2 * w8),
+        # the replay's stores: A's rows, the gates, the seeds, (Re, Im)
+        "B9 replay": (b_ * n_ * site_flops(u_, 2),
+                      4 * b_ * n_ + w8 + 4 * (b_ * (n_ + 1) * (u_ + 3) + b_ * n_ * (4 * u_ + 2))
+                      + 8 * b_),
         "B10 j1j2_exchange_offdiag": (steps_exchange * site_flops(u_, 2),
                                       4 * b_ * n_ + w8 + 16 * b_),
         "B11 j1j2_sample_and_exchange": (steps_exchange * site_flops(u_, 2),
@@ -798,7 +859,10 @@ def main() -> None:
         state = trainer.init()
         reset_counts()
         state, ms = trainer.run_steps(state, 500)
-        trainer.local_energy(trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(0)))
+        s_eval = trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(0))
+        trainer.local_energy(s_eval)
+        with torch.no_grad():  # log psi with no gradient after it: B7
+            trainer.ansatz.log_amp_parts(s_eval)
         torch.cuda.synchronize()
         c = counts()
         print("launches:", c)
@@ -823,13 +887,42 @@ def main() -> None:
         state, ms = trainer.run_steps(state, 50)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        trainer.local_energy(trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(1)))
+        s_eval = trainer.ansatz.sample(S_FLAG, torch.Generator().manual_seed(1))
+        trainer.local_energy(s_eval)
+        with torch.no_grad():  # log psi of the drawn samples, no gradient after it: B7
+            trainer.ansatz.log_amp_parts(s_eval)
         torch.cuda.synchronize()
         c = counts()
+        require(c["B7 crnn_log_amp_parts"] == 1 and c["B9 replay"] == 50
+                and c["B9 crnn_log_amp_bwd"] == 50,
+                "the steps ran B9's replay and B9 from it, B7 only the evaluation after them")
         energies = ms["mean_energy"].cpu().numpy()
         print(f"{smi}: {50 / dt:.2f} steps/s ({1000 * dt / 50:.3f} ms/step)")
         print(f"energy: first {energies[0]:.4f}, last {energies[-1]:.4f} "
               f"(DMRG ground state {E_DMRG_J1J2})")
+        # the step's launches by their profiler names (outside the counted run)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = trainer.run_steps(state, 5)
+            torch.cuda.synchronize()
+        on_card = {e.key: e.count / 5 for e in prof.key_averages() if e.self_device_time_total > 0}
+
+        def per_step(part):
+            return sum(v for k, v in on_card.items() if part in k)
+
+        # B9's replay is the teacher-forced base pass storing (ExStore 2)
+        step_kernels = {k: per_step(k) for k in (
+            "exchange_base_kernel<false, (rnnwf::ExStore)2>", "exchange_base_kernel<true",
+            "bwd_sweep_kernel", "bwd_weights_kernel", "sum_partials_kernel",
+            "crnn_log_amp_kernel", "crnn_bwd_kernel")}
+        print("launches per step by profiler name (the profiler's counts):", step_kernels)
+        require(all(step_kernels[k] > 0 for k in (
+                    "exchange_base_kernel<false, (rnnwf::ExStore)2>", "exchange_base_kernel<true",
+                    "bwd_sweep_kernel", "bwd_weights_kernel"))
+                and step_kernels["crnn_log_amp_kernel"] == 0
+                and step_kernels["crnn_bwd_kernel"] == 0,
+                "the J1-J2 step launches B11's base pass and B9's replay, B9's reverse sweep and "
+                "weight cotangent, and neither B7 nor a one-warp B9")
         print("launches:", c)
         require(bool(np.isfinite(energies).all()), "finite J1-J2 flagship energies")
         require(energies[-5:].mean() < energies[:5].mean(), "J1-J2 flagship energies falling")
@@ -1184,13 +1277,15 @@ def main() -> None:
             print(f"{name}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
                   f"{record[name]['bound_ms']:.4f} ms ({record[name]['bound_by']}), "
                   f"kernel {record[name]['ms']:.4f} ms{tc_txt}")
-        gru_u = max(u for u in range(1, 257) if fused_gru.supports(N_FLAG, (u,), dev))
-        crnn_u = max(u for u in range(1, 257) if fused_crnn.supports(N_FLAG, (u,), dev))
+        limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+        over = [k for k, v in fused_crnn.shared_memory_bytes(crnn_u + 1).items() if v > limit]
         print(f"coverage at N={N_FLAG}: B5 and B6 run K3/K4's base and suffix launches, covered "
               f"by the K1-K4 family to U={gru_u}; B8 runs B11's base launch, covered by the cRNN "
-              f"family to U={crnn_u}")
+              f"family to U={crnn_u} (U <= 91 before B9's three stages); at U={crnn_u + 1} "
+              f"{', '.join(over)} does not fit in {limit} bytes of shared memory")
         require(gru_u >= U_FLAG and crnn_u >= U_FLAG, "the flagships are covered")
-        require(gru_u >= 91, "the K1-K4 family takes every width to U=91 on an H100")
+        require(gru_u >= 91 and crnn_u >= 91,
+                "the K1-K4 and cRNN families take every width to U=91 on an H100")
         wide = tuple(t.detach() for t in perturbed_model(pkg, 4, gru_u + 1, 3, dev).weights())
         wide_c = tuple(t.detach() for t in
                        perturbed_model(pkg, 4, crnn_u + 1, 3, dev, cls="CRNNU1").weights())
@@ -1339,20 +1434,31 @@ def main() -> None:
                 max_err(a, ref) for a, ref in zip((sweeps[0].hist, sweeps[0].dg, sweeps[0].dl1),
                                                   (sweeps[1].hist, sweeps[1].dg, sweeps[1].dl1)))
 
-        hist_k = fused_jac.rollout_hist(trunk_c, s11)
-        hist_p = fused_jac.rollout_hist_plain(trunk_c, s11)
+        # B19 storing the gates and B20 from them, as the minSR step runs them
+        hist_k, gates_k = fused_jac.rollout_hist(trunk_c, s11, store=True)
+        hist_p, gates_p = fused_jac.rollout_hist_plain(trunk_c, s11, store=True)
         sites = torch.arange(N_FLAG, device=dev)
         dla, dlp = jacobian.crnn_head_seeds(crnn, hist_k, s11,
                                             torch.cumsum(s11, dim=1) - s11, sites)
         douts = torch.stack([dla @ wc[4].T, dlp @ wc[6].T])
-        dg_k = fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts)
+        dg_k = fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts, gates=gates_k)
         dg_p = fused_jac.sweep_dgates_plain(trunk_c, s11, hist_k, douts)
+        dg_st = fused_jac.sweep_stored_plain(trunk_c, hist_k, gates_k, douts)
+        dg_alone = fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts)
+        hist_1 = fused_jac.rollout_hist(trunk_c, s11)
         torch.cuda.synchronize()
-        e19, e20 = rel(hist_k, hist_p), max(rel(dg_k[p], dg_p[p]) for p in range(2))
-        print(f"B19 hist: error over its largest entry {e19:.3e}; B20 dg (Re and Im parts, one "
-              f"launch): {e20:.3e} (tol {rel_tol:.0e})")
-        require(e19 <= rel_tol and e20 <= rel_tol, "B19 and B20")
-        record["B19 rollout_hist"]["max_abs_err"] = max_err(hist_k, hist_p)
+        e19 = max(rel(hist_k, hist_p), rel(gates_k, gates_p))
+        e20 = max(rel(dg_k[p], dg_p[p]) for p in range(2))
+        e20_st = max(rel(dg_k[p], dg_st[p]) for p in range(2))
+        same = bool(torch.equal(dg_alone, dg_k)) and bool(torch.equal(hist_1, hist_k))
+        print(f"B19 storing, hist and gates: error over their largest entry {e19:.3e}; B20 dg "
+              f"from the stored gates (Re and Im parts, one launch) against the plain sweep "
+              f"that recomputes the gates {e20:.3e}, against its stored-gates plain twin "
+              f"{e20_st:.3e} (tol {rel_tol:.0e}); B20 alone (B19 storing first) and B19 not "
+              f"storing give the same bits: {same}")
+        require(e19 <= rel_tol and e20 <= rel_tol and e20_st <= rel_tol and same, "B19 and B20")
+        record["B19 rollout_hist"]["max_abs_err"] = max(max_err(hist_k, hist_p),
+                                                        max_err(gates_k, gates_p))
         record["B20 sweep_dgates"]["max_abs_err"] = max_err(dg_k, dg_p)
         rows_k = jacobian._crnn_rows_fused(crnn, s11)
         rows_p = jacobian.crnn_log_amp_rows(plain_crnn, s11)
@@ -1410,11 +1516,12 @@ def main() -> None:
                               lambda: fused_jac.jac_sweep_plain(w, samples), None),
             "B18 jac_sweep N=1000": (lambda: fused_jac.jac_sweep(w, long_samples),
                                      lambda: fused_jac.jac_sweep_plain(w, long_samples), None),
-            "B19 rollout_hist": (lambda: fused_jac.rollout_hist(trunk_c, s11),
-                                 lambda: fused_jac.rollout_hist_plain(trunk_c, s11), cudnn_gru),
-            "B20 sweep_dgates": (lambda: fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts),
-                                 lambda: fused_jac.sweep_dgates_plain(trunk_c, s11, hist_k, douts),
-                                 None),
+            "B19 rollout_hist": (
+                lambda: fused_jac.rollout_hist(trunk_c, s11, store=True),
+                lambda: fused_jac.rollout_hist_plain(trunk_c, s11, store=True), None),
+            "B20 sweep_dgates": (
+                lambda: fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts, gates=gates_k),
+                lambda: fused_jac.sweep_dgates_plain(trunk_c, s11, hist_k, douts), None),
             "B21 sr_cg_solve": (
                 lambda: sr_cg.sr_cg_solve(t_tfim, c_tfim, 64),
                 lambda: sr_cg.cg_solve_plain(t_tfim, c_tfim, 64),
@@ -1430,9 +1537,17 @@ def main() -> None:
         for name, s_in in (("B17", samples), ("B18", long_samples)):
             print_launches(name, lambda: fused_jac.jac_sweep(w, s_in),
                            {"replay": "flip_base_kernel", "reverse sweep": "bwd_sweep_kernel"})
-        t19, t_cudnn = record["B19 rollout_hist"]["ms"], record["B19 rollout_hist"]["library_ms"]
-        print(f"B19 {t19:.4f} ms against torch.nn.GRU (cuDNN) {t_cudnn:.4f} ms in this call: "
+        # cuDNN computes B19's history, not the gates the main path stores:
+        # it stands beside B19 not storing, and B19's entry has no library call
+        t19 = cuda_ms(lambda: fused_jac.rollout_hist(trunk_c, s11), reps=20)
+        t_cudnn = cuda_ms(cudnn_gru, reps=20)
+        print(f"B19 storing the gates {record['B19 rollout_hist']['ms']:.4f} ms; not storing "
+              f"{t19:.4f} ms against torch.nn.GRU (cuDNN) {t_cudnn:.4f} ms in this call: "
               f"{'faster' if t19 < t_cudnn else 'slower'}, ratio {t_cudnn / t19:.2f}")
+        print(f"B20 from the stored gates {record['B20 sweep_dgates']['ms']:.4f} ms; alone (B19 "
+              f"storing first) "
+              f"{cuda_ms(lambda: fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts), reps=20):.4f}"
+              f" ms")
         print(f"B21 on the J1-J2 (2S, 2S) Gram: kernel "
               f"{cuda_ms(lambda: sr_cg.sr_cg_solve(t_j, c_j, 64), reps=20):.4f} ms, Cholesky "
               f"{cuda_ms(lambda: torch.cholesky_solve(c_j[:, None], torch.linalg.cholesky(t_j)), reps=20):.4f} ms")
@@ -1444,9 +1559,11 @@ def main() -> None:
             "B17 jac_sweep": (b_ * n_ * jac_site, 4 * b_ * n_ + w6 + 4 * b_ * n_ * (5 * u_ + 1)),
             "B18 jac_sweep N=1000": (S_LONG * N_LONG * jac_site,
                                      4 * S_LONG * N_LONG + w6 + 4 * S_LONG * N_LONG * (5 * u_ + 1)),
-            "B19 rollout_hist": (b_ * n_ * site_flops(u_, 0), 4 * b_ * n_ + w4 + 4 * b_ * n_ * u_),
-            "B20 sweep_dgates": (2 * b_ * n_ * jac_bwd_site_flops(u_),
-                                 4 * b_ * n_ + w4 + 4 * b_ * n_ * u_ + 2 * 4 * b_ * n_ * 5 * u_),
+            "B19 rollout_hist": (b_ * n_ * site_flops(u_, 0),
+                                 4 * b_ * n_ + w4 + 4 * b_ * n_ * 5 * u_),
+            "B20 sweep_dgates": (2 * b_ * n_ * jac_stored_site_flops(u_),
+                                 4 * b_ * n_ + 4 * 3 * u_ * u_ + 4 * b_ * n_ * 5 * u_
+                                 + 2 * 4 * b_ * n_ * 5 * u_),
             "B21 sr_cg_solve": (64 * (2 * s_t * s_t + 10 * s_t), 4 * s_t * s_t + 8 * s_t),
         }
         for name, (flops, nbytes) in work_minsr.items():
@@ -1459,7 +1576,7 @@ def main() -> None:
 
     minsr_cfg = dict(num_samples=S_FLAG, learning_rate=MINSR_LR, optimizer="minsr")
     adam_only = ("K1 gru_log_prob", "K2 gru_log_prob_bwd", "B7 crnn_log_amp_parts",
-                 "B9 crnn_log_amp_bwd")
+                 "B9 crnn_log_amp_bwd", "B9 replay")
     tfim_kernels = ("K3 tfim_sample_and_flip_sum", "B17 jac_sweep", "B21 sr_cg_solve")
     j1j2_kernels = ("B11 j1j2_sample_and_exchange", "B19 rollout_hist", "B20 sweep_dgates",
                     "B21 sr_cg_solve")

@@ -1,6 +1,7 @@
-// Shared device code for the single-layer U(1) cRNN kernels (B7, B9, B10,
-// B11): the GRU trunk of gru_common.cuh with two 2-logit heads, and the
-// per-site log-probabilities and phases of ops/fused_crnn.py::_crnn_site_rows.
+// Shared device code for the single-layer U(1) cRNN kernels (B7, B8, B10,
+// B11 and B9's replay): the GRU trunk of gru_common.cuh with two 2-logit
+// heads, and the per-site log-probabilities and phases of
+// ops/fused_crnn.py::_crnn_site_rows.
 //
 // Layout: the weights keep the JAX package's parameter layout
 // (models/crnn_u1.py): wx (2, 3U), wh (U, 3U), bx (3U), bh (3U), amplitude
@@ -35,7 +36,6 @@ __host__ __device__ inline int crnn_weight_floats(int u) {
 // Dynamic shared memory of each cRNN kernel at width u, defined beside the
 // kernel and used both by its launch and by rnnwf_fits_shared_memory.
 size_t b7_smem_bytes(int u);
-size_t b9_smem_bytes(int u);
 size_t exchange_base_smem_bytes(int u);
 size_t exchange_suffix_smem_bytes(int u);
 

@@ -6,12 +6,12 @@
 // memory in exactly this order, so the gradient kernel can accumulate into a
 // buffer of the same layout and hand back one flat weight-shaped vector.
 //
-// Work split (B7, B9, B20): one warp advances T trajectories (samples)
-// through one site at a time; the latency kernels' block-wide split (K1,
-// K2's replay and reverse sweep, which B17 runs too, B5, B19, K3's base
-// pass, the base pass of B8/B10/B11 and B14's reverse sweep) is
-// slice_product below, and the flip and exchange suffixes run on the
-// tensor cores (csrc/tfim_flip.cu, csrc/j1j2_exchange.cu).  Lane j owns
+// Work split (B7): one warp advances T trajectories (samples) through one
+// site at a time; the latency kernels' block-wide split (K1, K2's replay
+// and reverse sweep, which B17, B9 and B20 run too, B5, B19, K3's base
+// pass, the base pass of B8/B10/B11 and B9's replay, and B14's reverse
+// sweep) is slice_product below, and the flip and exchange suffixes run on
+// the tensor cores (csrc/tfim_flip.cu, csrc/j1j2_exchange.cu).  Lane j owns
 // hidden units j, j+32, ...; the hidden state of the warp's T trajectories
 // sits in shared memory as h[k*T + t], so one (broadcast) load of h[k]
 // serves T trajectories while each wh row entry is loaded once per site.
@@ -47,9 +47,9 @@ __host__ __device__ inline int weight_floats_exact(int u) {
 // Dynamic shared memory of each kernel at width u, defined beside the kernel
 // and used both by its launch and by rnnwf_fits_shared_memory.
 size_t k2_smem_bytes(int u);       // K2's reverse sweep (also B17's) and weight cotangent
+size_t crnn_sweep_smem_bytes(int u);  // the reverse sweep of B9 and B20 (csrc/fused_gru_bwd.cu)
 size_t flip_base_smem_bytes(int u);
 size_t flip_suffix_smem_bytes(int u);
-size_t jac_smem_bytes(int u);      // B20 (csrc/fused_jac.cu)
 size_t rollout_smem_bytes(int u);  // B19 (csrc/fused_jac.cu)
 
 struct Weights {
@@ -299,6 +299,44 @@ __device__ __forceinline__ GateStep slice_update(const Weights& w, int u, int j,
 // out (wfx floats); defined in fused_gru_bwd.cu, shared by K2, B9 and B14.
 cudaError_t launch_sum_partials(const float* partial, float* out, int blocks, int wfx,
                                 cudaStream_t stream);
+
+// ---- The reverse sweep of K2's stage b (csrc/fused_gru_bwd.cu), one kernel
+// for its three seeds and outputs:
+//   kGru    K2 and B17: the head's dl1 = g (s - p1) seeds h_n through
+//           hw[:, 1] - hw[:, 0]; writes K2's C rows (4U + 1 columns);
+//   kCrnn   B9: the cRNN's two heads, seeded per site by the replay's a_n
+//           (the amplitude head's dd at g_re = 1) and q_n (the phase seed on
+//           the target's logit); writes C rows of 4U + 3 columns;
+//   kDouts  B20: given cotangents on h_n for each of P parts; writes dg
+//           (P, B, N, 4U) in the JAX order [da_r | da_z | da_c | dgh_c].
+enum class Sweep { kGru, kCrnn, kDouts };
+
+struct SweepArgs {
+  const int32_t* samples;  // (B, N)
+  const float* wh;         // (U, 3U)
+  const float* hw;         // (U, 2) K2's head; the cRNN's amplitude head
+  const float* pw;         // (U, 2) the cRNN's phase head (kCrnn)
+  const float* g;          // (B,) K2's cotangent; the cRNN's g_re
+  const float* g_im;       // (B,) (kCrnn)
+  const float* rows;       // (B, N + 1, U + 3) K2's A rows (kGru, kCrnn)
+  const float* hist;       // (B, N, U) the states h_n (kDouts)
+  const float* gates;      // (B, N, 4U) [r | z | c | ghc]
+  const float* seeds;      // kGru: p1 (B, N); kCrnn: [a_n, q_n] (B, N, 2)
+  const float* douts;      // (P, B, N, U) (kDouts)
+  float* out;              // C (B, N + 1, 4U + 1 or 4U + 3) or dg (P, B, N, 4U)
+  int b_total, parts, n_sites, u;  // parts: 1 but for kDouts
+};
+
+cudaError_t launch_reverse_sweep(Sweep mode, const SweepArgs& args, cudaStream_t st);
+
+// Stage c: the weight cotangent A^T C over the B (N + 1) rows of A (U + 3
+// columns) and C (4U + 2 heads - 1 columns), in chunks summed in chunk order
+// into out (the flat gradient of one GRU layer and `heads` 2-logit heads);
+// partial: weight_cotangent_partial_floats floats of scratch.
+int64_t weight_cotangent_partial_floats(int b_total, int n_sites, int u, int heads);
+cudaError_t launch_weight_cotangent(const float* a_rows, const float* c_rows, float* partial,
+                                    float* out, int b_total, int n_sites, int u, int heads,
+                                    cudaStream_t st);
 
 // Philox4x32-10 (Salmon et al., SC'11): counter-based, so a uniform depends
 // only on (key, counter) and not on how the work was split into blocks.

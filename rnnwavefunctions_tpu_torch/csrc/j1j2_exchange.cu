@@ -33,14 +33,18 @@
 //      from a Philox uniform (crnn_decide: one tanhf, the mask's clamp).
 //      One more warp keeps the samples' books off that path: it draws the
 //      uniforms of 32 sites at once (a lane per site) ahead of the
-//      decisions, forms the masked log-probabilities and phases
-//      (crnn_logps), Kahan-adds both parts of log psi and stores the spins,
+//      decisions; then its lane p, for both samples at once, forms sample
+//      p's masked log-probabilities and phases (crnn_logps), Kahan-adds
+//      both parts of log psi and stores the spins,
 //      the corrected prefixes pfx_re[n], pfx_im[n], the up-counts before
 //      each site cup[n], and site n's amplitude and phase terms with the
 //      target flipped, fl_re[n], fl_im[n].  B8 runs this launch alone in
 //      sample mode and stores no history, only the spins and
 //      log |psi|^2; the arithmetic is the same code, so B8 draws B11's
-//      spins bit for bit.
+//      spins bit for bit.  B9's replay is this launch teacher-forced,
+//      storing K2's A rows and the gates from its first slices and the two
+//      heads' seeds of B9's reverse sweep from the books warp
+//      (ExStore::kReplay, rnnwf_crnn_replay).
 //   2. Bond lists, one warp per start site a: the (bond, sample) terms of
 //      the bonds that start at a (NN (a, a+1), NNN (a, a+2), the wraps
 //      (0, N-1), (0, N-2), (1, N-1)) whose bond is anti-aligned, by bond,
@@ -135,7 +139,13 @@ __host__ __device__ inline void bond_at(const Bonds& bs, int k, int& a, int& b, 
   el = k == 0 ? bs.el_nn : bs.el_nnn;
 }
 
-// What the base pass stores for the suffix pass, each (B, N) unless stated.
+// What the base pass stores beside log psi: nothing (B8), the suffix pass's
+// inputs (B10, B11: hist, pfx_*, cup, fl_*) or B9's replay (rows, gates,
+// seeds).
+enum class ExStore { kNone, kFlip, kReplay };
+
+// The base pass's outputs, each (B, N) unless stated; only those of the
+// store mode are written.
 struct ExBase {
   float* hist;    // (B, N, U) states h[n]
   float* pfx_re;  // corrected prefix Re log psi(sites <= n)
@@ -143,16 +153,48 @@ struct ExBase {
   float* cup;     // ups before site n
   float* fl_re;   // site n's Re term with its target flipped, 0.5 log p
   float* fl_im;   // and its phase
-  float* lp_re;   // (B,) Re log psi; log |psi|^2 without kHistory (B8)
+  float* rows;    // (B, N + 1, U + 3) K2's A rows, [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]
+  float* gates;   // (B, N, 4U) [r | z | c | ghc] of site n
+  float* seeds;   // (B, N, 2) [a_n, q_n], the heads' seeds of B9's reverse sweep
+  float* lp_re;   // (B,) Re log psi; log |psi|^2 under kNone (B8)
   float* lp_im;   // (B,) Im log psi
 };
 
-// kHistory: store the suffix pass's inputs and write (Re, Im) log psi; off
-// (B8), only lp_re is written, as log |psi|^2 = 2 Re log psi.
-template <bool kSample, bool kHistory>
-__global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
-                                     uint32_t offset, WeightPtrs wp, ExBase out, int b_total,
-                                     int n_sites, int u, int u1) {
+// B9's seeds at site n from the amplitude logits' difference d = l0 - l1,
+// the phase logit of the target qs, the target s and the ups before n: a,
+// the cotangent of d of Re_n = 0.5 lp_s (the unmasked d lp0/dd = p1, d lp1/dd
+// = -p0; under the U(1) mask through the renormalisation, the gradient
+// passing max(raw, 1e-30) only unclamped, as ops/fused_crnn_bwd.py:11-25 of
+// the JAX package); q = pi / (1 + |qs|)^2, d Im_n / d qs.  Both are the
+// cotangents at g = 1: the sweep scales them by g_re and g_im.
+__device__ __forceinline__ float2 crnn_seeds(float d, float qs, float s, int n, float num_up,
+                                             int n_sites, bool u1) {
+  const float p0 = sigmoidf_(d), p1 = sigmoidf_(-d);
+  float dlp0 = 0.5f * (1.0f - s), dlp1 = 0.5f * s;
+  if (u1 && 2 * n >= n_sites) {
+    const float baseline = static_cast<float>(n_sites / 2 - 1);
+    const float act_up = baseline - num_up >= 0.0f ? 1.0f : 0.0f;
+    const float act_down = baseline - (static_cast<float>(n) - num_up) >= 0.0f ? 1.0f : 0.0f;
+    const float raw = act_down * p0 + act_up * p1;
+    const float gsum = raw > 1e-30f ? (dlp0 + dlp1) / fmaxf(raw, 1e-30f) : 0.0f;
+    const float m0 = dlp0 * act_down - gsum * act_down * p0;
+    const float m1 = dlp1 * act_up - gsum * act_up * p1;
+    dlp0 = m0;
+    dlp1 = m1;
+  }
+  const float den = 1.0f + fabsf(qs);
+  return make_float2(dlp0 * p1 - dlp1 * p0, kPi / (den * den));
+}
+
+// Under kNone (B8), only lp_re is written, as log |psi|^2 = 2 Re log psi.
+// At most 96 registers a thread: an SM sub-partition's 16,384 then hold 5
+// warps, so a block of kSlices x 128 threads and the books warp (17 warps)
+// launches, and two blocks of the flagship's 9 warps share an SM (one block
+// per SM would take two waves at B=500).
+template <bool kSample, ExStore kStore>
+__global__ void __maxnreg__(96)
+exchange_base_kernel(int32_t* __restrict__ samples, uint32_t seed, uint32_t offset,
+                     WeightPtrs wp, ExBase out, int b_total, int n_sites, int u, int u1) {
   extern __shared__ __align__(16) float smem[];
   const CWeights c = load_crnn_weights(smem, wp, u);
   const int u32 = warp_round(u), nw = u32 / kWarp;
@@ -179,6 +221,12 @@ __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t see
   // thread (p, j) of the first kExP slices updates unit j of sample p
   const int b_mine = blockIdx.x * kExP + min(ks, kExP - 1);
   const int64_t row_mine = static_cast<int64_t>(min(b_mine, b_total - 1)) * n_sites;
+  // the A rows of sample b (kReplay): row n of (b (N + 1) + n) (U + 3); thread
+  // (p, j) writes unit j's entries, thread (p, 0) the inputs
+  const int64_t arow_mine = static_cast<int64_t>(min(b_mine, b_total - 1)) * (n_sites + 1);
+  if constexpr (kStore == ExStore::kReplay) {
+    if (ks < kExP && j < u && b_mine < b_total) out.rows[arow_mine * (u + 3) + j] = 0.0f;
+  }
   __syncthreads();
 
   float x[kExP], up[kExP];
@@ -207,11 +255,26 @@ __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t see
         float xt = x[0];
 #pragma unroll
         for (int p = 1; p < kExP; ++p) xt = ks == p ? x[p] : xt;
-        const float hv =
-            slice_update<kExP>(c.w, u, j, ks, h, part, xt, n > 0 ? 1.0f : 0.0f).h;
+        const GateStep st = slice_update<kExP>(c.w, u, j, ks, h, part, xt, n > 0 ? 1.0f : 0.0f);
+        const float hv = st.h;
         hn[j * kExP + ks] = hv;
-        if constexpr (kHistory) {
-          if (b_mine < b_total) out.hist[(row_mine + n) * u + j] = hv;
+        if (b_mine < b_total) {
+          if constexpr (kStore == ExStore::kFlip) out.hist[(row_mine + n) * u + j] = hv;
+          if constexpr (kStore == ExStore::kReplay) {
+            float* rn = out.rows + (arow_mine + n) * (u + 3);
+            rn[u + 3 + j] = hv;  // row n + 1
+            if (j == 0) {
+              const float xs = n > 0 ? 1.0f : 0.0f;
+              rn[u] = 1.0f;
+              rn[u + 1] = xs * (1.0f - xt);
+              rn[u + 2] = xs * xt;
+            }
+            float* gt = out.gates + (row_mine + n) * 4 * u;
+            gt[j] = st.r;
+            gt[u + j] = st.z;
+            gt[2 * u + j] = st.c;
+            gt[3 * u + j] = st.ghc;
+          }
         }
         q[0] = hv * c.w.hw[2 * j];
         q[1] = hv * c.w.hw[2 * j + 1];
@@ -225,6 +288,9 @@ __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t see
             make_float4(q[0], q[1], q[2], q[3]);
     }
     __syncthreads();
+    // every thread: the samples' logits, spins and decisions; the books
+    // lane p then keeps sample p, both lanes at once
+    float lg[kExP][4], sv[kExP], upv[kExP];
 #pragma unroll
     for (int p = 0; p < kExP; ++p) {
       float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -235,45 +301,80 @@ __global__ void exchange_base_kernel(int32_t* __restrict__ samples, uint32_t see
         l[2] += r.z;
         l[3] += r.w;
       }
-      const float l0 = l[0] + c.w.hb[0], l1 = l[1] + c.w.hb[1];
-      float s;
+      lg[p][0] = l[0] + c.w.hb[0];
+      lg[p][1] = l[1] + c.w.hb[1];
+      lg[p][2] = l[2] + c.pb[0];
+      lg[p][3] = l[3] + c.pb[1];
+      float sp;
       if constexpr (kSample) {
-        s = crnn_decide(uni_n[p], l0, l1, n, up[p], n_sites, u1 != 0);
+        sp = crnn_decide(uni_n[p], lg[p][0], lg[p][1], n, up[p], n_sites, u1 != 0);
       } else {
-        s = static_cast<float>(samples[row[p] + n]);
+        sp = static_cast<float>(samples[row[p] + n]);
       }
-      if (books && lane == p) {
-        float lp0, lp1, ph0, ph1;
-        crnn_logps(l0, l1, l[2] + c.pb[0], l[3] + c.pb[1], n, up[p], n_sites, u1 != 0, lp0, lp1,
-                   ph0, ph1);
-        const bool one = s > 0.5f;
-        kadd(re, rec, 0.5f * (one ? lp1 : lp0));
-        kadd(im, imc, one ? ph1 : ph0);
-        if (own[p]) {
-          if constexpr (kSample) samples[row[p] + n] = static_cast<int32_t>(s);
-          if constexpr (kHistory) {
-            out.pfx_re[row[p] + n] = re - rec;
-            out.pfx_im[row[p] + n] = im - imc;
-            out.cup[row[p] + n] = up[p];
-            out.fl_re[row[p] + n] = 0.5f * (one ? lp0 : lp1);
-            out.fl_im[row[p] + n] = one ? ph0 : ph1;
-          }
+      sv[p] = sp;
+      upv[p] = up[p];
+      x[p] = sp;
+      up[p] += sp;
+    }
+    if (books && lane < kExP) {
+      float l[4], sp = sv[0], upn = upv[0];
+      bool mine = own[0];
+      int64_t rp = row[0];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) l[i] = lg[0][i];
+#pragma unroll
+      for (int p = 1; p < kExP; ++p) {
+        if (lane == p) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) l[i] = lg[p][i];
+          sp = sv[p];
+          upn = upv[p];
+          mine = own[p];
+          rp = row[p];
         }
       }
-      x[p] = s;
-      up[p] += s;
+      float lp0, lp1, ph0, ph1;
+      crnn_logps(l[0], l[1], l[2], l[3], n, upn, n_sites, u1 != 0, lp0, lp1, ph0, ph1);
+      const bool one = sp > 0.5f;
+      kadd(re, rec, 0.5f * (one ? lp1 : lp0));
+      kadd(im, imc, one ? ph1 : ph0);
+      if (mine) {
+        if constexpr (kSample) samples[rp + n] = static_cast<int32_t>(sp);
+        if constexpr (kStore == ExStore::kFlip) {
+          out.pfx_re[rp + n] = re - rec;
+          out.pfx_im[rp + n] = im - imc;
+          out.cup[rp + n] = upn;
+          out.fl_re[rp + n] = 0.5f * (one ? lp0 : lp1);
+          out.fl_im[rp + n] = one ? ph0 : ph1;
+        }
+        if constexpr (kStore == ExStore::kReplay)
+          reinterpret_cast<float2*>(out.seeds)[rp + n] =
+              crnn_seeds(l[0] - l[1], one ? l[3] : l[2], sp, n, upn, n_sites, u1 != 0);
+      }
     }
     float* tmp = h; h = hn; hn = tmp;
+  }
+  if constexpr (kStore == ExStore::kReplay) {
+    // row N's inputs: the last spin
+    if (ks < kExP && j == 0 && b_mine < b_total) {
+      float xt = x[0];
+#pragma unroll
+      for (int p = 1; p < kExP; ++p) xt = ks == p ? x[p] : xt;
+      float* rn = out.rows + (arow_mine + n_sites) * (u + 3) + u;
+      rn[0] = 1.0f;
+      rn[1] = 1.0f - xt;
+      rn[2] = xt;
+    }
   }
   if (books) {
 #pragma unroll
     for (int p = 0; p < kExP; ++p) {
       if (lane != p || !own[p]) continue;
-      if constexpr (kHistory) {
+      if constexpr (kStore == ExStore::kNone) {
+        out.lp_re[bs[p]] = 2.0f * (re - rec);
+      } else {
         out.lp_re[bs[p]] = re - rec;
         out.lp_im[bs[p]] = im - imc;
-      } else {
-        out.lp_re[bs[p]] = 2.0f * (re - rec);
       }
     }
   }
@@ -561,18 +662,18 @@ __global__ void exchange_sum_kernel(const float* __restrict__ terms_re,
   eoff_im[b] = vi;
 }
 
-template <bool kSample, bool kHistory>
+template <bool kSample, ExStore kStore>
 cudaError_t launch_exchange_base(int32_t* samples, uint32_t seed, uint32_t offset,
                                  const WeightPtrs& wp, const ExBase& out, int b_total,
                                  int n_sites, int u, int u1, cudaStream_t st) {
   const size_t smem = exchange_base_smem_bytes(u);
-  cudaError_t err = cudaFuncSetAttribute(exchange_base_kernel<kSample, kHistory>,
+  cudaError_t err = cudaFuncSetAttribute(exchange_base_kernel<kSample, kStore>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  exchange_base_kernel<kSample, kHistory><<<(b_total + kExP - 1) / kExP, ex_base_threads(u),
-                                            smem, st>>>(samples, seed, offset, wp, out,
-                                                        b_total, n_sites, u, u1);
+  exchange_base_kernel<kSample, kStore><<<(b_total + kExP - 1) / kExP, ex_base_threads(u),
+                                          smem, st>>>(samples, seed, offset, wp, out,
+                                                      b_total, n_sites, u, u1);
   return cudaGetLastError();
 }
 
@@ -612,16 +713,24 @@ int launch_exchange(void* samples_v, uint32_t seed, uint32_t offset, const Weigh
   const int64_t bn = static_cast<int64_t>(b_total) * n_sites;
   float* pfx = static_cast<float*>(pfx_v);
   float* out = static_cast<float*>(out_v);
-  const ExBase base{static_cast<float*>(hist_v), pfx, pfx + bn, pfx + 2 * bn, pfx + 3 * bn,
-                    pfx + 4 * bn, out + 2 * b_total, out + 3 * b_total};
+  ExBase base{};
+  base.hist = static_cast<float*>(hist_v);
+  base.pfx_re = pfx;
+  base.pfx_im = pfx + bn;
+  base.cup = pfx + 2 * bn;
+  base.fl_re = pfx + 3 * bn;
+  base.fl_im = pfx + 4 * bn;
+  base.lp_re = out + 2 * b_total;
+  base.lp_im = out + 3 * b_total;
   float* terms_re = static_cast<float*>(terms_v);
   float* terms_im = terms_re + kb;
   int32_t* lists = static_cast<int32_t*>(order_v);
   int32_t* meta = lists + kb;
   const Bonds bs{n_sites, has_nnn, periodic, el_nn, el_nnn};
 
-  cudaError_t err = launch_exchange_base<kSample, true>(samples, seed, offset, wp, base,
-                                                        b_total, n_sites, u, u1, st);
+  cudaError_t err = launch_exchange_base<kSample, ExStore::kFlip>(samples, seed, offset, wp,
+                                                                 base, b_total, n_sites, u, u1,
+                                                                 st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   exchange_list_kernel<<<(n_sites + kExListWarps - 1) / kExListWarps, kExListWarps * kWarp, 0,
@@ -698,8 +807,29 @@ extern "C" int rnnwf_crnn_sample(unsigned int seed, unsigned int offset, const v
                                  void* stream) {
   rnnwf::ExBase out{};
   out.lp_re = static_cast<float*>(lp);
-  return static_cast<int>(rnnwf::launch_exchange_base<true, false>(
+  return static_cast<int>(rnnwf::launch_exchange_base<true, rnnwf::ExStore::kNone>(
       static_cast<int32_t*>(samples), seed, offset,
+      rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), out, b_total, n_sites, u, u1,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B9's replay (stage a of csrc/fused_crnn_bwd.cu): the teacher-forced base
+// pass of B10 storing K2's A rows (B*(N+1)*(U+3) floats), the gates
+// (B*N*4U), the heads' seeds [a_n, q_n] (B*N*2) and (Re, Im) log psi (B
+// floats each).
+extern "C" int rnnwf_crnn_replay(const void* samples, const void* wx, const void* wh,
+                                 const void* bx, const void* bh, const void* aw, const void* ab,
+                                 const void* pw, const void* pb, void* rows, void* gates,
+                                 void* seeds, void* re, void* im, int b_total, int n_sites,
+                                 int u, int u1, void* stream) {
+  rnnwf::ExBase out{};
+  out.rows = static_cast<float*>(rows);
+  out.gates = static_cast<float*>(gates);
+  out.seeds = static_cast<float*>(seeds);
+  out.lp_re = static_cast<float*>(re);
+  out.lp_im = static_cast<float*>(im);
+  return static_cast<int>(rnnwf::launch_exchange_base<false, rnnwf::ExStore::kReplay>(
+      const_cast<int32_t*>(static_cast<const int32_t*>(samples)), 0u, 0u,
       rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), out, b_total, n_sites, u, u1,
       static_cast<cudaStream_t>(stream)));
 }

@@ -50,8 +50,9 @@ SIGNATURES = {
     "rnnwf_tfim_sample_and_flip_log_probs": ([_U, _U] + [_P] * 12 + [_I, _I, _I, _P], _I),
     "rnnwf_gru_sample": ([_U, _U] + [_P] * 8 + [_I, _I, _I, _P], _I),
     "rnnwf_crnn_log_amp_parts": ([_P] * 11 + [_I] * 4 + [_P], _I),
-    "rnnwf_crnn_log_amp_bwd": ([_P] * 14 + [_I] * 4 + [_P], _I),
-    "rnnwf_crnn_bwd_partial_floats": ([_I, _I], _LL),
+    "rnnwf_crnn_replay": ([_P] * 14 + [_I] * 4 + [_P], _I),
+    "rnnwf_crnn_log_amp_bwd": ([_P] * 12 + [_I] * 3 + [_P], _I),
+    "rnnwf_crnn_bwd_partial_floats": ([_I, _I, _I], _LL),
     "rnnwf_j1j2_num_bonds": ([_I, _I, _I], _I),
     "rnnwf_j1j2_exchange_offdiag": _EXCHANGE,
     "rnnwf_j1j2_sample_and_exchange": _EXCHANGE,
@@ -64,10 +65,11 @@ SIGNATURES = {
     "rnnwf_mdrnn_flip_ratio_sum": ([_P] * 14 + [_LL] + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_sample_and_flip_sum": ([_U, _U] + [_P] * 14 + [_LL] + [_I] * 4 + [_P], _I),
     "rnnwf_mdrnn_suffix_scratch_floats": ([_I] * 4 + [ctypes.POINTER(_LL)], _I),
-    "rnnwf_rollout_hist": ([_P] * 6 + [_I] * 3 + [_P], _I),
-    "rnnwf_sweep_dgates": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "rnnwf_rollout_hist": ([_P] * 7 + [_I] * 3 + [_P], _I),
+    "rnnwf_sweep_dgates": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "rnnwf_sr_cg_solve": ([_P] * 4 + [_I, _I, _P], _I),
     "rnnwf_fits_shared_memory": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+    "rnnwf_crnn_smem_bytes": ([_I, ctypes.POINTER(_LL)], None),
 }
 
 

@@ -1,13 +1,16 @@
-"""B7: teacher-forced (Re, Im) log psi of the complex U(1) cRNN, the
-``autograd.Function`` whose forward is B7 and whose backward is B9, and B8,
-the stand-alone U(1)-masked sampler.
+"""B7: teacher-forced (Re, Im) log psi of the complex U(1) cRNN, B9's
+forward replay, the ``autograd.Function`` whose forward is B7 (or, when a
+gradient follows on the card, the replay) and whose backward is B9, and
+B8, the stand-alone U(1)-masked sampler.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/fused_crnn.py``
 (``crnn_log_amp_parts``, ``_crnn_site_rows``, ``make_log_amp_parts_fn`` and
 ``crnn_sample``).  B7's CUDA kernel is ``csrc/fused_crnn.cu``; B8 is the
 sample-mode base pass of ``csrc/j1j2_exchange.cu`` without its history, so
-it draws B11's spins.  The plain PyTorch version below is the same site loop
-written with tensor ops, teacher-forced or on given uniforms.
+it draws B11's spins; B9's replay (``crnn_replay``) is that pass
+teacher-forced, storing what B9's later stages read (``CReplay``).  The
+plain PyTorch versions below are the same site loops written with tensor
+ops, teacher-forced or on given uniforms.
 
 Per site, in log space (no complex arithmetic): the reset-after GRU trunk,
 the amplitude head ``lp0 = -softplus(-d)``, ``lp1 = -softplus(d)`` with
@@ -26,8 +29,9 @@ stack: four tensors per GRU layer, then the two heads.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -36,10 +40,12 @@ from .compsum import kadd, kfinal
 from .fused_gru import (
     CRNN_FAMILY,
     Weights,
+    a_rows,
     check_samples,
     check_supported,
     check_weights,
     fits_shared_memory,
+    gru_gates,
     gru_layer,
     is_cpu_call,
     spin_input,
@@ -54,6 +60,19 @@ def supports(n_sites: int, units: Sequence[int], device) -> bool:
     """True when the cRNN kernels B7-B11 take this shape on ``device`` (one
     GRU layer whose kernels fit shared memory)."""
     return fits_shared_memory(CRNN_FAMILY, n_sites, units, device)
+
+
+# the cRNN family's kernels in the order rnnwf_crnn_smem_bytes reports them
+SMEM_KERNELS = ("B7", "the base pass of B8, B10, B11 and B9's replay",
+                "the suffix pass of B10 and B11", "the reverse sweep of B9 and B20", "B19")
+
+
+def shared_memory_bytes(u: int) -> Dict[str, int]:
+    """Each cRNN kernel's dynamic shared memory at width ``u`` (bytes), as
+    its launch asks for it."""
+    need = (ctypes.c_longlong * len(SMEM_KERNELS))()
+    load_library().lib.rnnwf_crnn_smem_bytes(u, need)
+    return dict(zip(SMEM_KERNELS, need))
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +159,76 @@ def log_amp_parts_plain(weights: Weights, samples: torch.Tensor, u1: bool):
     return base_pass_plain(weights, u1, samples=samples)[1:]
 
 
+class CReplay(NamedTuple):
+    """B9's forward replay, B10's base pass storing (stage a of
+    ``csrc/fused_crnn_bwd.cu``): (Re, Im) log psi and, per (sample, site),
+    what the reverse sweep and the weight cotangent read."""
+
+    re: torch.Tensor     # (B,)
+    im: torch.Tensor     # (B,)
+    rows: torch.Tensor   # (B, N + 1, U + 3) K2's A: [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]
+    gates: torch.Tensor  # (B, N, 4U) [r | z | c | ghc] of site n
+    seeds: torch.Tensor  # (B, N, 2) [a_n, q_n], the heads' seeds at g = 1
+
+    @property
+    def hist(self) -> torch.Tensor:
+        """(B, N, U) the states h_n."""
+        return self.rows[:, 1:, : self.gates.shape[2] // 4]
+
+
+def head_seeds_plain(d: torch.Tensor, qs: torch.Tensor, s: torch.Tensor, n: int,
+                     num_up: torch.Tensor, n_sites: int, u1: bool) -> torch.Tensor:
+    """The replay's seeds at site ``n``, (B, 2) ``[a_n, q_n]``, from the
+    amplitude logits' difference ``d = l0 - l1``, the target's phase logit
+    ``qs``, the target ``s`` and the ups before n: a_n is d Re_n / d d of
+    Re_n = 0.5 lp_s (unmasked, d lp0/dd = p1 and d lp1/dd = -p0; under the
+    U(1) mask through the renormalisation, the gradient passing
+    max(raw, 1e-30) only unclamped: fused_crnn_bwd.py:11-25 of the JAX
+    package), q_n = pi / (1 + |qs|)^2 = d Im_n / d qs."""
+    p0, p1 = torch.sigmoid(d), torch.sigmoid(-d)
+    dlp0, dlp1 = 0.5 * (1.0 - s), 0.5 * s
+    if u1 and 2 * n >= n_sites:
+        baseline = n_sites // 2 - 1
+        act_up = (baseline - num_up >= 0).to(torch.float32)  # heavyside, H(0) = 1
+        act_down = (baseline - (n - num_up) >= 0).to(torch.float32)
+        raw = act_down * p0 + act_up * p1
+        gsum = torch.where(raw > 1e-30, (dlp0 + dlp1) / torch.clamp_min(raw, 1e-30), 0.0)
+        dlp0, dlp1 = dlp0 * act_down - gsum * act_down * p0, dlp1 * act_up - gsum * act_up * p1
+    return torch.stack([dlp0 * p1 - dlp1 * p0, math.pi / (1.0 + torch.abs(qs)) ** 2], dim=1)
+
+
+def replay_plain(weights: Weights, samples: torch.Tensor, u1: bool) -> CReplay:
+    """The plain replay: ``log_amp_parts_plain``'s loop keeping its gates,
+    states and seeds."""
+    wx, wh, bx, bh, aw, ab, pw, pb = weights
+    b, n = samples.shape
+    s = samples.to(torch.float32)
+    h = torch.zeros(b, wh.shape[0], dtype=torch.float32, device=samples.device)
+    x = torch.zeros(b, dtype=torch.float32, device=samples.device)
+    num_up = torch.zeros_like(x)
+    re, rec, im, imc = (torch.zeros_like(x) for _ in range(4))
+    hist, gates, seeds = [], [], []
+    for i in range(n):
+        r, z, c, ghc = gru_gates(spin_input(wx, bx, x, 1.0 if i > 0 else 0.0), h, wh, bh)
+        h = z * h + (1.0 - z) * c
+        lp0, lp1, ph0, ph1 = site_heads(h, weights[4:], i, num_up, n, u1)
+        one = s[:, i] > 0.5
+        re, rec = kadd(re, rec, 0.5 * torch.where(one, lp1, lp0))
+        im, imc = kadd(im, imc, torch.where(one, ph1, ph0))
+        la, q = h @ aw + ab, h @ pw + pb
+        seeds.append(head_seeds_plain(la[:, 0] - la[:, 1], torch.where(one, q[:, 1], q[:, 0]),
+                                      s[:, i], i, num_up, n, u1))
+        hist.append(h)
+        gates.append(torch.cat([r, z, c, ghc], dim=1))
+        x = s[:, i]
+        num_up = num_up + x
+    return CReplay(kfinal(re, rec), kfinal(im, imc), a_rows(torch.stack(hist, 1), s),
+                   torch.stack(gates, 1), torch.stack(seeds, 1))
+
+
 # ---------------------------------------------------------------------------
-# B7 wrapper and the autograd Function (B7 forward, B9 backward)
+# B7 and B9's replay, and the autograd Function (B7 or the replay forward,
+# B9 backward)
 # ---------------------------------------------------------------------------
 
 def crnn_log_amp_parts(weights: Weights, samples: torch.Tensor, u1: bool):
@@ -168,15 +255,57 @@ def crnn_log_amp_parts(weights: Weights, samples: torch.Tensor, u1: bool):
 crnn_log_amp_parts.launches = 0
 
 
+def launch_replay(weights: Weights, samples: torch.Tensor, u1: bool) -> CReplay:
+    """Launches B10's base pass storing B9's replay on CUDA tensors (the
+    callers count the launch: ``crnn_replay``, or B9's wrapper as its stage
+    a)."""
+    u = check_weights(weights, heads=2)
+    b, n = check_samples(samples)
+    check_supported(n, u, samples.device, CRNN_FAMILY)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                       device=samples.device)
+    out = CReplay(empty(b), empty(b), empty(b, n + 1, u + 3), empty(b, n, 4 * u), empty(b, n, 2))
+    with torch.cuda.device(samples.device):
+        err = load_library().lib.rnnwf_crnn_replay(
+            samples.data_ptr(), *[w.data_ptr() for w in weights],
+            *[t.data_ptr() for t in (out.rows, out.gates, out.seeds, out.re, out.im)],
+            b, n, u, int(u1), stream_of(samples),
+        )
+    check(err, "rnnwf_crnn_replay")
+    return out
+
+
+def crnn_replay(weights: Weights, samples: torch.Tensor, u1: bool) -> CReplay:
+    """B9's replay of (B, N) int32 samples (no gradient): ``CReplay``, whose
+    (Re, Im) are B7's function."""
+    if is_cpu_call(samples, *weights):
+        return replay_plain(weights, samples, u1)
+    out = launch_replay(weights, samples, u1)
+    crnn_replay.launches += 1
+    return out
+
+
+crnn_replay.launches = 0
+
+
 class CRNNLogAmpParts(torch.autograd.Function):
     """(Re, Im) log psi with B7 forward and B9 backward (the counterpart of
-    ``make_log_amp_parts_fn``'s ``custom_vjp``).  Gradients are defined
-    inside the U(1) sector only, where the sampler draws."""
+    ``make_log_amp_parts_fn``'s ``custom_vjp``).  On the card, when a weight
+    needs its gradient, the forward is B9's replay (B10's base pass
+    storing) in B7's place, and the backward starts from it; B7 serves the
+    calls that no gradient follows.  Gradients are defined inside the U(1)
+    sector only, where the sampler draws."""
 
     @staticmethod
     def forward(ctx, u1, samples, *weights):
         ctx.u1 = u1
         ctx.save_for_backward(samples, *weights)
+        ctx.replay = None
+        if samples.is_cuda and any(ctx.needs_input_grad[2:]):
+            replay = crnn_replay(weights, samples, u1)
+            # ctx keeps no reference to its outputs
+            ctx.replay = replay._replace(re=None, im=None)
+            return replay.re, replay.im
         return crnn_log_amp_parts(weights, samples, u1)
 
     @staticmethod
@@ -185,12 +314,16 @@ class CRNNLogAmpParts(torch.autograd.Function):
 
         samples, *weights = ctx.saved_tensors
         grads = crnn_log_amp_bwd(tuple(weights), samples, g_re.contiguous(),
-                                 g_im.contiguous(), ctx.u1)
+                                 g_im.contiguous(), ctx.u1, replay=ctx.replay)
         return (None, None, *grads)
 
 
 def log_amp_parts(weights: Weights, samples: torch.Tensor, u1: bool):
-    """Differentiable (Re, Im) log psi through the kernels."""
+    """Differentiable (Re, Im) log psi through the kernels; under
+    ``torch.no_grad`` B7 alone (a Function's forward sees its inputs'
+    ``requires_grad``, not the grad mode)."""
+    if not torch.is_grad_enabled():
+        return crnn_log_amp_parts(weights, samples, u1)
     return CRNNLogAmpParts.apply(u1, samples, *weights)
 
 

@@ -146,6 +146,17 @@ class Replay(NamedTuple):
         return self.rows[:, 1:, : self.gates.shape[2] // 4]
 
 
+def a_rows(hist: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """K2's A rows (B, N + 1, U + 3) ``[h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]``
+    from the states h_n ``hist`` (B, N, U) and the spins ``s`` (B, N) as
+    float; row 0 is ``[0 | 1 | 0 | 0]``."""
+    b, _, u = hist.shape
+    row0 = torch.zeros(b, 1, u + 3, dtype=torch.float32, device=hist.device)
+    row0[..., u] = 1.0
+    sv = s[..., None]
+    return torch.cat([row0, torch.cat([hist, torch.ones_like(sv), 1.0 - sv, sv], dim=2)], dim=1)
+
+
 def replay_plain(weights: Weights, samples: torch.Tensor) -> Replay:
     """The plain replay: ``log_prob_plain``'s loop keeping its gates."""
     wx, wh, bx, bh, hw, hb = weights
@@ -167,13 +178,8 @@ def replay_plain(weights: Weights, samples: torch.Tensor) -> Replay:
         gates.append(torch.cat([r, z, c, ghc], dim=1))
         p1.append(torch.exp(logp2(l0, l1, torch.ones_like(x))))
         x = s[:, i]
-    # A's rows: [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}], row 0 [0 | 1 | 0 | 0]
-    row0 = torch.zeros(b, 1, u + 3, dtype=torch.float32, device=samples.device)
-    row0[..., u] = 1.0
-    sv = s[..., None]
-    rows = torch.cat([row0, torch.cat([torch.stack(hist, 1), torch.ones_like(sv), 1.0 - sv, sv],
-                                      dim=2)], dim=1)
-    return Replay(kfinal(acc, cmp), rows, torch.stack(gates, 1), torch.stack(p1, 1))
+    return Replay(kfinal(acc, cmp), a_rows(torch.stack(hist, 1), s), torch.stack(gates, 1),
+                  torch.stack(p1, 1))
 
 
 def log_prob_bwd_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor):

@@ -66,18 +66,18 @@ class Reverse(NamedTuple):
 # the staged plain version
 # ---------------------------------------------------------------------------
 
-def reverse_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
-                  replay: Replay) -> Reverse:
-    """Stage b: per site from the last, the gate cotangents from the stored
-    values (math in fused_gru_bwd.py:29-39 of the JAX package), then dh_{n-1}
-    = dht z + W_h dgh with the sum split as the kernel's threads split it:
-    slice k takes the k-th of SLICES quarters of each gate's U columns,
-    adds the r, z and c parts in that order, and the slices are added in
-    order."""
-    wh, hw = weights[1], weights[4]
-    b, n, u = replay.hist.shape
-    s = samples.to(torch.float32)
-    hwd = hw[:, 1] - hw[:, 0]
+def sweep_plain(wh: torch.Tensor, gates: torch.Tensor, hp: torch.Tensor,
+                top: torch.Tensor) -> torch.Tensor:
+    """Stage b's recursion for T trajectories, in the kernel's order: per
+    site from the last, the gate cotangents from the stored gates (T, N, 4U)
+    ``[r | z | c | ghc]``, the states h_{n-1} ``hp`` (T, N, U) and the
+    heads' (or given) cotangent on h_n ``top`` (T, N, U) (math in
+    fused_gru_bwd.py:29-39 of the JAX package); then dh_{n-1} = dht z +
+    W_h dgh with the sum split as the kernel's threads split it: slice k
+    takes the k-th of SLICES quarters of each gate's U columns, adds the r,
+    z and c parts in that order, and the slices are added in order.  Returns
+    C's gate columns (T, N, 4U) ``[da_r | da_z | dac r | dac]``."""
+    t, n, u = hp.shape
     wht = wh.T
     kc = -(-u // SLICES)
     quarters = [slice(k * kc, min(u, (k + 1) * kc)) for k in range(SLICES)]
@@ -87,27 +87,38 @@ def reverse_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
         return (dgh[:, gates[0]] @ wht[gates[0]] + dgh[:, gates[1]] @ wht[gates[1]]
                 + dgh[:, gates[2]] @ wht[gates[2]])
 
-    dh = torch.zeros(b, u, dtype=torch.float32, device=samples.device)
-    cot = torch.zeros(b, n + 1, 4 * u + 1, dtype=torch.float32, device=samples.device)
+    dh = torch.zeros(t, u, dtype=torch.float32, device=hp.device)
+    out = torch.empty(t, n, 4 * u, dtype=torch.float32, device=hp.device)
     for i in reversed(range(n)):
-        r, z, c, ghc = replay.gates[:, i].split(u, dim=1)
-        hp = replay.rows[:, i, :u]  # h_{i-1}, zero at i = 0
-        d1 = g * (s[:, i] - replay.p1[:, i])
-        dht = dh + hwd * d1[:, None]
-        dz = dht * (hp - c)
+        r, z, c, ghc = gates[:, i].split(u, dim=1)
+        dht = dh + top[:, i]
+        dz = dht * (hp[:, i] - c)
         dc = dht * (1.0 - z)
         dac = dc * (1.0 - c * c)
         dr = dac * ghc
         dar = dr * r * (1.0 - r)
         daz = dz * z * (1.0 - z)
         dgh = torch.cat([dar, daz, dac * r], dim=1)
-        cot[:, i, : 4 * u] = torch.cat([dgh, dac], dim=1)
-        cot[:, i + 1, 4 * u] = d1
+        out[:, i] = torch.cat([dgh, dac], dim=1)
         if i > 0:
             acc = part(dgh, 0)
             for k in range(1, SLICES):
                 acc = acc + part(dgh, k)
             dh = dht * z + acc
+    return out
+
+
+def reverse_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
+                  replay: Replay) -> Reverse:
+    """Stage b: ``sweep_plain`` seeded by the head, dl1 = g (s - p1) through
+    ``hw[:, 1] - hw[:, 0]``, and C's rows around it."""
+    wh, hw = weights[1], weights[4]
+    b, n, u = replay.hist.shape
+    d1 = g[:, None] * (samples.to(torch.float32) - replay.p1)
+    top = (hw[:, 1] - hw[:, 0]) * d1[..., None]
+    cot = torch.zeros(b, n + 1, 4 * u + 1, dtype=torch.float32, device=samples.device)
+    cot[:, :n, : 4 * u] = sweep_plain(wh, replay.gates, replay.rows[:, :n, :u], top)
+    cot[:, 1:, 4 * u] = d1
     return Reverse(cot)
 
 
@@ -118,18 +129,34 @@ def weight_cotangent_plain(replay: Replay, rev: Reverse,
     ``chunk_rows`` rows in chunk order; returns the six weight gradients
     read off G."""
     u = replay.gates.shape[2] // 4
-    a = replay.rows.reshape(-1, u + 3)
-    c = rev.cot.reshape(-1, 4 * u + 1)
-    g_sum = torch.zeros(u + 3, 4 * u + 1, dtype=torch.float32, device=a.device)
-    for start in range(0, a.shape[0], chunk_rows):
-        g_sum = g_sum + a[start : start + chunk_rows].T @ c[start : start + chunk_rows]
-    dwh, dbh = g_sum[:u, : 3 * u], g_sum[u, : 3 * u]
-    dbx = torch.cat([g_sum[u, : 2 * u], g_sum[u, 3 * u : 4 * u]])
-    dwx = torch.cat([g_sum[u + 1 :, : 2 * u], g_sum[u + 1 :, 3 * u : 4 * u]], dim=1)
+    g_sum = chunked_product(replay.rows, rev.cot, chunk_rows)
     head = g_sum[: u + 1, 4 * u]
     dhw = torch.stack([-head[:u], head[:u]], dim=1)
     dhb = torch.stack([-head[u], head[u]])
-    return dwx, dwh, dbx, dbh, dhw, dhb
+    return (*trunk_grads(g_sum, u), dhw, dhb)
+
+
+def chunked_product(rows: torch.Tensor, cot: torch.Tensor,
+                    chunk_rows: int = CHUNK_ROWS) -> torch.Tensor:
+    """G = A^T C over the (sample, site) rows of A ``rows`` (B, N + 1, U + 3)
+    and C ``cot`` (B, N + 1, columns), summed over chunks of ``chunk_rows``
+    rows in chunk order, as stage c sums it."""
+    a = rows.reshape(-1, rows.shape[-1])
+    c = cot.reshape(-1, cot.shape[-1])
+    g_sum = torch.zeros(a.shape[1], c.shape[1], dtype=torch.float32, device=a.device)
+    for start in range(0, a.shape[0], chunk_rows):
+        g_sum = g_sum + a[start : start + chunk_rows].T @ c[start : start + chunk_rows]
+    return g_sum
+
+
+def trunk_grads(g_sum: torch.Tensor, u: int) -> Tuple[torch.Tensor, ...]:
+    """The GRU layer's (dwx, dwh, dbx, dbh) read off G: rows h and 1
+    against ``[da_r | da_z | dac r]`` give W_h and b_h, rows 1, 1 - s and s
+    against ``[da_r | da_z | dac]`` give b_x and W_x."""
+    dwh, dbh = g_sum[:u, : 3 * u], g_sum[u, : 3 * u]
+    dbx = torch.cat([g_sum[u, : 2 * u], g_sum[u, 3 * u : 4 * u]])
+    dwx = torch.cat([g_sum[u + 1 :, : 2 * u], g_sum[u + 1 :, 3 * u : 4 * u]], dim=1)
+    return dwx, dwh, dbx, dbh
 
 
 def log_prob_bwd_stages_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
@@ -181,15 +208,21 @@ def _checked(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
         )
     if replay is None:
         return b, n, u, launch_replay(weights, samples)
-    shapes = ((b, n + 1, u + 3), (b, n, 4 * u), (b, n))
-    for t, shape in zip((replay.rows, replay.gates, replay.p1), shapes):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != samples.device):
-            raise ValueError(
-                f"replay tensor {tuple(t.shape)} {t.dtype} on {t.device}; K2 takes "
-                f"contiguous float32 {shape} on {samples.device}"
-            )
+    check_stored((replay.rows, replay.gates, replay.p1),
+                 ((b, n + 1, u + 3), (b, n, 4 * u), (b, n)), samples.device, "K2")
     return b, n, u, replay
+
+
+def check_stored(tensors, shapes, device, kernel: str) -> None:
+    """Raises unless each of ``tensors`` (a stored replay's, handed to a
+    later stage) is a contiguous float32 tensor of its shape on ``device``."""
+    for t, shape in zip(tensors, shapes):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(
+                f"replay tensor {tuple(t.shape)} {t.dtype} on {t.device}; {kernel} takes "
+                f"contiguous float32 {shape} on {device}"
+            )
 
 
 def launch_reverse(weights: Weights, samples: torch.Tensor, g: torch.Tensor,

@@ -10,10 +10,13 @@ Counterpart of ``rnnwavefunctions_tpu/ops/fused_jac.py`` for one GRU layer:
   returns ``JacSweep``: log p and the per-(sample, site) rows of K2's
   matrices A and C, from which the JAX outputs ``(hist, dg, dl1)`` are
   read column for column;
-* B19 ``rollout_hist``: the cRNN's forward replay alone, ``hist``;
-* B20 ``sweep_dgates``: the reverse sweep seeded by P cotangent sets on the
-  hidden states (the cRNN's Re and Im parts), ``dg`` per part, one launch.
-  B19 and B20 are in ``csrc/fused_jac.cu``.
+* B19 ``rollout_hist``: the cRNN's forward replay alone, ``hist`` and,
+  storing, each site's gates;
+* B20 ``sweep_dgates``: K2's reverse sweep seeded by P cotangent sets on the
+  hidden states (the cRNN's Re and Im parts) from B19's stored gates,
+  ``dg`` per part, one launch (``csrc/fused_gru_bwd.cu``, two parts of one
+  sample a block).
+  B19 is in ``csrc/fused_jac.cu``, with B20's entry point.
 
 Layouts are sample-major: ``hist`` (S, N, U) holds the post-step state h_n,
 ``dg`` (S, N, 4U) the gate cotangents ``[da_r | da_z | da_c | dgh_c]`` (the
@@ -32,7 +35,7 @@ staged plain stages a and b).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,13 +46,13 @@ from .fused_gru import (
     check_samples,
     check_supported,
     check_weights,
-    gru_layer,
+    gru_gates,
     is_cpu_call,
     replay_plain,
     spin_input,
     stream_of,
 )
-from .fused_gru_bwd import launch_reverse, reverse_plain
+from .fused_gru_bwd import check_stored, launch_reverse, reverse_plain, sweep_plain
 
 
 class JacSweep(NamedTuple):
@@ -84,19 +87,24 @@ class JacSweep(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def rollout_hist_plain(trunk: Weights, samples: torch.Tensor) -> torch.Tensor:
+def rollout_hist_plain(trunk: Weights, samples: torch.Tensor, store: bool = False):
     """Teacher-forced GRU rollout of (B, N) spins from the zero state:
-    ``hist`` (B, N, U), the state after each site."""
+    ``hist`` (B, N, U), the state after each site; with ``store``, ``(hist,
+    gates)``, gates (B, N, 4U) ``[r | z | c | ghc]`` of each site."""
     wx, wh, bx, bh = trunk
     b, n = samples.shape
     s = samples.to(torch.float32)
     h = torch.zeros(b, wh.shape[0], dtype=torch.float32, device=samples.device)
     x = torch.zeros(b, dtype=torch.float32, device=samples.device)
-    hist = []
+    hist, gates = [], []
     for i in range(n):
-        h = gru_layer(spin_input(wx, bx, x, 1.0 if i > 0 else 0.0), h, wh, bh)
+        r, z, c, ghc = gru_gates(spin_input(wx, bx, x, 1.0 if i > 0 else 0.0), h, wh, bh)
+        h = z * h + (1.0 - z) * c
         hist.append(h)
+        gates.append(torch.cat([r, z, c, ghc], dim=1))
         x = s[:, i]
+    if store:
+        return torch.stack(hist, dim=1), torch.stack(gates, dim=1)
     return torch.stack(hist, dim=1)
 
 
@@ -132,6 +140,19 @@ def sweep_dgates_plain(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor
     return torch.stack(out, dim=2)
 
 
+def sweep_stored_plain(trunk: Weights, hist: torch.Tensor, gates: torch.Tensor,
+                       douts: torch.Tensor) -> torch.Tensor:
+    """B20's route with tensor ops: K2's ``sweep_plain`` from the stored
+    ``gates`` (B, N, 4U) and ``hist`` for each of the P cotangent sets
+    ``douts`` (P, B, N, U), in the kernel's order: ``dg`` (P, B, N, 4U)
+    ``[da_r | da_z | da_c | dgh_c]``."""
+    parts, b, n, u = douts.shape
+    hp = torch.cat([torch.zeros_like(hist[:, :1]), hist[:, :-1]], dim=1)
+    cot = sweep_plain(trunk[1], gates.repeat(parts, 1, 1), hp.repeat(parts, 1, 1),
+                      douts.reshape(parts * b, n, u)).view(parts, b, n, 4 * u)
+    return torch.cat([cot[..., : 2 * u], cot[..., 3 * u :], cot[..., 2 * u : 3 * u]], dim=-1)
+
+
 def jac_sweep_plain(weights: Weights, samples: torch.Tensor) -> JacSweep:
     """B17's function, K2's plain stages a and b with g = 1: the head's
     d log p_n / d l1 = s_n - sigmoid(l1 - l0) = -d log p_n / d l0 seeds the
@@ -161,34 +182,48 @@ def jac_sweep(weights: Weights, samples: torch.Tensor) -> JacSweep:
 jac_sweep.launches = 0
 
 
-def rollout_hist(trunk: Weights, samples: torch.Tensor) -> torch.Tensor:
-    """B19: ``hist`` (B, N, U) for (B, N) int32 samples and the trunk
-    (wx, wh, bx, bh)."""
-    if is_cpu_call(samples, *trunk):
-        return rollout_hist_plain(trunk, samples)
+def _launch_rollout(trunk: Weights, samples: torch.Tensor, store: bool):
+    """B19 on CUDA tensors (the callers count the launch): ``hist``, or with
+    ``store`` ``(hist, gates)``."""
     u = check_weights(trunk, heads=0)
     b, n = check_samples(samples)
     check_supported(n, u, samples.device, CRNN_FAMILY)
     hist = torch.empty(b, n, u, dtype=torch.float32, device=samples.device)
+    gates = torch.empty(b, n, 4 * u, dtype=torch.float32, device=samples.device) if store else None
     with torch.cuda.device(samples.device):
         err = load_library().lib.rnnwf_rollout_hist(
-            samples.data_ptr(), *[w.data_ptr() for w in trunk], hist.data_ptr(), b, n, u,
-            stream_of(samples),
+            samples.data_ptr(), *[w.data_ptr() for w in trunk], hist.data_ptr(),
+            None if gates is None else gates.data_ptr(), b, n, u, stream_of(samples),
         )
     check(err, "rnnwf_rollout_hist")
+    return (hist, gates) if store else hist
+
+
+def rollout_hist(trunk: Weights, samples: torch.Tensor, store: bool = False):
+    """B19: ``hist`` (B, N, U) for (B, N) int32 samples and the trunk
+    (wx, wh, bx, bh); with ``store``, ``(hist, gates)``, the gates (B, N,
+    4U) ``[r | z | c | ghc]`` that B20 starts from."""
+    if is_cpu_call(samples, *trunk):
+        return rollout_hist_plain(trunk, samples, store)
+    out = _launch_rollout(trunk, samples, store)
     rollout_hist.launches += 1
-    return hist
+    return out
 
 
 rollout_hist.launches = 0
 
 
 def sweep_dgates(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor,
-                 douts: torch.Tensor) -> torch.Tensor:
+                 douts: torch.Tensor, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B20: ``dg`` (P, B, N, 4U) for the cotangent sets ``douts`` (P, B, N, U)
-    on the states ``hist`` (B, N, U), all parts in one launch."""
-    if is_cpu_call(samples, hist, douts, *trunk):
-        return sweep_dgates_plain(trunk, samples, hist, douts)
+    on the states ``hist`` (B, N, U), all parts in one launch.  ``gates``:
+    B19's stored gates of these samples (``rollout_hist(..., store=True)``);
+    without them B19 runs storing first."""
+    tensors = (samples, hist, douts, *trunk) + (() if gates is None else (gates,))
+    if is_cpu_call(*tensors):
+        if gates is None:
+            return sweep_dgates_plain(trunk, samples, hist, douts)
+        return sweep_stored_plain(trunk, hist, gates, douts)
     u = check_weights(trunk, heads=0)
     b, n = check_samples(samples)
     check_supported(n, u, samples.device, CRNN_FAMILY)
@@ -199,10 +234,14 @@ def sweep_dgates(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor,
                              f"tensor; got {tuple(t.shape)} {t.dtype}")
     if parts < 1:
         raise ValueError("douts needs at least one part")
+    if gates is None:
+        _, gates = _launch_rollout(trunk, samples, True)
+    else:
+        check_stored((gates,), ((b, n, 4 * u),), samples.device, "B20")
     dg = torch.empty(parts, b, n, 4 * u, dtype=torch.float32, device=samples.device)
     with torch.cuda.device(samples.device):
         err = load_library().lib.rnnwf_sweep_dgates(
-            samples.data_ptr(), *[w.data_ptr() for w in trunk], hist.data_ptr(),
+            samples.data_ptr(), trunk[1].data_ptr(), hist.data_ptr(), gates.data_ptr(),
             douts.data_ptr(), dg.data_ptr(), b, parts, n, u, stream_of(samples),
         )
     check(err, "rnnwf_sweep_dgates")

@@ -20,10 +20,13 @@ suffix tile T and B17/B18 with one and two samples per reverse-sweep block;
 B8, B10 and B11 at the J1-J2 flagship (``CRNNU1`` seed 4321, J1J2(100,
 J2=0.2), open chain, zero-magnetisation samples); B12, B12 storing B14's
 replay where the checkout has it, B14 and B14 from that replay at the MDRNN
-flagship; then K3's, K2's, B16's, B17/B18's, B10's, B11's and B14's (alone
-and from the replay) launches apart by ``torch.profiler`` over 10 calls
-(B16 over 3).  The card's name and power limit come first, a JSON line
-last.
+flagship; B7 and B9 on the J1-J2 samples and, where the checkout has them,
+B9's replay and B9 from it; B19 (storing the gates where the checkout
+takes it) and B20 on two random cotangent sets (from B19's stored gates and
+alone where the checkout takes them); then K3's, K2's, B16's, B17/B18's,
+B10's, B11's, B14's (alone and from the replay), B9's (alone and from the
+replay) and B20's launches apart by ``torch.profiler`` over 10 calls (B16
+over 3).  The card's name and power limit come first, a JSON line last.
 """
 
 from __future__ import annotations
@@ -98,7 +101,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
     import rnnwavefunctions_tpu_torch as pkg
-    from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_gru, fused_gru_bwd, fused_jac
+    from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_crnn_bwd, fused_gru, fused_gru_bwd
+    from rnnwavefunctions_tpu_torch.ops import fused_jac
     from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
     from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
     from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
@@ -201,6 +205,38 @@ def main() -> None:
         times["B14 from replay"] = _cuda_ms(from_replay, reps=10)
         split.update({f"{k} (from replay)": v for k, v in _profiled(
             from_replay, {k: v for k, v in b14_parts.items() if k != "B14 replay"}).items()})
+    # B7 and B9 on the J1-J2 samples; B9's replay and B9 from it where the
+    # checkout has them
+    g_re, g_im = torch.randn(2, 500, generator=gen).to(dev)
+    b9 = lambda: fused_crnn_bwd.crnn_log_amp_bwd(wc, sector, g_re, g_im, True)  # noqa: E731
+    times["B7"] = _cuda_ms(lambda: fused_crnn.crnn_log_amp_parts(wc, sector, True))
+    times["B9"] = _cuda_ms(b9)
+    b9_parts = {"B9 replay": "exchange_base_kernel", "B9 reverse sweep": "bwd_sweep_kernel",
+                "B9 weight cotangent": "bwd_weights_kernel", "B9 chunk sum": "sum_partials_kernel",
+                "B9 one-warp kernel": "crnn_bwd_kernel"}
+    split.update(_profiled(b9, b9_parts))
+    if hasattr(fused_crnn, "crnn_replay"):
+        creplay = fused_crnn.crnn_replay(wc, sector, True)
+        times["B9 replay"] = _cuda_ms(lambda: fused_crnn.crnn_replay(wc, sector, True))
+        b9_from = lambda: fused_crnn_bwd.crnn_log_amp_bwd(  # noqa: E731
+            wc, sector, g_re, g_im, True, replay=creplay)
+        times["B9 from replay"] = _cuda_ms(b9_from)
+        split.update({f"{k} (from replay)": v for k, v in _profiled(
+            b9_from, {k: v for k, v in b9_parts.items() if k != "B9 replay"}).items()})
+    # B19 storing the gates, and B20 from them, where the checkout takes them
+    douts = torch.randn(2, 500, 100, 50, generator=gen).to(dev)
+    hist = fused_jac.rollout_hist(trunk, s)
+    b20 = lambda: fused_jac.sweep_dgates(trunk, s, hist, douts)  # noqa: E731
+    b20_parts = {"B20 B19 storing": "rollout_hist_kernel", "B20 reverse sweep": "bwd_sweep_kernel",
+                 "B20 one-warp kernel": "sweep_dgates_kernel"}
+    if "store" in inspect.signature(fused_jac.rollout_hist).parameters:
+        _, gates = fused_jac.rollout_hist(trunk, s, store=True)
+        times["B19 storing"] = _cuda_ms(lambda: fused_jac.rollout_hist(trunk, s, store=True))
+        times["B20 alone"] = _cuda_ms(b20)
+        split.update({f"{k} (alone)": v for k, v in _profiled(b20, b20_parts).items()})
+        b20 = lambda: fused_jac.sweep_dgates(trunk, s, hist, douts, gates=gates)  # noqa: E731
+    times["B20"] = _cuda_ms(b20)
+    split.update(_profiled(b20, b20_parts))
     times.update({k: v for k, v in split.items() if v > 0})
     print(json.dumps({"label": args.label, "ms": times}))
 

@@ -287,18 +287,19 @@ def _crnn_rows(ansatz: Any, rnn_re, rnn_im, head_re, head_im, s: int):
 
 
 def _crnn_rows_fused(ansatz: Any, samples: torch.Tensor):
-    """The kernel path: one B19 launch for the trunk's history, the head
-    seeds (closed form, above), then one B20 launch for both parts and the
-    batched contractions (``ops/fused_jac.py``)."""
+    """The kernel path: one B19 launch storing the trunk's history and
+    gates, the head seeds (closed form, above), then one B20 launch for both
+    parts from the stored gates and the batched contractions
+    (``ops/fused_jac.py``)."""
     s, n = samples.shape
     trunk = tuple(w.detach() for w in ansatz.weights()[:4])
     cum_up = torch.cumsum(samples, dim=1) - samples
-    hist = fused_jac.rollout_hist(trunk, samples)  # (S, N, U)
+    hist, gates = fused_jac.rollout_hist(trunk, samples, store=True)  # (S, N, U), (S, N, 4U)
     sites = torch.arange(n, device=samples.device)
     dla, dlp = crnn_head_seeds(ansatz, hist, samples, cum_up, sites)
     douts = torch.stack([dla @ ansatz.head_ampl.w.detach().T,
                          dlp @ ansatz.head_phase.w.detach().T])
-    dg_a, dg_p = fused_jac.sweep_dgates(trunk, samples, hist, douts)
+    dg_a, dg_p = fused_jac.sweep_dgates(trunk, samples, hist, douts, gates=gates)
     x0 = fused_jac.input_onehot_rows(samples)
 
     def head(dlogits):

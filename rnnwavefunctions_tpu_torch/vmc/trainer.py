@@ -9,8 +9,8 @@ constant learning rate.  One step:
    them, else the ansatz's sampler and the generic estimator;
 2. the surrogate loss on ``ansatz.log_amp`` (kernels K1 forward and K2
    backward for the pRNN, twice for parity, B12 and B14 for the MDRNN), or
-   for a complex ansatz on ``ansatz.log_amp_parts`` (B7 forward and B9
-   backward), when the ansatz runs its kernels;
+   for a complex ansatz on ``ansatz.log_amp_parts`` (B9's replay forward
+   and B9 backward), when the ansatz runs its kernels;
 3. ``torch.optim.Adam``, whose update ``lr * m_hat / (sqrt(v_hat) + eps)``
    is optax's ``adam`` with ``eps_root=0``.
 

@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels K1-K4, B5-B11, B12-B16 and B17-B21 against
-their plain versions on the card, at small shapes with ragged batches (B10,
-B11, B8 and B14 also over their kernels' edges, B14 stage by stage against
-its staged plain version), and the training steps that launch them.  They
+their plain versions on the card, at small shapes with ragged batches (B9,
+B10, B11, B8, B14, B19 and B20 also over their kernels' edges, B9 and B14
+stage by stage against their staged plain versions), and the training steps
+that launch them.  They
 skip without a CUDA device (a CUDA kernel has no CPU mode).  This file
 imports no JAX, so on a machine with a card and without JAX it runs as
 
@@ -309,13 +310,67 @@ def test_b7_matches_plain(cuda, u1, n):
         assert fused_crnn.crnn_log_amp_parts.launches == before + 1
 
 
-@pytest.mark.parametrize("u1", [True, False])
-def test_b9_matches_plain(cuda, u1):
-    w, s = _crnn_weights(50, cuda), _sector(cuda)
-    g_re, g_im = torch.randn(2, B, generator=torch.Generator().manual_seed(2)).to(cuda)
-    for a, b in zip(fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, u1),
-                    fused_crnn_bwd.log_amp_bwd_plain(w, s, g_re, g_im, u1)):
-        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
+# B9 over its kernels' edges: (u1, N, U, B) with the mask on and off, N even
+# and odd (where the sector holds a forbidden class, so the mask is off),
+# U below, at and past one warp and the width that bounded the cRNN family
+# before B9's three stages, B odd (a reverse-sweep block takes 2 samples) and
+# the flagship's 500
+B9_EDGES = [(True, N, 16, B), (False, N, 16, B), (True, N, 50, B), (False, N - 1, 50, B),
+            (True, N, 91, B), (False, N - 1, 91, 1), (True, N, 50, 500), (True, 2, 7, 3)]
+
+
+def _b9_case(cuda, u1, n, u, b):
+    w = _crnn_weights(u, cuda)
+    gen = torch.Generator().manual_seed(b * 100 + n)
+    if u1:
+        s = (torch.rand(b, n, generator=gen).argsort(dim=1) < n // 2).to(torch.int32).to(cuda)
+    else:
+        s = (torch.rand(b, n, generator=gen) < 0.5).to(torch.int32).to(cuda)
+    g_re, g_im = torch.randn(2, b, generator=gen).to(cuda)
+    return w, s, g_re, g_im
+
+
+@pytest.mark.parametrize("u1,n,u,b", B9_EDGES)
+def test_b9_matches_plain(cuda, u1, n, u, b):
+    """B9 alone and from the replay (CRNNLogAmpParts' forward) against the
+    autograd plain version; the same bits twice and from the replay."""
+    w, s, g_re, g_im = _b9_case(cuda, u1, n, u, b)
+    before = (fused_crnn_bwd.crnn_log_amp_bwd.launches, fused_crnn.crnn_replay.launches)
+    got = fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, u1)
+    for a, ref in zip(got, fused_crnn_bwd.log_amp_bwd_plain(w, s, g_re, g_im, u1)):
+        _close_to_max(a, ref)
+    again = fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, u1)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+    replay = fused_crnn.crnn_replay(w, s, u1)
+    fused = fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, u1, replay=replay)
+    assert all(torch.equal(x, y) for x, y in zip(fused, got))
+    assert (fused_crnn_bwd.crnn_log_amp_bwd.launches, fused_crnn.crnn_replay.launches) == (
+        before[0] + 3, before[1] + 1)
+    # the replay's (Re, Im) are B7's function
+    want_re, want_im = fused_crnn.log_amp_parts_plain(w, s, u1)
+    torch.testing.assert_close(replay.re, want_re, atol=1e-5 * n, rtol=1e-6)
+    torch.testing.assert_close(replay.im, want_im, atol=1e-5 * n, rtol=0)
+    with pytest.raises(ValueError, match="replay"):
+        fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, u1,
+                                        replay=replay._replace(seeds=replay.seeds[:, :-1]))
+
+
+@pytest.mark.parametrize("u1,n,u,b", [(True, N, 16, B), (False, N - 1, 50, B),
+                                      (True, N, 91, B), (True, 100, 50, 500)])
+def test_b9_stages_match_staged_plain(cuda, u1, n, u, b):
+    """Each stage against the staged plain version on the kernel's own
+    inputs: the replay (a), the reverse sweep (b) from the kernel's replay,
+    the weight cotangent (c) from the kernel's replay and reverse sweep."""
+    w, s, g_re, g_im = _b9_case(cuda, u1, n, u, b)
+    grads, replay, rev = fused_crnn_bwd.crnn_log_amp_bwd_stages(w, s, g_re, g_im, u1)
+    want = fused_crnn.replay_plain(w, s, u1)
+    torch.testing.assert_close(replay.re, want.re, atol=1e-5 * n, rtol=1e-6)
+    torch.testing.assert_close(replay.im, want.im, atol=1e-5 * n, rtol=0)
+    for name in ("rows", "gates", "seeds"):
+        _close_to_max(getattr(replay, name), getattr(want, name), rel=1e-5)
+    _close_to_max(rev.cot, fused_crnn_bwd.reverse_plain(w, s, g_re, g_im, replay).cot, rel=1e-5)
+    for a, ref in zip(grads, fused_crnn_bwd.weight_cotangent_plain(replay, rev)):
+        _close_to_max(a, ref, rel=1e-5)
 
 
 @pytest.mark.parametrize("periodic,j2", [(False, 0.2), (True, 0.2), (False, 0.0), (True, 0.0)])
@@ -338,16 +393,22 @@ def test_b10_and_b11_match_plain(cuda, periodic, j2):
 
 
 def test_j1j2_training_step_runs_every_kernel(cuda):
+    """The step runs B11, B9's replay as the forward and B9 from it; B7 runs
+    only where no gradient follows."""
     trainer = VMCTrainer(CRNNU1(N, (16,), device=cuda), J1J2(N, j2=0.2),
                          TrainConfig(num_samples=B))
     state = trainer.init()
-    fns = (jk.j1j2_sample_and_exchange, fused_crnn.crnn_log_amp_parts,
-           fused_crnn_bwd.crnn_log_amp_bwd, jk.j1j2_exchange_offdiag, fused_crnn.crnn_sample)
+    fns = (jk.j1j2_sample_and_exchange, fused_crnn.crnn_replay, fused_crnn_bwd.crnn_log_amp_bwd,
+           fused_crnn.crnn_log_amp_parts, jk.j1j2_exchange_offdiag, fused_crnn.crnn_sample)
     counts = [fn.launches for fn in fns]
     state, ms = trainer.run_steps(state, 2)
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 2, 0, 0, 0]
     # CRNNU1.sample runs B8, the stand-alone sampler, and no longer B11
-    trainer.local_energy(trainer.ansatz.sample(B, torch.Generator().manual_seed(0)))
-    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 2, 1, 1]
+    s = trainer.ansatz.sample(B, torch.Generator().manual_seed(0))
+    trainer.local_energy(s)
+    with torch.no_grad():
+        trainer.ansatz.log_amp_parts(s)
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 2, 2, 1, 1, 1]
     assert bool(torch.isfinite(ms["mean_energy"]).all())
     assert ms["mean_energy_im"].shape == (2,)
 
@@ -421,11 +482,57 @@ def test_exchange_kernels_over_edges(cuda, n, periodic, j2, u1, u):
 
 
 def test_crnn_coverage_on_the_card(cuda):
+    """The family covers the U <= 91 it took before B9's three stages; past
+    its widest, the suffix pass of B10 and B11 is the kernel that does not
+    fit (B9 keeps no weight in shared memory)."""
     assert fused_crnn.supports(100, (50,), cuda)
     assert not fused_crnn.supports(100, (256,), cuda)
+    widest = max(v for v in range(1, 257) if fused_crnn.supports(100, (v,), cuda))
+    assert widest >= 91
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    over = {k for k, v in fused_crnn.shared_memory_bytes(widest + 1).items() if v > limit}
+    assert over == {"the suffix pass of B10 and B11"}
     with pytest.raises(ValueError, match="impl='plain'"):
         CRNNU1(N, (16, 16), device=cuda).log_amp_parts(_sector(cuda))
     assert CRNNU1(N, (16, 16), impl="plain", device=cuda).log_prob(_sector(cuda)).shape == (B,)
+
+
+def test_crnn_kernels_at_the_widest(cuda):
+    """Every cRNN kernel at the family's widest U on this card (its suffix
+    pass takes two 64-row tiles per gate): B7, B9 alone and from its
+    replay, B10, B11 and B8, B19 storing and B20 against their plain
+    versions."""
+    u = max(v for v in range(1, 257) if fused_crnn.supports(N, (v,), cuda))
+    w, s = _crnn_weights(u, cuda), _sector(cuda)
+    re, im = fused_crnn.crnn_log_amp_parts(w, s, True)
+    want_re, want_im = fused_crnn.log_amp_parts_plain(w, s, True)
+    torch.testing.assert_close(re, want_re, atol=1e-5 * N, rtol=1e-6)
+    torch.testing.assert_close(im, want_im, atol=1e-5 * N, rtol=0)
+    g_re, g_im = torch.randn(2, B, generator=torch.Generator().manual_seed(2)).to(cuda)
+    got = fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, True)
+    fused = fused_crnn_bwd.crnn_log_amp_bwd(w, s, g_re, g_im, True,
+                                            replay=fused_crnn.crnn_replay(w, s, True))
+    for a, b, ref in zip(got, fused, fused_crnn_bwd.log_amp_bwd_plain(w, s, g_re, g_im, True)):
+        _close_to_max(a, ref)
+        assert torch.equal(a, b)
+    info = J1J2(N, j2=0.2, periodic=True, marshall_sign=True).exchange_kernel_info
+    k10 = jk.j1j2_exchange_offdiag(w, s, u1=True, **info)
+    p10 = jk.exchange_offdiag_plain(w, s, u1=True, **info)
+    for a, b in zip(k10[:2], p10[:2]):
+        _close_to_max(a, b)
+    s11, *rest = jk.j1j2_sample_and_exchange(w, B, N, 3, 5, u1=True, **info)
+    assert bool((s11.sum(dim=1) == N // 2).all())
+    for a, b in zip(rest[:2], jk.exchange_offdiag_plain(w, s11, u1=True, **info)[:2]):
+        _close_to_max(a, b)
+    assert torch.equal(fused_crnn.crnn_sample(w, B, N, 3, 5, True)[0], s11)
+    trunk = w[:4]
+    hist, gates = fused_jac.rollout_hist(trunk, s, store=True)
+    want_hist, want_gates = fused_jac.rollout_hist_plain(trunk, s, store=True)
+    _close_to_max(hist, want_hist)
+    _close_to_max(gates, want_gates)
+    douts = torch.randn(2, B, N, u, generator=torch.Generator().manual_seed(4)).to(cuda)
+    _close_to_max(fused_jac.sweep_dgates(trunk, s, hist, douts, gates=gates),
+                  fused_jac.sweep_dgates_plain(trunk, s, hist, douts))
 
 
 # ---- the 2D MDRNN kernels (B12-B16)
@@ -593,10 +700,13 @@ def test_b17_matches_plain(cuda, b, n):
             _close_to_max(a.cpu(), ref)
 
 
-@pytest.mark.parametrize("b,u", [(b, u) for b in (1, 5, 500) for u in (12, 50)])
+@pytest.mark.parametrize("b,u", [(b, u) for b in (1, 5, 500) for u in (12, 50, 91)])
 def test_b19_b20_match_plain(cuda, b, u):
     """B19 at one sample, a ragged 5 (a block takes 2) and the flagship 500,
-    and B20 on its history; B19 gives the same bits twice."""
+    storing and not, against its plain version; B20 from B19's stored
+    gates (two parts, one sample a block) and alone (B19 storing first)
+    against the plain sweep that recomputes the gates, and against its
+    stored-gates plain twin; the same bits twice and by both routes."""
     w = _crnn_weights(u, cuda)
     keys = torch.rand(b, N, generator=torch.Generator().manual_seed(b))
     s = (keys.argsort(dim=1) < N // 2).to(torch.int32).to(cuda)
@@ -604,13 +714,27 @@ def test_b19_b20_match_plain(cuda, b, u):
     before = (fused_jac.rollout_hist.launches, fused_jac.sweep_dgates.launches)
     hist = fused_jac.rollout_hist(trunk, s)
     _close_to_max(hist, fused_jac.rollout_hist_plain(trunk, s))
-    assert torch.equal(fused_jac.rollout_hist(trunk, s), hist)
+    hist_s, gates = fused_jac.rollout_hist(trunk, s, store=True)
+    assert torch.equal(hist_s, hist)
+    want_hist, want_gates = fused_jac.rollout_hist_plain(trunk, s, store=True)
+    _close_to_max(gates, want_gates, rel=1e-5)
     douts = torch.randn(2, b, N, u, generator=torch.Generator().manual_seed(4)).to(cuda)
-    dg = fused_jac.sweep_dgates(trunk, s, hist, douts)
+    dg = fused_jac.sweep_dgates(trunk, s, hist, douts, gates=gates)
     assert dg.shape == (2, b, N, 4 * u)
     _close_to_max(dg, fused_jac.sweep_dgates_plain(trunk, s, hist, douts))
+    _close_to_max(dg, fused_jac.sweep_stored_plain(trunk, hist, gates, douts), rel=1e-5)
+    assert torch.equal(fused_jac.sweep_dgates(trunk, s, hist, douts), dg)
+    assert torch.equal(fused_jac.sweep_dgates(trunk, s, hist, douts, gates=gates), dg)
     assert (fused_jac.rollout_hist.launches, fused_jac.sweep_dgates.launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 2, before[1] + 3)
+    # one part and three: two (sample, part) trajectories a block, the last
+    # block padded
+    for parts in (1, 3):
+        d = torch.randn(parts, b, N, u, generator=torch.Generator().manual_seed(parts)).to(cuda)
+        _close_to_max(fused_jac.sweep_dgates(trunk, s, hist, d, gates=gates),
+                      fused_jac.sweep_dgates_plain(trunk, s, hist, d))
+    with pytest.raises(ValueError, match="replay"):
+        fused_jac.sweep_dgates(trunk, s, hist, douts, gates=gates[:, :-1])
 
 
 def _spd(s, device, seed=0):
@@ -648,7 +772,8 @@ def test_b21_exact_convergence_guard(cuda):
 
 def test_minsr_training_steps_launch_their_kernels(cuda):
     """minSR on the card: the TFIM step runs K3, B17 and B21 (no K1/K2), the
-    J1-J2 step B11, B19, B20 and B21 (no B7/B9), once per step each."""
+    J1-J2 step B11, B19, B20 and B21 (no B7, B9 or B9's replay), once per
+    step each."""
     cfg = TrainConfig(num_samples=B, optimizer="minsr", learning_rate=5e-2)
     for ansatz, ham, fns in (
             (PRNN1D(N, (16,), device=cuda), TFIM1D(N, 1.0),
@@ -656,13 +781,14 @@ def test_minsr_training_steps_launch_their_kernels(cuda):
               fused_gru.gru_log_prob, fused_gru_bwd.gru_log_prob_bwd)),
             (CRNNU1(N, (16,), device=cuda), J1J2(N, j2=0.2),
              (jk.j1j2_sample_and_exchange, fused_jac.rollout_hist, fused_jac.sweep_dgates,
-              sr_cg.sr_cg_solve, fused_crnn.crnn_log_amp_parts,
+              sr_cg.sr_cg_solve, fused_crnn.crnn_log_amp_parts, fused_crnn.crnn_replay,
               fused_crnn_bwd.crnn_log_amp_bwd))):
         trainer = VMCTrainer(ansatz, ham, cfg)
         state = trainer.init()
         counts = [fn.launches for fn in fns]
         state, ms = trainer.run_steps(state, 2)
-        want = [2] * (len(fns) - 2) + [0, 0]
+        idle = 3 if fused_crnn.crnn_replay in fns else 2
+        want = [2] * (len(fns) - idle) + [0] * idle
         assert [fn.launches - c for fn, c in zip(fns, counts)] == want
         assert bool(torch.isfinite(ms["mean_energy"]).all())
 
