@@ -49,11 +49,15 @@ Phases (each prints its time; any failure raises and exits non-zero):
    over 5 more steps, each step's launches by kernel name.
 10. The 2D MDRNN kernels B12-B16 against their plain versions at the
    flagship shapes (16x16, U=50, B=500, perturbed weights) and on the
-   non-square 5x3 and 3x6 lattices: B12 log p and B12 storing B14's replay,
+   non-square 5x3 and 3x6 lattices: B12 log p, B12 storing B14's replay
+   (log p, history, p1) against the plain replay, both the same bits twice,
    B14 per tensor alone and from that replay, the same bits twice, B15 ratio
    and log p, B16 against B12 and B15 on its own samples, B13's draws equal
-   to B16's for the same (seed, offset) and a function of it, and the
-   sampler's frequencies at 2x2 over 20k draws against the exact density.
+   to B16's for the same (seed, offset), the same bits twice and a function
+   of the key, the sampler's frequencies at 2x2 over 20k draws against
+   the exact density, and B15's ratio sums against the float64 plain
+   version on Nx x 2 lattices up to the family's widest at U=50 (their
+   float32 rounding grows with the sites).
 11. The five MDRNN kernels and their plain versions timed with CUDA events,
    B12 storing and B14 from its replay beside them; B16's three launches
    (base pass, suffix pass, ratio sum) and B14's (replay, reverse sweep,
@@ -93,13 +97,19 @@ Phases (each prints its time; any failure raises and exits non-zero):
    B11's in-sector samples of the J1-J2 flagship model, and its rows
    against the plain rows; the CG solve B21 on the TFIM
    flagship's (S, S) Gram and the J1-J2 flagship's (2S, 2S) Gram against
-   the plain CG, with its relative residual beside the Cholesky solve's.
+   the plain CG, with its relative residual beside the Cholesky solve's,
+   and on each of its paths, chosen by S (one block at S=64, clusters of 4
+   blocks at S=230 and of 8 at S=500, the cooperative grid at 2S=1000 and
+   S=3000), against the plain CG and Cholesky on SR-Gram-like systems, the
+   same bits twice.
 19. The minSR kernels, their plain versions and their library yardsticks
    (``torch.nn.GRU``, i.e. cuDNN, beside B19 not storing, which computes the
    same history; Cholesky for B21) timed with CUDA events, B19 storing the
-   gates as the step runs it, B20 from the stored gates and alone; B17's and B18's two launches (the replay, the
-   reverse sweep) timed apart by ``torch.profiler``; their bounds, and the
-   widths their kernel families cover.
+   gates as the step runs it, B20 from the stored gates and alone, B21 on
+   the TFIM and J1-J2 Grams and the N=1000 chain's S=64; B17's and B18's two
+   launches (the replay, the reverse sweep) timed apart by
+   ``torch.profiler``; their bounds, and the widths their kernel families
+   cover.
 20. minSR accuracy: TFIM N=20 (PRNN1D(20, (50,)), S=500, lr 5e-2) in 50-step
    blocks until within 1e-3 of the DMRG energy, at most 600 steps; J1-J2
    N=8 (CRNNU1(8, (12,)), J1J2(8, J2=0.2), S=256, lr 5e-2, seed 7) after 80
@@ -948,6 +958,18 @@ def main() -> None:
         print(f"B12 ({label}): log p max abs err {e:.3e} (tol {tol:.1e})")
         require(e <= tol, f"B12 log p ({label})")
         worst["B12 mdrnn_log_prob"] = max(worst["B12 mdrnn_log_prob"], e)
+        # B12 storing B14's replay against the plain replay; both the same
+        # bits on a second run
+        stored, want = fused_mdrnn.mdrnn_log_prob(w, s, store=True), fused_mdrnn.replay_plain(w, s)
+        stored2, lk2 = fused_mdrnn.mdrnn_log_prob(w, s, store=True), fused_mdrnn.mdrnn_log_prob(w, s)
+        torch.cuda.synchronize()
+        eh, ep = rel(stored.hist, want.hist), max_err(stored.p1, want.p1)
+        same = bool(torch.equal(lk2, lk)) and all(torch.equal(a, c) for a, c in zip(stored2, stored))
+        print(f"B12 storing ({label}): log p {max_err(stored.lp, want.lp):.3e} (tol {tol:.1e}), "
+              f"history {eh:.3e} of its largest entry (tol {rel_tol:.0e}), p1 {ep:.3e} (tol 1e-5); B12 "
+              f"and B12 storing twice, the same bits: {same}")
+        require(max_err(stored.lp, want.lp) <= tol and eh <= rel_tol and ep <= 1e-5 and same,
+                f"B12 storing B14's replay ({label})")
 
         gm = torch.randn(b, generator=gen).to(dev)
         gk = fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, gm)
@@ -988,8 +1010,11 @@ def main() -> None:
         require(bool(((s16 == 0) | (s16 == 1)).all()), "B16 spins in {0, 1}")
         require(bool((s13 == s16).all()), "B13 draws the same lattices as B16 for one key")
         again, _, _ = mk.mdrnn_sample_and_flip_sum(w, b, nx, ny, 7, 1)
+        again13, lp13_again = fused_mdrnn.mdrnn_sample(w, b, nx, ny, 7, 1)
         other, _ = fused_mdrnn.mdrnn_sample(w, b, nx, ny, 7, 2)
         require(bool((again == s16).all()), "B16 draws are a function of (seed, offset)")
+        require(bool(torch.equal(again13, s13)) and bool(torch.equal(lp13_again, lp13)),
+                "B13 twice: the same bits")
         require(not bool((other == s13).all()), "B13 draws change with the offset")
         l12 = fused_mdrnn.mdrnn_log_prob(w, s16)
         r15, _ = mk.mdrnn_flip_ratio_sum(w, s16)
@@ -1017,6 +1042,25 @@ def main() -> None:
             check_mdrnn(ws, s_small, f"{nx}x{ny}, B=37", worst)
         for k, v in worst.items():
             record[k]["max_abs_err"] = v
+
+        # the float32 rounding of the ratio sums grows with the sites (log p
+        # is a sum over them): B15 against its plain version in float64 on
+        # Nx x 2 lattices up to the family's widest at U=50, on two seeds (for
+        # the weights, then the samples): the card test's (0, 1) and (Nx, Nx)
+        widest2 = max(n for n in range(1, 2049) if fused_mdrnn.supports(n, 2, U_FLAG, dev))
+        for nx in (16, 128, 257, 512, widest2):
+            for seed_w, seed_s in ((0, 1), (nx, nx)):
+                ww = tuple(t.detach() for t in
+                           perturbed_mdrnn(pkg, nx, 2, U_FLAG, seed_w, dev).weights())
+                s_w = (torch.rand(3, nx, 2, generator=torch.Generator().manual_seed(seed_s))
+                       < 0.5).to(torch.int32).to(dev)
+                ref = mk.flip_ratio_sum_plain(tuple(t.double() for t in ww), s_w)[0]
+                e_k, e_p = (float(((r.double() - ref).abs() / ref.abs()).max()) for r in (
+                    mk.mdrnn_flip_ratio_sum(ww, s_w)[0], mk.flip_ratio_sum_plain(ww, s_w)[0]))
+                print(f"B15 at {nx}x2 ({2 * nx} sites), B=3, seeds {seed_w}, {seed_s}: ratio "
+                      f"sums {e_k:.3e} relative from the float64 plain version (tol 1e-4); "
+                      f"the float32 plain version {e_p:.3e}")
+                require(e_k <= 1e-4, f"B15 at {nx}x2 against the float64 plain version")
 
         draws = 20000
         tiny = perturbed_mdrnn(pkg, 2, 2, U_FLAG, 12, dev)
@@ -1398,6 +1442,13 @@ def main() -> None:
     def relative_residual(t, c, x):
         return float((t.double() @ x.double() - c.double()).norm() / c.double().norm())
 
+    def spd_system(s_cg):
+        """A symmetric positive definite (S, S) system of an SR Gram's form,
+        A A^T / (2S) + 1e-2 I with A (S, 2S), and a right-hand side."""
+        a = torch.randn(s_cg, 2 * s_cg, generator=gen, dtype=torch.float64)
+        t = (a @ a.T / (2 * s_cg) + 1e-2 * torch.eye(s_cg, dtype=torch.float64)).float()
+        return t.to(dev), torch.randn(s_cg, generator=gen).to(dev)
+
     # B21's limits per system, (against the plain CG, relative residual):
     # read 2.8e-5 and 3.0e-6 on the TFIM Gram, 4.9e-5 and 1.4e-3 on the
     # J1-J2 Gram (condition number ~6e4; the plain CG's residual 2.7e-3)
@@ -1493,6 +1544,27 @@ def main() -> None:
             require(e_p <= tol_p and r_k <= tol_r and bool(torch.equal(again, x_k)),
                     f"B21 on the {label} Gram")
             worst = max(worst, max_err(x_k, x_p))
+        # each of B21's paths, chosen by S, on an SR-Gram-like system A A^T /
+        # (2S) + 1e-2 I: one block at the N=1000 chain's S=64, clusters of 4
+        # blocks at S=230 and of 8 at the TFIM S=500, the cooperative grid at
+        # the J1-J2 2S=1000 and at S=3000
+        for s_cg, want_path in ((64, "block"), (230, "cluster"), (500, "cluster"),
+                                (1000, "grid"), (3000, "grid")):
+            t, c = spd_system(s_cg)
+            x_k = sr_cg.sr_cg_solve(t, c, 64)
+            taken = sr_cg.sr_cg_solve.last_path
+            again = sr_cg.sr_cg_solve(t, c, 64)
+            x_p = sr_cg.cg_solve_plain(t, c, 64)
+            x_c = torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t))[:, 0]
+            torch.cuda.synchronize()
+            e_p, e_c = (float((x_k - ref).norm() / ref.norm()) for ref in (x_p, x_c))
+            print(f"B21 on the {taken} path (S={s_cg}): |x - x_plain| / |x_plain| {e_p:.3e}, "
+                  f"against Cholesky {e_c:.3e} (tol 1e-4); the same bits twice: "
+                  f"{bool(torch.equal(again, x_k))}")
+            require(taken == want_path and e_p <= 1e-4 and e_c <= 1e-4
+                    and bool(torch.equal(again, x_k)),
+                    f"B21 on the {want_path} path at S={s_cg} (took the {taken} path)")
+            worst = max(worst, max_err(x_k, x_p))
         record["B21 sr_cg_solve"]["max_abs_err"] = worst
 
     with Phase("19 minSR kernel times (CUDA events), bounds and coverage"):
@@ -1548,9 +1620,15 @@ def main() -> None:
               f"storing first) "
               f"{cuda_ms(lambda: fused_jac.sweep_dgates(trunk_c, s11, hist_k, douts), reps=20):.4f}"
               f" ms")
-        print(f"B21 on the J1-J2 (2S, 2S) Gram: kernel "
-              f"{cuda_ms(lambda: sr_cg.sr_cg_solve(t_j, c_j, 64), reps=20):.4f} ms, Cholesky "
-              f"{cuda_ms(lambda: torch.cholesky_solve(c_j[:, None], torch.linalg.cholesky(t_j)), reps=20):.4f} ms")
+        t_64, c_64 = spd_system(S_LONG)
+        for label, (t, c) in (("TFIM (S, S)", (t_tfim, c_tfim)), ("J1-J2 (2S, 2S)", (t_j, c_j)),
+                              (f"N={N_LONG} chain's S={S_LONG}", (t_64, c_64))):
+            kernel_ms = cuda_ms(lambda: sr_cg.sr_cg_solve(t, c, 64), reps=20)
+            print(f"B21 on the {label} Gram, {sr_cg.sr_cg_solve.last_path} path: "
+                  f"{kernel_ms:.4f} ms")
+            chol_ms = cuda_ms(lambda: torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t)),
+                              reps=20)
+            print(f"B21 on the {label} Gram: Cholesky {chol_ms:.4f} ms")
         b_, n_, u_ = S_FLAG, N_FLAG, U_FLAG
         w4 = 4 * sum(t.numel() for t in trunk_c)
         jac_site = jac_sweep_site_flops(u_)

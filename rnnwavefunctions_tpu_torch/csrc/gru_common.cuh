@@ -9,8 +9,10 @@
 // Work split (B7): one warp advances T trajectories (samples) through one
 // site at a time; the latency kernels' block-wide split (K1, K2's replay
 // and reverse sweep, which B17, B9 and B20 run too, B5, B19, K3's base
-// pass, the base pass of B8/B10/B11 and B9's replay, and B14's reverse
-// sweep) is slice_product below, and the flip and exchange suffixes run on
+// pass, the base pass of B8/B10/B11 and B9's replay, and the MDRNN's sweep
+// (B12, B13, B14's replay, B15/B16's base pass) and B14's reverse sweep,
+// with two products per site) is slice_product below or its MDRNN form, and
+// the flip and exchange suffixes run on
 // the tensor cores (csrc/tfim_flip.cu, csrc/j1j2_exchange.cu).  Lane j owns
 // hidden units j, j+32, ...; the hidden state of the warp's T trajectories
 // sits in shared memory as h[k*T + t], so one (broadcast) load of h[k]

@@ -16,7 +16,7 @@
 // tensor cores the products' share is 0.33 ms at the TF32 peak.
 //
 // Design: three launches.
-//   1. The base pass (fused_mdrnn.cu's sweep, one warp per sample): in
+//   1. The base pass (fused_mdrnn.cu's sliced sweep): in
 //      sample mode it draws the spins; it stores the (B, NS, U) cell-output
 //      history in visit order, the corrected prefix pfx[m] = log p(positions
 //      <= m) and the base log p.

@@ -1,7 +1,8 @@
 // Which shapes the kernels take on a device.  Every kernel keeps a block's
-// copy of the weights and its per-warp buffers in shared memory, so a shape
-// is covered when each kernel of a family has its dynamic shared memory
-// within the device's opt-in limit per block (232,448 bytes on an H100).
+// copy of the weights (or its registers' share of them) and its buffers in
+// shared memory, so a shape is covered when each kernel of a family has its
+// dynamic shared memory within the device's opt-in limit per block (232,448
+// bytes on an H100).
 #include <algorithm>
 
 #include "crnn_common.cuh"

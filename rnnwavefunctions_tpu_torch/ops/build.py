@@ -67,7 +67,7 @@ SIGNATURES = {
     "rnnwf_mdrnn_suffix_scratch_floats": ([_I] * 4 + [ctypes.POINTER(_LL)], _I),
     "rnnwf_rollout_hist": ([_P] * 7 + [_I] * 3 + [_P], _I),
     "rnnwf_sweep_dgates": ([_P] * 6 + [_I] * 4 + [_P], _I),
-    "rnnwf_sr_cg_solve": ([_P] * 4 + [_I, _I, _P], _I),
+    "rnnwf_sr_cg_solve": ([_P] * 4 + [_I, _I, ctypes.POINTER(_I), _P], _I),
     "rnnwf_fits_shared_memory": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
     "rnnwf_crnn_smem_bytes": ([_I, ctypes.POINTER(_LL)], None),
 }

@@ -84,13 +84,13 @@ def sweep_plain(weights: Weights, nx: int, ny: int, samples: Optional[torch.Tens
     two are None without ``history``."""
     src = samples if samples is not None else uniforms
     b, dev = src.shape[0], src.device
-    u = weights[2].shape[0]
+    u, dtype = weights[2].shape[0], weights[2].dtype  # float32, or float64 for a reference
     xx, yy = visit_order(nx, ny)
     if samples is not None:
         idx = [torch.from_numpy(a).to(dev) for a in (xx, yy)]
-        spins_v = samples[:, idx[0], idx[1]].to(torch.float32)
-    zeros = torch.zeros(b, u, dtype=torch.float32, device=dev)
-    zb = torch.zeros(b, dtype=torch.float32, device=dev)
+        spins_v = samples[:, idx[0], idx[1]].to(dtype)
+    zeros = torch.zeros(b, u, dtype=dtype, device=dev)
+    zb = torch.zeros(b, dtype=dtype, device=dev)
     row, srow = [zeros] * nx, [zb] * nx  # the last state and spin of each column
     h, x, acc, cmp = zeros, zb, zb, zb
     spins, hist, pfx = [], [], []
@@ -102,7 +102,7 @@ def sweep_plain(weights: Weights, nx: int, ny: int, samples: Optional[torch.Tens
         if samples is not None:
             s = spins_v[:, m]
         else:
-            s = (uniforms[:, m] >= torch.sigmoid(l0 - l1)).to(torch.float32)
+            s = (uniforms[:, m] >= torch.sigmoid(l0 - l1)).to(dtype)
         acc, cmp = kadd(acc, cmp, logp2(l0, l1, s))
         row[col], srow[col], x = h, s, s
         spins.append(s)

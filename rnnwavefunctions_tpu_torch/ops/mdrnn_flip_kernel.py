@@ -60,12 +60,13 @@ def flip_log_probs_plain(weights: Weights, spins: torch.Tensor, hist: torch.Tens
     advance, flip m starting there."""
     b, ns, u = hist.shape
     xx, _ = visit_order(nx, ny)
+    f = dict(dtype=hist.dtype, device=hist.device)  # float32, or float64 for a reference
     dev = hist.device
-    h = torch.zeros(b, ns, u, dtype=torch.float32, device=dev)  # horizontal carries
-    x = torch.zeros(b, ns, dtype=torch.float32, device=dev)     # their spins
-    acc = torch.zeros(b, ns, dtype=torch.float32, device=dev)
+    h = torch.zeros(b, ns, u, **f)  # horizontal carries
+    x = torch.zeros(b, ns, **f)     # their spins
+    acc = torch.zeros(b, ns, **f)
     cmp = torch.zeros_like(acc)
-    rowbuf = torch.zeros(nx, b, ns, u, dtype=torch.float32, device=dev)
+    rowbuf = torch.zeros(nx, b, ns, u, **f)
     flips = torch.arange(ns, device=dev)
     for m in range(ns):
         y, k, col = m // nx, m % nx, int(xx[m])
@@ -78,7 +79,7 @@ def flip_log_probs_plain(weights: Weights, spins: torch.Tensor, hist: torch.Tens
         a = m + 1
         tgt = spins[:, m : m + 1].expand(b, a).clone()
         tgt[:, m] = 1.0 - tgt[:, m]
-        zeros = torch.zeros(b * a, u, dtype=torch.float32, device=dev)
+        zeros = torch.zeros(b * a, u, **f)
         if y > 0:
             xv = spins[:, up : up + 1].expand(b, a).clone()
             xv[:, up] = 1.0 - xv[:, up]
@@ -86,11 +87,11 @@ def flip_log_probs_plain(weights: Weights, spins: torch.Tensor, hist: torch.Tens
             hv = torch.where(own, rowbuf[col, :, :a], hist[:, up, None, :]).reshape(-1, u)
             xv, sv = xv.reshape(-1), 1.0
         else:
-            hv, xv, sv = zeros, torch.zeros(b * a, device=dev), 0.0
+            hv, xv, sv = zeros, torch.zeros(b * a, **f), 0.0
         if k > 0:
             hh, xh, sh = h[:, :a].reshape(-1, u), x[:, :a].reshape(-1), 1.0
         else:
-            hh, xh, sh = zeros, torch.zeros(b * a, device=dev), 0.0
+            hh, xh, sh = zeros, torch.zeros(b * a, **f), 0.0
         h_new, l0, l1 = site_step(weights, hh, xh, sh, hv, xv, sv)
         s_acc, s_cmp = kadd(acc[:, :a].reshape(-1), cmp[:, :a].reshape(-1),
                             logp2(l0, l1, tgt.reshape(-1)))

@@ -2,19 +2,29 @@
 conjugate-gradient steps in one kernel launch.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/sr_cg.py::sr_cg_solve``.  The CUDA
-kernel is ``csrc/sr_cg.cu`` (a cooperative launch, one grid-wide barrier per
-step, dot products summed in a fixed order so that one input always gives
-the same x).  The plain version ``cg_solve_plain`` is the JAX package's
+kernels are ``csrc/sr_cg.cu``, one of three paths chosen by S at launch:
+one block holding T in registers (S <= 64), a thread-block cluster of 4
+or 8 blocks holding its rows in registers and exchanging T p over
+distributed shared memory (S <= 512), or a cooperative grid with one
+grid-wide barrier per step.  The path taken is in
+``sr_cg_solve.last_path``.  The dot products are summed in a fixed
+order, so that one input always gives the same x.  The plain version
+``cg_solve_plain`` is the JAX package's
 ``cg_solve_jnp``: the same steps, the same guards ``max(., 1e-30)`` that
 freeze an exactly converged iterate, and no early exit.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .build import check, load_library
 from .fused_gru import is_cpu_call, stream_of
+
+# the kernel's paths, in the order of csrc/sr_cg.cu's CgPath
+_PATHS = ("block", "cluster", "grid")
 
 
 def cg_solve_plain(t: torch.Tensor, c: torch.Tensor, iters: int) -> torch.Tensor:
@@ -37,7 +47,9 @@ def cg_solve_plain(t: torch.Tensor, c: torch.Tensor, iters: int) -> torch.Tensor
 
 def sr_cg_solve(t: torch.Tensor, c: torch.Tensor, iters: int = 64) -> torch.Tensor:
     """Solves ``t @ x = c`` by ``iters`` CG steps: ``t`` (S, S) float32,
-    symmetric positive definite (the damped SR Gram), ``c`` (S,) float32."""
+    symmetric positive definite (the damped SR Gram), ``c`` (S,) float32.
+    On the card the kernel's path is chosen by S; the path taken is in
+    ``sr_cg_solve.last_path``."""
     if iters < 1:
         raise ValueError(f"iters must be >= 1; got {iters}")
     if is_cpu_call(t, c):
@@ -51,14 +63,17 @@ def sr_cg_solve(t: torch.Tensor, c: torch.Tensor, iters: int = 64) -> torch.Tens
         )
     x = torch.empty_like(c)
     scratch = torch.empty(2 * s, dtype=torch.float32, device=c.device)
+    taken = ctypes.c_int(-1)
     with torch.cuda.device(c.device):
         err = load_library().lib.rnnwf_sr_cg_solve(
             t.data_ptr(), c.data_ptr(), x.data_ptr(), scratch.data_ptr(), s, iters,
-            stream_of(c),
+            ctypes.byref(taken), stream_of(c),
         )
     check(err, "rnnwf_sr_cg_solve")
     sr_cg_solve.launches += 1
+    sr_cg_solve.last_path = _PATHS[taken.value]
     return x
 
 
 sr_cg_solve.launches = 0
+sr_cg_solve.last_path = None

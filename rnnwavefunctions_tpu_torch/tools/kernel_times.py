@@ -23,7 +23,9 @@ replay where the checkout has it, B14 and B14 from that replay at the MDRNN
 flagship; B7 and B9 on the J1-J2 samples and, where the checkout has them,
 B9's replay and B9 from it; B19 (storing the gates where the checkout
 takes it) and B20 on two random cotangent sets (from B19's stored gates and
-alone where the checkout takes them); then K3's, K2's, B16's, B17/B18's,
+alone where the checkout takes them); B13; B21 on SR-Gram-like systems at
+S=64, 100, 230, 250, 500 and 1000 beside Cholesky, with the path it took where
+the checkout reports one; then K3's, K2's, B16's, B17/B18's,
 B10's, B11's, B14's (alone and from the replay), B9's (alone and from the
 replay) and B20's launches apart by ``torch.profiler`` over 10 calls (B16
 over 3).  The card's name and power limit come first, a JSON line last.
@@ -102,7 +104,7 @@ def main() -> None:
         raise SystemExit("kernel_times needs a CUDA device")
     import rnnwavefunctions_tpu_torch as pkg
     from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_crnn_bwd, fused_gru, fused_gru_bwd
-    from rnnwavefunctions_tpu_torch.ops import fused_jac
+    from rnnwavefunctions_tpu_torch.ops import fused_jac, sr_cg
     from rnnwavefunctions_tpu_torch.ops import fused_mdrnn, fused_mdrnn_bwd
     from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
     from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
@@ -237,8 +239,22 @@ def main() -> None:
         b20 = lambda: fused_jac.sweep_dgates(trunk, s, hist, douts, gates=gates)  # noqa: E731
     times["B20"] = _cuda_ms(b20)
     split.update(_profiled(b20, b20_parts))
+    # B13, and B21 on SR-Gram-like systems at the N=1000 chain's S=64, at
+    # S=100, 230 and 250 (a cluster of 4 where the checkout chooses a path by
+    # S, else the grid), the TFIM's S=500 and the J1-J2 2S=1000, beside
+    # Cholesky; the path taken where the checkout reports it
+    times["B13"] = _cuda_ms(lambda: fused_mdrnn.mdrnn_sample(wm, 500, 16, 16, 3, 4), reps=10)
+    paths = {}
+    for n in (64, 100, 230, 250, 500, 1000):
+        a = torch.randn(n, 2 * n, generator=gen, dtype=torch.float64)
+        t = (a @ a.T / (2 * n) + 1e-2 * torch.eye(n, dtype=torch.float64)).float().to(dev)
+        c = torch.randn(n, generator=gen).to(dev)
+        times[f"B21 S={n}"] = _cuda_ms(lambda: sr_cg.sr_cg_solve(t, c, 64))
+        paths[f"B21 S={n}"] = getattr(sr_cg.sr_cg_solve, "last_path", None)
+        times[f"Cholesky S={n}"] = _cuda_ms(
+            lambda: torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t)))
     times.update({k: v for k, v in split.items() if v > 0})
-    print(json.dumps({"label": args.label, "ms": times}))
+    print(json.dumps({"label": args.label, "ms": times, "B21 paths": paths}))
 
 
 if __name__ == "__main__":

@@ -560,13 +560,23 @@ def test_b12_b14_match_plain(cuda, nx, ny):
     w, s = _mdrnn_weights(nx, ny, 50, cuda), _lattices(nx, ny, cuda)
     tol = 1e-5 * nx * ny
     before = fused_mdrnn.mdrnn_log_prob.launches
-    torch.testing.assert_close(fused_mdrnn.mdrnn_log_prob(w, s), fused_mdrnn.log_prob_plain(w, s),
-                               atol=tol, rtol=0)
+    lp = fused_mdrnn.mdrnn_log_prob(w, s)
+    torch.testing.assert_close(lp, fused_mdrnn.log_prob_plain(w, s), atol=tol, rtol=0)
     assert fused_mdrnn.mdrnn_log_prob.launches == before + 1
+    # B12 storing B14's replay against the plain replay; both the same bits twice
+    replay, want = fused_mdrnn.mdrnn_log_prob(w, s, store=True), fused_mdrnn.replay_plain(w, s)
+    torch.testing.assert_close(replay.lp, want.lp, atol=tol, rtol=0)
+    _close_to_max(replay.hist, want.hist)
+    torch.testing.assert_close(replay.p1, want.p1, atol=1e-5, rtol=0)
+    again = fused_mdrnn.mdrnn_log_prob(w, s, store=True)
+    assert torch.equal(fused_mdrnn.mdrnn_log_prob(w, s), lp) and torch.equal(replay.lp, lp)
+    assert all(torch.equal(a, b) for a, b in zip(again, replay))
     g = torch.randn(B, generator=torch.Generator().manual_seed(2)).to(cuda)
-    for a, b in zip(fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g),
-                    fused_mdrnn.log_prob_bwd_plain(w, s, g)):
-        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
+    want_g = fused_mdrnn.log_prob_bwd_plain(w, s, g)
+    for got in (fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g),
+                fused_mdrnn_bwd.mdrnn_log_prob_bwd(w, s, g, replay=replay)):
+        for a, b in zip(got, want_g):
+            torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=0)
 
 
 # B14's edges: one site, one-wide lattices, both row parities' ends, a
@@ -622,15 +632,21 @@ MDRNN_FLIP_EDGES = [(nx, ny, 50, B, 1.0) for nx, ny in MDRNN_SHAPES + [(1, 1)]] 
 @pytest.mark.parametrize("nx,ny,u,b,scale", MDRNN_FLIP_EDGES)
 def test_b13_b15_b16_match_plain(cuda, nx, ny, u, b, scale):
     if nx == "widest":
-        nx = max(v for v in range(1, 513) if fused_mdrnn.supports(v, ny, u, cuda))
+        nx = max(v for v in range(1, 2049) if fused_mdrnn.supports(v, ny, u, cuda))
     w = tuple(scale * t if i in (2, 3) else t
               for i, t in enumerate(_mdrnn_weights(nx, ny, u, cuda)))
     s = (torch.rand(b, nx, ny, generator=torch.Generator().manual_seed(1)) < 0.5).to(
         torch.int32).to(cuda)
     tol = 1e-5 * nx * ny
+    # the ratio sums against the plain version in float64 on the same float32
+    # weights: their float32 rounding grows with the sites, and at the widest
+    # lattice (564 x 2 at U=50 on an H100) the float32 plain version is itself
+    # 1.1e-5 from the float64 one (the kernel 9.5e-5; PERF.md)
+    w64 = tuple(t.double() for t in w)
     ratio, lp = mk.mdrnn_flip_ratio_sum(w, s)
-    ratio_p, lp_p = mk.flip_ratio_sum_plain(w, s)
-    torch.testing.assert_close(ratio, ratio_p, rtol=1e-4, atol=0)
+    _, lp_p = mk.flip_ratio_sum_plain(w, s)
+    torch.testing.assert_close(ratio.double(), mk.flip_ratio_sum_plain(w64, s)[0], rtol=1e-4,
+                               atol=0)
     torch.testing.assert_close(lp, lp_p, atol=tol, rtol=0)
     assert torch.equal(mk.mdrnn_flip_ratio_sum(w, s)[0], ratio)
     s13, lp13 = fused_mdrnn.mdrnn_sample(w, b, nx, ny, 3, 5)
@@ -639,9 +655,12 @@ def test_b13_b15_b16_match_plain(cuda, nx, ny, u, b, scale):
     assert torch.equal(s13, s16)
     torch.testing.assert_close(lp13, fused_mdrnn.log_prob_plain(w, s13), atol=tol, rtol=0)
     torch.testing.assert_close(lp16, lp13, atol=0, rtol=0)
-    torch.testing.assert_close(ratio16, mk.flip_ratio_sum_plain(w, s16)[0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(ratio16.double(), mk.flip_ratio_sum_plain(w64, s16)[0], rtol=1e-4,
+                               atol=0)
     again, _, ratio_again = mk.mdrnn_sample_and_flip_sum(w, b, nx, ny, 3, 5)
     assert torch.equal(again, s16) and torch.equal(ratio_again, ratio16)
+    s13_again, lp13_again = fused_mdrnn.mdrnn_sample(w, b, nx, ny, 3, 5)
+    assert torch.equal(s13_again, s13) and torch.equal(lp13_again, lp13)
 
 
 def test_mdrnn_training_step_runs_b12_b14_b16(cuda):
@@ -660,6 +679,8 @@ def test_mdrnn_training_step_runs_b12_b14_b16(cuda):
 
 
 def test_mdrnn_coverage_on_the_card(cuda):
+    # the lattices and widths the one-warp sweep of earlier versions took
+    assert fused_mdrnn.supports(257, 2, 50, cuda) and fused_mdrnn.supports(16, 16, 128, cuda)
     with pytest.raises(ValueError, match="do not take"):
         fused_mdrnn.mdrnn_log_prob(_mdrnn_weights(4, 4, 256, cuda), _lattices(4, 4, cuda))
     wide = MDRNN2D(4, 4, 256, device=cuda)
@@ -746,16 +767,25 @@ def _spd(s, device, seed=0):
     return t.to(device), torch.randn(s, generator=gen).to(device)
 
 
-@pytest.mark.parametrize("s", [500, 1000, 3000])
+# B21's path at each size: one block holds T in registers up to S=64, a
+# cluster of 4 blocks up to 256, of 8 up to 512 (the TFIM system, S=500), the
+# cooperative grid at the J1-J2 system (2S=1000) and past it
+B21_PATHS = {8: "block", 64: "block", 100: "cluster", 230: "cluster", 250: "cluster",
+             500: "cluster", 1000: "grid", 3000: "grid"}
+
+
+@pytest.mark.parametrize("s", sorted(B21_PATHS))
 def test_b21_matches_plain_and_is_deterministic(cuda, s):
-    """B21 at the TFIM (S=500) and J1-J2 (2S=1000) system sizes, where each
-    block holds its rows of T in shared memory, and at S=3000, where they do
-    not fit and are read from L2: against the plain CG and the Cholesky
-    solve, and the same bits on a second run."""
+    """B21 on one block (S=8 and the N=1000 chain's S=64), a cluster of 4
+    (S=100, 230 and 250) and of 8 (the TFIM system, S=500), the J1-J2
+    system (2S=1000) and S=3000 on the cooperative grid, whose blocks read
+    their rows from L2 at S=3000: the path taken, against the plain CG and
+    the Cholesky solve, and the same bits on a second run."""
     t, c = _spd(s, cuda)
     before = sr_cg.sr_cg_solve.launches
     x = sr_cg.sr_cg_solve(t, c, 64)
     assert sr_cg.sr_cg_solve.launches == before + 1
+    assert sr_cg.sr_cg_solve.last_path == B21_PATHS[s]
     assert torch.equal(sr_cg.sr_cg_solve(t, c, 64), x)
     plain = sr_cg.cg_solve_plain(t, c, 64)
     exact = torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t))[:, 0]
@@ -763,11 +793,14 @@ def test_b21_matches_plain_and_is_deterministic(cuda, s):
         assert float((x - ref).norm() / ref.norm()) < 1e-4
 
 
-def test_b21_exact_convergence_guard(cuda):
+@pytest.mark.parametrize("s", [8, 250, 500, 1000])
+def test_b21_exact_convergence_guard(cuda, s):
     """2 I x = 1 converges in one step; the 1e-30 guards then freeze the
-    iterate instead of dividing 0 by 0."""
-    x = sr_cg.sr_cg_solve(2.0 * torch.eye(8, device=cuda), torch.ones(8, device=cuda), 64)
-    assert torch.equal(x, torch.full((8,), 0.5, device=cuda))
+    iterate instead of dividing 0 by 0, on each path (one block, clusters
+    of 4 and 8, the grid)."""
+    x = sr_cg.sr_cg_solve(2.0 * torch.eye(s, device=cuda), torch.ones(s, device=cuda), 64)
+    assert sr_cg.sr_cg_solve.last_path == B21_PATHS[s]
+    assert torch.equal(x, torch.full((s,), 0.5, device=cuda))
 
 
 def test_minsr_training_steps_launch_their_kernels(cuda):
