@@ -20,13 +20,15 @@ Phases (each prints its time; any failure raises and exits non-zero):
 5. 50 steps of the flagship (N=100, one GRU layer of 50 units, S=500, Adam
    at lr 5e-3): steps/s and the first and last energies, which must be
    finite and falling.
-6. The J1-J2 kernels B7, B9 (alone and from its replay, which the step
+6. The J1-J2 kernels B7 (mask on and off, also at the cRNN family's widest
+   U), B9 (alone and from its replay, which the step
    runs as its forward; the same bits twice and from the replay; the
    replay's outputs against its plain twin), B10 and B11 against their
    plain versions at the J1-J2 flagship shapes (N=100, U=50, B=500,
    perturbed weights) for (open, no Marshall sign, J2=0.2), (periodic,
    Marshall sign, J2=0.2) and (open, J2=0); B11's samples in the
-   zero-magnetisation sector, its (Re, Im) log psi equal to B7's and its
+   zero-magnetisation sector, its (Re, Im) log psi equal to B7's on them
+   bit for bit (one base pass, teacher-forced or drawing), and its
    energies to B10's on its own samples, its draws a function of (seed,
    offset), and its frequencies at N=4 over 20k draws against the exact
    |psi|^2; B10 and B11 with the mask off, and B7, B9, B10 and B11 at the
@@ -74,8 +76,9 @@ Phases (each prints its time; any failure raises and exits non-zero):
    versions at N=100, U=50, B=500: B5's draws and log p equal to K3's for
    one key, B6's sample mode equal to its teacher-forced mode on its own
    samples, the flip-order sum of B6's terms against K4's ratio, B8's draws
-   equal to B11's (in the zero-magnetisation sector) and its log |psi|^2 to
-   2 Re log psi of B11 and B7, and the frequencies of B5 at N=3 and B8 at
+   equal to B11's (in the zero-magnetisation sector), its log |psi|^2 to
+   2 Re log psi of B11 and B7's (Re, Im) on them to B11's, bit for bit,
+   and the frequencies of B5 at N=3 and B8 at
    N=4 over 20k draws against the exact densities.
 15. The four new kernels and their plain versions timed with CUDA events,
    their bounds, and the widths their kernel families cover at N=100.
@@ -119,6 +122,16 @@ Phases (each prints its time; any failure raises and exits non-zero):
    flagship (S=500, minSR at lr 5e-2, the CG solve) after 3 warm-up steps,
    and 10 steps of the N=1000, S=64 chain: steps/s and the first and last
    energies, which must be finite and falling.
+22. The 1D-TFIM entry points on the card at the flagship's width: the CLI
+   (``cli/run_1dtfim.main``, N=100, U=50, S=500, a staged schedule halving
+   the rate at step 50) for 100 steps, then resumed to 200: 101 and 201
+   finite entries, falling energies, the first run's entries kept, the
+   final checkpoints after loop steps 100 and 200 (saved under their update
+   counts 101 and 201), the staged rate in the saved Adam state, K1, K2 and
+   K3 launched once per update and the generic sampler and estimator not
+   at all; the loop's steps/s beside phase 5's, and against ``run_steps``
+   in alternating turns; then
+   ``compat.run_1DTFIM(numsteps=20, systemsize=100)``.
 
 The second-last line is a JSON object with one entry per kernel (B9's
 replay, launched apart as the J1-J2 step's forward, has its own): its
@@ -160,7 +173,7 @@ SOURCES = {
                                 "rnnwavefunctions_tpu/ops/tfim_flip_kernel.py:550"),
     "B6b tfim_sample_and_flip_sum per_flip": ("rnnwavefunctions_tpu_torch/csrc/tfim_flip.cu",
                                               "rnnwavefunctions_tpu/ops/tfim_flip_kernel.py:595"),
-    "B7 crnn_log_amp_parts": ("rnnwavefunctions_tpu_torch/csrc/fused_crnn.cu",
+    "B7 crnn_log_amp_parts": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
                               "rnnwavefunctions_tpu/ops/fused_crnn.py:171"),
     "B8 crnn_sample": ("rnnwavefunctions_tpu_torch/csrc/j1j2_exchange.cu",
                        "rnnwavefunctions_tpu/ops/fused_crnn.py:245"),
@@ -642,6 +655,7 @@ def main() -> None:
         require(all(c[k] > 0 for k in c if k.startswith("K")),
                 "every kernel launched in the flagship run")
         launches = {k: v for k, v in c.items() if k.startswith("K")}
+        tfim_steps_per_s = 50 / dt
 
     # ---- the J1-J2 flagship inputs: N=100, U=50, B=500, perturbed weights
     crnn = perturbed_model(pkg, N_FLAG, U_FLAG, 4321, dev, cls="CRNNU1")
@@ -661,24 +675,27 @@ def main() -> None:
     crnn_u = max(u for u in range(1, 257) if fused_crnn.supports(N_FLAG, (u,), dev))
 
     with Phase("6 J1-J2 kernels against their plain versions (N=100, U=50, B=500)"):
+        # B7 on the flagship weights and at the family's widest U, with the
+        # mask on and off
+        wide = tuple(t.detach() for t in perturbed_model(pkg, N_FLAG, crnn_u, 4322, dev,
+                                                         cls="CRNNU1").weights())
         worst = 0.0
-        for u1, s_in in ((True, sector), (True, samples), (False, samples)):
-            re_k, im_k = fused_crnn.crnn_log_amp_parts(wc, s_in, u1)
-            re_p, im_p = fused_crnn.log_amp_parts_plain(wc, s_in, u1)
-            torch.cuda.synchronize()
-            e = max(max_err(re_k, re_p), max_err(im_k, im_p))
-            print(f"B7 (u1={u1}, {'in' if s_in is sector else 'random'} samples): "
-                  f"max abs err {e:.3e} (tol {lp_tol:.1e})")
-            require(e <= lp_tol, "B7 (Re, Im) log psi")
-            worst = max(worst, e)
+        for wts, label_u in ((wc, f"U={U_FLAG}"), (wide, f"U={crnn_u}")):
+            for u1, s_in in ((True, sector), (True, samples), (False, samples)):
+                re_k, im_k = fused_crnn.crnn_log_amp_parts(wts, s_in, u1)
+                re_p, im_p = fused_crnn.log_amp_parts_plain(wts, s_in, u1)
+                torch.cuda.synchronize()
+                e = max(max_err(re_k, re_p), max_err(im_k, im_p))
+                print(f"B7 ({label_u}, u1={u1}, {'in' if s_in is sector else 'random'} "
+                      f"samples): max abs err {e:.3e} (tol {lp_tol:.1e})")
+                require(e <= lp_tol, "B7 (Re, Im) log psi")
+                worst = max(worst, e)
         record["B7 crnn_log_amp_parts"]["max_abs_err"] = worst
 
         # B9 alone and from its replay (CRNNLogAmpParts' forward), on the
         # flagship weights with the mask on and off and at the family's widest
         worst = worst_replay = 0.0
         names = ("wx", "wh", "bx", "bh", "ampl_w", "ampl_b", "phase_w", "phase_b")
-        wide = tuple(t.detach() for t in perturbed_model(pkg, N_FLAG, crnn_u, 4322, dev,
-                                                         cls="CRNNU1").weights())
         for label, wts, u1 in (("u1=True", wc, True), ("u1=False", wc, False),
                                (f"U={crnn_u}, u1=True", wide, True)):
             gk = fused_crnn_bwd.crnn_log_amp_bwd(wts, sector, g_re, g_im, u1)
@@ -732,14 +749,14 @@ def main() -> None:
             b10 = jk.j1j2_exchange_offdiag(wc, s11, u1=True, **info)
             p11 = jk.exchange_offdiag_plain(wc, s11, u1=True, **info)
             torch.cuda.synchronize()
-            e7 = max(max_err(k11[2], b7[0]), max_err(k11[3], b7[1]))
+            same7 = bool(torch.equal(k11[2], b7[0])) and bool(torch.equal(k11[3], b7[1]))
             e10 = rel_energy(k11[:2], b10[:2])
             ep = rel_energy(k11[:2], p11[:2])
             ep_lp = max(max_err(k11[2], p11[2]), max_err(k11[3], p11[3]))
-            print(f"B11 ({label}): log psi vs B7 on its samples {e7:.3e} (tol {lp_tol:.1e}), "
-                  f"energy vs B10 relative {e10:.3e}, vs plain B10 relative {ep:.3e} "
-                  f"(tol {rel_tol:.0e}); log psi vs plain {ep_lp:.3e}")
-            require(e7 <= lp_tol and e10 <= rel_tol and ep <= rel_tol and ep_lp <= lp_tol,
+            print(f"B11 ({label}): (Re, Im) log psi equal to B7's on its samples, bit for bit: "
+                  f"{same7}; energy vs B10 relative {e10:.3e}, vs plain B10 relative {ep:.3e} "
+                  f"(tol {rel_tol:.0e}); log psi vs plain {ep_lp:.3e} (tol {lp_tol:.1e})")
+            require(same7 and e10 <= rel_tol and ep <= rel_tol and ep_lp <= lp_tol,
                     f"B11 ({label})")
             worst11 = max(worst11, ep_lp, *(max_err(a, b) for a, b in zip(k11[:2], p11[:2])))
             again, *_ = jk.j1j2_sample_and_exchange(wc, S_FLAG, N_FLAG, 7, 1, u1=True, **info)
@@ -753,14 +770,18 @@ def main() -> None:
             s11, *k11 = jk.j1j2_sample_and_exchange(wts, S_FLAG, N_FLAG, 7, 1, u1=u1, **flag_info)
             p11 = jk.exchange_offdiag_plain(wts, s11, u1=u1, **flag_info)
             k7 = fused_crnn.crnn_log_amp_parts(wts, s_in, u1)
+            k7_11 = fused_crnn.crnn_log_amp_parts(wts, s11, u1)
             torch.cuda.synchronize()
             er, ep = rel_energy(k10[:2], p10[:2]), rel_energy(k11[:2], p11[:2])
             el = max(max_err(a, b) for a, b in zip((*k10[2:], *k11[2:], *k7),
                                                    (*p10[2:], *p11[2:], *p10[2:])))
+            same7 = all(torch.equal(a, b) for a, b in zip(k7_11, k11[2:]))
             print(f"B10 and B11 ({label}, open, J2=0.2): energy relative err {er:.3e} and "
                   f"{ep:.3e} (tol {rel_tol:.0e}); log psi (and B7's) max abs err {el:.3e} "
-                  f"(tol {lp_tol:.1e})")
-            require(er <= rel_tol and ep <= rel_tol and el <= lp_tol, f"B7/B10/B11 ({label})")
+                  f"(tol {lp_tol:.1e}); B7 on B11's samples equal to B11's log psi, bit for "
+                  f"bit: {same7}")
+            require(er <= rel_tol and ep <= rel_tol and el <= lp_tol and same7,
+                    f"B7/B10/B11 ({label})")
             worst10 = max(worst10, el, *(max_err(a, b) for a, b in zip(k10[:2], p10[:2])))
             worst11 = max(worst11, el, *(max_err(a, b) for a, b in zip(k11[:2], p11[:2])))
         record["B10 j1j2_exchange_offdiag"]["max_abs_err"] = worst10
@@ -924,15 +945,14 @@ def main() -> None:
         step_kernels = {k: per_step(k) for k in (
             "exchange_base_kernel<false, (rnnwf::ExStore)2>", "exchange_base_kernel<true",
             "bwd_sweep_kernel", "bwd_weights_kernel", "sum_partials_kernel",
-            "crnn_log_amp_kernel", "crnn_bwd_kernel")}
+            "exchange_base_kernel<false, (rnnwf::ExStore)0>")}
         print("launches per step by profiler name (the profiler's counts):", step_kernels)
         require(all(step_kernels[k] > 0 for k in (
                     "exchange_base_kernel<false, (rnnwf::ExStore)2>", "exchange_base_kernel<true",
                     "bwd_sweep_kernel", "bwd_weights_kernel"))
-                and step_kernels["crnn_log_amp_kernel"] == 0
-                and step_kernels["crnn_bwd_kernel"] == 0,
+                and step_kernels["exchange_base_kernel<false, (rnnwf::ExStore)0>"] == 0,
                 "the J1-J2 step launches B11's base pass and B9's replay, B9's reverse sweep and "
-                "weight cotangent, and neither B7 nor a one-warp B9")
+                "weight cotangent, and not B7 (the base pass storing nothing)")
         print("launches:", c)
         require(bool(np.isfinite(energies).all()), "finite J1-J2 flagship energies")
         require(energies[-5:].mean() < energies[:5].mean(), "J1-J2 flagship energies falling")
@@ -1253,18 +1273,19 @@ def main() -> None:
         record["B6b tfim_sample_and_flip_sum per_flip"]["max_abs_err"] = e
 
         s8, lp8 = fused_crnn.crnn_sample(wc, S_FLAG, N_FLAG, 7, 1, True)
-        s11, _, _, lp11_re, _ = jk.j1j2_sample_and_exchange(wc, S_FLAG, N_FLAG, 7, 1, u1=True,
-                                                            **flag_info)
-        re7, _ = fused_crnn.crnn_log_amp_parts(wc, s8, True)
+        s11, _, _, lp11_re, lp11_im = jk.j1j2_sample_and_exchange(wc, S_FLAG, N_FLAG, 7, 1,
+                                                                  u1=True, **flag_info)
+        re7, im7 = fused_crnn.crnn_log_amp_parts(wc, s11, True)
         re_p, _ = fused_crnn.log_amp_parts_plain(wc, s8, True)
         torch.cuda.synchronize()
         same = bool(torch.equal(s8, s11)) and bool(torch.equal(lp8, 2.0 * lp11_re))
+        same7 = bool(torch.equal(re7, lp11_re)) and bool(torch.equal(im7, lp11_im))
         in_sector = bool((s8.sum(dim=1) == N_FLAG // 2).all())
-        e7, ep = max_err(lp8, 2.0 * re7), max_err(lp8, 2.0 * re_p)
+        ep = max_err(lp8, 2.0 * re_p)
         print(f"B8: spins equal to B11's and log |psi|^2 to 2 Re log psi of B11, bit for bit: "
-              f"{same}; zero magnetisation: {in_sector}; vs 2 x B7 Re {e7:.3e}, vs plain "
-              f"{ep:.3e} (tol {2 * lp_tol:.1e})")
-        require(same and in_sector and e7 <= 2 * lp_tol and ep <= 2 * lp_tol, "B8")
+              f"{same}; zero magnetisation: {in_sector}; B7's (Re, Im) on those samples equal "
+              f"to B11's log psi, bit for bit: {same7}; vs plain {ep:.3e} (tol {2 * lp_tol:.1e})")
+        require(same and same7 and in_sector and ep <= 2 * lp_tol, "B8 and B7 against B11")
         record["B8 crnn_sample"]["max_abs_err"] = ep
 
         draws = 20000
@@ -1728,6 +1749,97 @@ def main() -> None:
             require(energies[-3:].mean() < energies[:3].mean(), f"minSR {label} energies falling")
             require_launches(c, names, f"minSR {label}")
             launches.update({k: c[k] for k in own})
+
+    with Phase("22 the 1D-TFIM CLI and compat.run_1DTFIM on the card (N=100, U=50, S=500)"):
+        import contextlib
+        import io
+        import tempfile
+
+        from rnnwavefunctions_tpu_torch import compat
+        from rnnwavefunctions_tpu_torch.cli import run_1dtfim
+        from rnnwavefunctions_tpu_torch.cli.run_loop import run_training
+        from rnnwavefunctions_tpu_torch.utils.checkpoints import Checkpointer
+
+        cli_kernels = ("K1 gru_log_prob", "K2 gru_log_prob_bwd", "K3 tfim_sample_and_flip_sum")
+        argv = ["--systemsize", str(N_FLAG), "--num-units", str(U_FLAG), "--numsamples",
+                str(S_FLAG), "--schedule", "staged", "--lr-stage-bounds", "50",
+                "--lr-stage-scales", "0.5"]
+        tag = f"N{N_FLAG}_samp{S_FLAG}_Jz1Bx1.0_GRURNN_OBC_TFIM_units_{U_FLAG}x1"
+        with tempfile.TemporaryDirectory() as workdir:
+            ckpt = Checkpointer(f"{workdir}/ckpt_{tag}", torch.nn.Module())
+            runs = {}
+            for label, extra, entries in (("fresh", ["--numsteps", "100"], 101),
+                                          ("resumed", ["--numsteps", "200", "--resume"], 201)):
+                reset_counts()
+                mean_e, var_e = run_1dtfim.main(argv + extra + ["--workdir", workdir])
+                torch.cuda.synchronize()
+                c = counts()
+                series = np.asarray(mean_e)
+                updates = entries - (101 if label == "resumed" else 0)
+                print(f"{label}: {len(series)} entries, energy first {series[0]:.4f}, last "
+                      f"{series[-1]:.4f}; checkpoints at updates {ckpt.all_steps()}; launches",
+                      {k: c[k] for k in cli_kernels + ("K4 tfim_flip_ratio_sum",
+                                                         "B5 gru_sample")})
+                require(len(series) == len(var_e) == entries
+                        and bool(np.isfinite(series).all()) and bool(np.isfinite(var_e).all()),
+                        f"the {label} CLI run's series: {entries} finite entries")
+                # every update ran the fused step on the kernels: one K3, one
+                # K1 storing K2's replay and one K2 each; the generic sampler
+                # and estimator (B5, K4) did not run
+                require(all(c[k] == updates for k in cli_kernels)
+                        and c["K4 tfim_flip_ratio_sum"] == 0 and c["B5 gru_sample"] == 0,
+                        f"the {label} CLI run launched K1, K2 and K3 once per update")
+                runs[label] = series
+            require(runs["resumed"][-10:].mean() < runs["resumed"][:10].mean(),
+                    "the CLI run's energies fall")
+            require(bool(np.array_equal(runs["resumed"][:101], runs["fresh"])),
+                    "the resumed run keeps the first run's 101 entries")
+            # the final saves: after loop index 100 (update 101) and 200
+            require(ckpt.all_steps() == [101, 201], "checkpoints after loop steps 100 and 200")
+            saved = torch.load(ckpt.path(201), weights_only=True)
+            lr = saved["optimizer"]["param_groups"][0]["lr"]
+            want = float(np.float32(5e-3) * np.float32(0.5))
+            print(f"the Adam group's lr at the last update (step 200): {lr} (staged: 0.5 x 5e-3 "
+                  f"from step 50 on, {want})")
+            require(saved["optimizer_kind"] == "Adam" and lr == want,
+                    "the staged schedule's rate after step 150")
+            log = [json.loads(line) for line in open(f"{workdir}/metrics_{tag}.jsonl")]
+            t = {r["step"]: r["wall_time_s"] for r in log}
+            loop_rate = (200 - 110) / (t[200] - t[110])
+            print(f"{smi}: the CLI loop {loop_rate:.2f} steps/s (JSONL wall clock, steps 110-200 "
+                  f"of the resumed run: blocks of 10, one metrics copy, a JSONL record and an "
+                  f".npy flush each), run_steps in phase 5 {tfim_steps_per_s:.2f} steps/s")
+
+        # the loop's cost against run_steps on the same trainer, 101 updates
+        # each (init included), in turns loop, steps, steps, loop
+        def turn(loop: bool) -> float:
+            trainer = pkg.VMCTrainer(pkg.PRNN1D(N_FLAG, (U_FLAG,), device=dev),
+                                     pkg.TFIM1D(N_FLAG, 1.0), pkg.TrainConfig())
+            with tempfile.TemporaryDirectory() as wd, contextlib.redirect_stdout(io.StringIO()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if loop:
+                    run_training(trainer, 100, wd, "turn")
+                else:
+                    trainer.run_steps(trainer.init(), 101)
+                torch.cuda.synchronize()
+                return 101 / (time.perf_counter() - t0)
+
+        rates = [(label, turn(label == "loop")) for label in ("loop", "steps", "steps", "loop")]
+        print(f"{smi}: steps/s of 101 updates, turns loop, steps, steps, loop: the CLI loop "
+              f"(run_training) {[round(r, 2) for k, r in rates if k == 'loop']}, run_steps "
+              f"{[round(r, 2) for k, r in rates if k == 'steps']}")
+
+        with tempfile.TemporaryDirectory() as workdir:
+            reset_counts()
+            mean_e, var_e = compat.run_1DTFIM(numsteps=20, systemsize=N_FLAG, workdir=workdir)
+            torch.cuda.synchronize()
+            c = counts()
+            print(f"compat.run_1DTFIM(numsteps=20, systemsize={N_FLAG}): {mean_e.shape[0]} entries, "
+                  f"last {mean_e[-1]:.4f}; launches", {k: c[k] for k in cli_kernels})
+            require(mean_e.shape == var_e.shape == (21,) and bool(np.isfinite(mean_e).all())
+                    and all(c[k] == 21 for k in cli_kernels),
+                    "compat.run_1DTFIM's series on the kernels")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -35,7 +35,6 @@ __host__ __device__ inline int crnn_weight_floats(int u) {
 
 // Dynamic shared memory of each cRNN kernel at width u, defined beside the
 // kernel and used both by its launch and by rnnwf_fits_shared_memory.
-size_t b7_smem_bytes(int u);
 size_t exchange_base_smem_bytes(int u);
 size_t exchange_suffix_smem_bytes(int u);
 
@@ -101,25 +100,6 @@ __device__ __forceinline__ void crnn_logps(float l0, float l1, float q0, float q
   }
   ph0 = kPi * q0 / (1.0f + fabsf(q0));
   ph1 = kPi * q1 / (1.0f + fabsf(q1));
-}
-
-// One cRNN site for the warp's T trajectories (h, hn, x, xscale as in
-// gru_site); returns every trajectory's masked log-probabilities and phases
-// on every lane.
-template <int T>
-__device__ __forceinline__ void crnn_site(const CWeights& c, int u, const float* h, float* hn,
-                                          const float (&x)[T], float xscale, int n,
-                                          const float (&num_up)[T], int n_sites, bool u1,
-                                          float (&lp0)[T], float (&lp1)[T], float (&ph0)[T],
-                                          float (&ph1)[T], int lane) {
-  const float* const hw[2] = {c.w.hw, c.pw};
-  const float* const hb[2] = {c.w.hb, c.pb};
-  float lg[2][2][T];
-  gru_site_heads<T, 2>(c.w, u, h, hn, x, xscale, hw, hb, lg, lane);
-#pragma unroll
-  for (int t = 0; t < T; ++t)
-    crnn_logps(lg[0][0][t], lg[0][1][t], lg[1][0][t], lg[1][1][t], n, num_up[t], n_sites, u1,
-               lp0[t], lp1[t], ph0[t], ph1[t]);
 }
 
 // The sampling decision of the cRNN samplers (ops/fused_crnn.py:216-222)

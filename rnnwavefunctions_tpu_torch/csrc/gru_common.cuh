@@ -6,20 +6,13 @@
 // memory in exactly this order, so the gradient kernel can accumulate into a
 // buffer of the same layout and hand back one flat weight-shaped vector.
 //
-// Work split (B7): one warp advances T trajectories (samples) through one
-// site at a time; the latency kernels' block-wide split (K1, K2's replay
-// and reverse sweep, which B17, B9 and B20 run too, B5, B19, K3's base
-// pass, the base pass of B8/B10/B11 and B9's replay, and the MDRNN's sweep
-// (B12, B13, B14's replay, B15/B16's base pass) and B14's reverse sweep,
-// with two products per site) is slice_product below or its MDRNN form, and
-// the flip and exchange suffixes run on
-// the tensor cores (csrc/tfim_flip.cu, csrc/j1j2_exchange.cu).  Lane j owns
-// hidden units j, j+32, ...; the hidden state of the warp's T trajectories
-// sits in shared memory as h[k*T + t], so one (broadcast) load of h[k]
-// serves T trajectories while each wh row entry is loaded once per site.
-// The 2-logit head is a butterfly shuffle reduction, which leaves
-// bitwise-identical logits on every lane (float addition commutes), so
-// every lane takes the same sampling decision without another exchange.
+// Work split: every latency kernel (K1, K2's replay and reverse sweep,
+// which B17, B9 and B20 run too, B5, B19, K3's base pass, the base pass of
+// B7/B8/B10/B11 and B9's replay, and the MDRNN's sweep (B12, B13, B14's
+// replay, B15/B16's base pass) and B14's reverse sweep, with two products
+// per site) spreads each site's product over a block (slice_product below
+// or its MDRNN form), and the flip and exchange suffixes run on the tensor
+// cores (csrc/tfim_flip.cu, csrc/j1j2_exchange.cu).
 //
 // Numerics: precise expf/tanhf/logf (never built with --use_fast_math); the
 // Kahan pairs are written so that no reassociation applies.
@@ -131,82 +124,6 @@ __device__ __forceinline__ void load_h(const float* h, int k, float (&out)[T]) {
 #pragma unroll
     for (int t = 0; t < T; ++t) out[t] = h[k * T + t];
   }
-}
-
-// One reset-after GRU step plus NH 2-logit heads for the warp's T
-// trajectories: reads h (U*T), writes hn (U*T), returns head k's logits
-// lg[k][0..1][t] on every lane (hw[k] is its (U, 2) weight, hb[k] its bias).
-// x[t] is the previous spin (0/1) and xscale is 0 at site 0 (the chain starts
-// from the zero vector, not a one-hot).  Ends with __syncwarp, so hn is
-// visible to the whole warp.
-template <int T, int NH>
-__device__ __forceinline__ void gru_site_heads(const Weights& w, int u, const float* h,
-                                               float* hn, const float (&x)[T], float xscale,
-                                               const float* const (&hw)[NH],
-                                               const float* const (&hb)[NH],
-                                               float (&lg)[NH][2][T], int lane) {
-  const int g = 3 * u;
-  float p[NH][2][T];
-#pragma unroll
-  for (int k = 0; k < NH; ++k)
-#pragma unroll
-    for (int t = 0; t < T; ++t) { p[k][0][t] = 0.0f; p[k][1][t] = 0.0f; }
-  for (int j = lane; j < u; j += kWarp) {
-    float ar[T], az[T], ac[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) { ar[t] = 0.0f; az[t] = 0.0f; ac[t] = 0.0f; }
-    for (int k = 0; k < u; ++k) {
-      const float* wk = w.wh + k * g;
-      const float wr = wk[j], wz = wk[u + j], wc = wk[2 * u + j];
-      float hk[T];
-      load_h<T>(h, k, hk);
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        ar[t] = fmaf(hk[t], wr, ar[t]);
-        az[t] = fmaf(hk[t], wz, az[t]);
-        ac[t] = fmaf(hk[t], wc, ac[t]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float xt = x[t];
-      const float gxr = xscale * ((1.0f - xt) * w.wx[j] + xt * w.wx[g + j]) + w.bx[j];
-      const float gxz = xscale * ((1.0f - xt) * w.wx[u + j] + xt * w.wx[g + u + j]) + w.bx[u + j];
-      const float gxc = xscale * ((1.0f - xt) * w.wx[2 * u + j] + xt * w.wx[g + 2 * u + j]) + w.bx[2 * u + j];
-      const float r = sigmoidf_(gxr + (ar[t] + w.bh[j]));
-      const float z = sigmoidf_(gxz + (az[t] + w.bh[u + j]));
-      const float c = tanhf(gxc + r * (ac[t] + w.bh[2 * u + j]));
-      const float hv = z * h[j * T + t] + (1.0f - z) * c;
-      hn[j * T + t] = hv;
-#pragma unroll
-      for (int k = 0; k < NH; ++k) {
-        p[k][0][t] = fmaf(hv, hw[k][2 * j], p[k][0][t]);
-        p[k][1][t] = fmaf(hv, hw[k][2 * j + 1], p[k][1][t]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < NH; ++k)
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      lg[k][0][t] = warp_sum(p[k][0][t]) + hb[k][0];
-      lg[k][1][t] = warp_sum(p[k][1][t]) + hb[k][1];
-    }
-  __syncwarp();
-}
-
-// The GRU step with the single 2-logit head of K1-K4.
-template <int T>
-__device__ __forceinline__ void gru_site(const Weights& w, int u, const float* h,
-                                         float* hn, const float (&x)[T],
-                                         float xscale, float (&l0)[T],
-                                         float (&l1)[T], int lane) {
-  const float* const hw[1] = {w.hw};
-  const float* const hb[1] = {w.hb};
-  float lg[1][2][T];
-  gru_site_heads<T, 1>(w, u, h, hn, x, xscale, hw, hb, lg, lane);
-#pragma unroll
-  for (int t = 0; t < T; ++t) { l0[t] = lg[0][0][t]; l1[t] = lg[0][1][t]; }
 }
 
 // ---- The latency kernels (B19 in csrc/fused_jac.cu; K1, K2's replay, K3's

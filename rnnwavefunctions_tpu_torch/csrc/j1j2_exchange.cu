@@ -5,12 +5,13 @@
 // by-product.  B10 reads the given samples; B11 (sample mode) draws them
 // first, autoregressively, in the same base pass.  B8 is the stand-alone
 // U(1)-masked sampler: B11's sample-mode base pass alone, returning the
-// samples and log |psi|^2 = 2 Re log psi.
+// samples and log |psi|^2 = 2 Re log psi.  B7 is B10's teacher-forced base
+// pass alone, returning (Re, Im) log psi of the given samples.
 //
 // Replaces: rnnwavefunctions_tpu/ops/j1j2_exchange_kernel.py::
 // j1j2_exchange_offdiag (B10) and ::j1j2_sample_and_exchange (B11), both
 // _make_kernel; and rnnwavefunctions_tpu/ops/fused_crnn.py::crnn_sample (B8,
-// _make_sample_kernel).
+// _make_sample_kernel) and ::crnn_log_amp_parts (B7, _make_log_amp_kernel).
 //
 // Bound on the H100: the exchange suffixes.  Exchanging bond (a, b) leaves
 // sites < a untouched and site a's state, so only sites a+1..N-1 are
@@ -18,8 +19,8 @@
 // B * (number of anti-aligned bonds) * N/2 cRNN site steps, ~2.5e6 at the
 // J1-J2 flagship (B=500, N=100, U=50, J2 != 0), each a 3U x U product
 // (6U^2 of its 6U^2 + 38U + 20 operations) plus two heads and the mask,
-// ~40 GFLOP per call.  B8 does only the B*N base steps (B7's work) and is
-// bound, as B7, by the latency of N dependent site steps per sample.
+// ~40 GFLOP per call.  B7 and B8 do only the B*N base steps and are bound
+// by the latency of N dependent site steps per sample.
 //
 // Design: four launches (K3's, csrc/tfim_flip.cu, with a second head, the
 // U(1) mask and bond lists).
@@ -41,7 +42,10 @@
 //      target flipped, fl_re[n], fl_im[n].  B8 runs this launch alone in
 //      sample mode and stores no history, only the spins and
 //      log |psi|^2; the arithmetic is the same code, so B8 draws B11's
-//      spins bit for bit.  B9's replay is this launch teacher-forced,
+//      spins bit for bit.  B7 is this launch teacher-forced, storing
+//      nothing but (Re, Im) log psi: the samples enter where the sample
+//      mode takes its decisions, so B7 on B11's draws gives B11's log psi
+//      bit for bit.  B9's replay is this launch teacher-forced,
 //      storing K2's A rows and the gates from its first slices and the two
 //      heads' seeds of B9's reverse sweep from the books warp
 //      (ExStore::kReplay, rnnwf_crnn_replay).
@@ -139,7 +143,7 @@ __host__ __device__ inline void bond_at(const Bonds& bs, int k, int& a, int& b, 
   el = k == 0 ? bs.el_nn : bs.el_nnn;
 }
 
-// What the base pass stores beside log psi: nothing (B8), the suffix pass's
+// What the base pass stores beside log psi: nothing (B7, B8), the suffix pass's
 // inputs (B10, B11: hist, pfx_*, cup, fl_*) or B9's replay (rows, gates,
 // seeds).
 enum class ExStore { kNone, kFlip, kReplay };
@@ -156,7 +160,7 @@ struct ExBase {
   float* rows;    // (B, N + 1, U + 3) K2's A rows, [h_{n-1} | 1 | 1 - s_{n-1} | s_{n-1}]
   float* gates;   // (B, N, 4U) [r | z | c | ghc] of site n
   float* seeds;   // (B, N, 2) [a_n, q_n], the heads' seeds of B9's reverse sweep
-  float* lp_re;   // (B,) Re log psi; log |psi|^2 under kNone (B8)
+  float* lp_re;   // (B,) Re log psi; log |psi|^2 in B8's mode (sampling, kNone)
   float* lp_im;   // (B,) Im log psi
 };
 
@@ -186,7 +190,7 @@ __device__ __forceinline__ float2 crnn_seeds(float d, float qs, float s, int n, 
   return make_float2(dlp0 * p1 - dlp1 * p0, kPi / (den * den));
 }
 
-// Under kNone (B8), only lp_re is written, as log |psi|^2 = 2 Re log psi.
+// B8 (sampling under kNone) writes only lp_re, as log |psi|^2 = 2 Re log psi.
 // At most 96 registers a thread: an SM sub-partition's 16,384 then hold 5
 // warps, so a block of kSlices x 128 threads and the books warp (17 warps)
 // launches, and two blocks of the flagship's 9 warps share an SM (one block
@@ -370,7 +374,7 @@ exchange_base_kernel(int32_t* __restrict__ samples, uint32_t seed, uint32_t offs
 #pragma unroll
     for (int p = 0; p < kExP; ++p) {
       if (lane != p || !own[p]) continue;
-      if constexpr (kStore == ExStore::kNone) {
+      if constexpr (kSample && kStore == ExStore::kNone) {
         out.lp_re[bs[p]] = 2.0f * (re - rec);
       } else {
         out.lp_re[bs[p]] = re - rec;
@@ -809,6 +813,22 @@ extern "C" int rnnwf_crnn_sample(unsigned int seed, unsigned int offset, const v
   out.lp_re = static_cast<float*>(lp);
   return static_cast<int>(rnnwf::launch_exchange_base<true, rnnwf::ExStore::kNone>(
       static_cast<int32_t*>(samples), seed, offset,
+      rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), out, b_total, n_sites, u, u1,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B7: the teacher-forced base pass storing nothing but (Re, Im) log psi of
+// the samples (B floats each); no scratch.
+extern "C" int rnnwf_crnn_log_amp_parts(const void* samples, const void* wx, const void* wh,
+                                        const void* bx, const void* bh, const void* aw,
+                                        const void* ab, const void* pw, const void* pb,
+                                        void* re, void* im, int b_total, int n_sites, int u,
+                                        int u1, void* stream) {
+  rnnwf::ExBase out{};
+  out.lp_re = static_cast<float*>(re);
+  out.lp_im = static_cast<float*>(im);
+  return static_cast<int>(rnnwf::launch_exchange_base<false, rnnwf::ExStore::kNone>(
+      const_cast<int32_t*>(static_cast<const int32_t*>(samples)), 0u, 0u,
       rnnwf::weight_ptrs(wx, wh, bx, bh, aw, ab, pw, pb), out, b_total, n_sites, u, u1,
       static_cast<cudaStream_t>(stream)));
 }

@@ -11,22 +11,21 @@
 namespace {
 
 // The cRNN family's kernels in the order rnnwf_crnn_smem_bytes reports them.
-constexpr int kCrnnKernels = 5;
+constexpr int kCrnnKernels = 4;
 
 void crnn_needs(int u, size_t (&need)[kCrnnKernels]) {
   using namespace rnnwf;
-  need[0] = b7_smem_bytes(u);
-  need[1] = exchange_base_smem_bytes(u);
-  need[2] = exchange_suffix_smem_bytes(u);
-  need[3] = crnn_sweep_smem_bytes(u);
-  need[4] = rollout_smem_bytes(u);
+  need[0] = exchange_base_smem_bytes(u);
+  need[1] = exchange_suffix_smem_bytes(u);
+  need[2] = crnn_sweep_smem_bytes(u);
+  need[3] = rollout_smem_bytes(u);
 }
 
 }  // namespace
 
 // Writes 1 to *fits when every kernel of `family` (0: the GRU kernels K1-K4
 // and the jacobian sweep B17, which runs K2's replay and reverse sweep, 1:
-// the cRNN kernels B7, B8-B11 (B9's replay is B10's base pass, its reverse
+// the cRNN kernels B7-B11 (B7 and B9's replay are B10's base pass, its reverse
 // sweep and weight cotangent K2's) and the split jacobian sweeps B19/B20
 // (B20 runs K2's reverse sweep), 2: the MDRNN kernels B12-B16) fits at width
 // u on `device`, else 0.  `nx` is the lattice width of the MDRNN family (its
@@ -54,7 +53,7 @@ extern "C" int rnnwf_fits_shared_memory(int family, int nx, int u, int device, i
 }
 
 // The dynamic shared memory of each cRNN kernel at width u, in bytes, into
-// need[0..4]: B7; the base pass of B8/B10/B11 and B9's replay; the suffix
+// need[0..3]: the base pass of B7, B8, B10, B11 and B9's replay; the suffix
 // pass of B10/B11; the reverse sweep of B9 and B20; B19.
 extern "C" void rnnwf_crnn_smem_bytes(int u, long long* need) {
   size_t needs[kCrnnKernels];

@@ -5,10 +5,11 @@ B8, the stand-alone U(1)-masked sampler.
 
 Counterpart of ``rnnwavefunctions_tpu/ops/fused_crnn.py``
 (``crnn_log_amp_parts``, ``_crnn_site_rows``, ``make_log_amp_parts_fn`` and
-``crnn_sample``).  B7's CUDA kernel is ``csrc/fused_crnn.cu``; B8 is the
-sample-mode base pass of ``csrc/j1j2_exchange.cu`` without its history, so
-it draws B11's spins; B9's replay (``crnn_replay``) is that pass
-teacher-forced, storing what B9's later stages read (``CReplay``).  The
+``crnn_sample``).  All three run the base pass of ``csrc/j1j2_exchange.cu``:
+B8 in sample mode without its history, so it draws B11's spins; B7
+teacher-forced, storing nothing, so its (Re, Im) on B11's samples are B11's
+bit for bit; B9's replay (``crnn_replay``) teacher-forced, storing what B9's
+later stages read (``CReplay``).  The
 plain PyTorch versions below are the same site loops written with tensor
 ops, teacher-forced or on given uniforms.
 
@@ -63,7 +64,7 @@ def supports(n_sites: int, units: Sequence[int], device) -> bool:
 
 
 # the cRNN family's kernels in the order rnnwf_crnn_smem_bytes reports them
-SMEM_KERNELS = ("B7", "the base pass of B8, B10, B11 and B9's replay",
+SMEM_KERNELS = ("the base pass of B7, B8, B10, B11 and B9's replay",
                 "the suffix pass of B10 and B11", "the reverse sweep of B9 and B20", "B19")
 
 

@@ -1,7 +1,7 @@
 """The VMC trainer: sampling, local energies, and an Adam or minSR update.
 
-Counterpart of ``rnnwavefunctions_tpu/vmc/trainer.py`` for one device and a
-constant learning rate.  One step:
+Counterpart of ``rnnwavefunctions_tpu/vmc/trainer.py`` for one device.  One
+step:
 
 1. sample + local energies: the fused kernels (K3 for the pRNN on the
    TFIM, B6 in both modes for the parity pRNN, B16 for the 2D MDRNN on the
@@ -12,7 +12,9 @@ constant learning rate.  One step:
    for a complex ansatz on ``ansatz.log_amp_parts`` (B9's replay forward
    and B9 backward), when the ansatz runs its kernels;
 3. ``torch.optim.Adam``, whose update ``lr * m_hat / (sqrt(v_hat) + eps)``
-   is optax's ``adam`` with ``eps_root=0``.
+   is optax's ``adam`` with ``eps_root=0``; update k (counting from 0)
+   takes the learning rate ``make_schedule(config)(k)``, as optax's count
+   does.
 
 With ``optimizer="minsr"`` steps 2 and 3 become: the per-sample rows of
 d log psi (``vmc/jacobian.py``; on the card the kernels B17, or B19 and B20
@@ -24,15 +26,20 @@ Cholesky), written into the parameters' ``.grad`` and applied by
 The parameters live in the ansatz module and are updated in place.  Per-step
 randomness comes from a CPU ``torch.Generator`` seeded with ``config.seed``:
 the kernel gets a (seed, offset) pair drawn from it, so no device sync is
-needed to seed a step.  Samples keep the ansatz's own shape ((S, N) chains,
-(S, Nx, Ny) lattices): the step only averages over their leading axis.
+needed to seed a step.  Where the JAX trainer folds the step count into a
+key, this generator is the whole stream: a run is a function of
+``config.seed`` and of the steps taken, and a checkpoint carries the
+generator's state (``utils/checkpoints.py``).  Samples keep the ansatz's
+own shape ((S, N) chains, (S, Nx, Ny) lattices): the step only averages
+over their leading axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..interop import param_tree, tree_leaves
@@ -63,12 +70,23 @@ def _check_optimizer(config: "TrainConfig") -> None:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Hyperparameters; defaults mirror the reference trainer signature
-    (500 samples, lr 5e-3, Adam) and the JAX package's minSR settings.  The
-    schedules other than "constant" are not ported yet."""
+    (500 samples, lr 5e-3, Adam) and the JAX package's schedule and minSR
+    settings."""
 
     num_samples: int = 500
     learning_rate: float = 5e-3
+    # "constant"; "inverse" lr / (1 + step / decay_scale); "harmonic"
+    # 1 / (1 / lr + step / decay_scale); "exponential"
+    # lr * decay_rate^(step / decay_steps), the exponent floored under
+    # staircase; "staged" lr times lr_stage_scales[i] once step >=
+    # lr_stage_bounds[i] (the scales compound)
     schedule: str = "constant"
+    decay_scale: float = 10.0
+    decay_rate: float = 1.0
+    decay_steps: int = 100
+    staircase: bool = True
+    lr_stage_bounds: tuple = ()
+    lr_stage_scales: tuple = ()
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -87,6 +105,52 @@ class TrainConfig:
     seed: int = 111
 
 
+def make_schedule(config: TrainConfig) -> Callable[[int], float]:
+    """The learning rate of update ``step`` (counting from 0), evaluated in
+    float32 as the JAX package's schedules are (its ``make_schedule``);
+    raises ``ValueError`` for an unknown schedule and for staged lists that
+    do not match or bounds that do not ascend."""
+    f32 = np.float32
+    lr = config.learning_rate
+    if config.schedule == "constant":
+        return lambda step: float(f32(lr))
+    if config.schedule == "inverse":
+        return lambda step: float(f32(lr) / (f32(1.0) + f32(step) / f32(config.decay_scale)))
+    if config.schedule == "harmonic":
+        # 1 / lr is a Python float there, rounded to float32 where it meets
+        # the step
+        return lambda step: float(
+            f32(1.0) / (f32(1.0 / lr) + f32(step) / f32(config.decay_scale)))
+    if config.schedule == "exponential":
+
+        def exp_schedule(step):
+            p = f32(step) / f32(config.decay_steps)
+            if config.staircase:
+                p = np.floor(p)
+            return float(f32(lr) * f32(config.decay_rate) ** p)
+
+        return exp_schedule
+    if config.schedule == "staged":
+        bounds = tuple(config.lr_stage_bounds)
+        scales = tuple(config.lr_stage_scales)
+        if len(bounds) != len(scales):
+            raise ValueError(
+                f"staged schedule needs matching lr_stage_bounds/"
+                f"lr_stage_scales; got {len(bounds)} vs {len(scales)}"
+            )
+        if list(bounds) != sorted(bounds):
+            raise ValueError(f"lr_stage_bounds must ascend; got {bounds}")
+
+        def staged_schedule(step):
+            f = f32(lr)
+            for b, sc in zip(bounds, scales):
+                f = f * (f32(sc) if step >= b else f32(1.0))
+            return float(f)
+
+        return staged_schedule
+    raise ValueError(f"unknown schedule {config.schedule!r}")
+
+
 @dataclasses.dataclass
 class TrainState:
     """Optimizer state, step count and the per-step generator; the
@@ -102,11 +166,8 @@ class VMCTrainer:
 
     def __init__(self, ansatz: Any, hamiltonian: Any,
                  config: TrainConfig = TrainConfig()):
-        if config.schedule != "constant":
-            raise ValueError(
-                f"schedule {config.schedule!r} is not ported yet (only 'constant')"
-            )
         _check_optimizer(config)
+        self.schedule = make_schedule(config)
         self.ansatz = ansatz
         self.hamiltonian = hamiltonian
         self.config = config
@@ -185,6 +246,9 @@ class VMCTrainer:
             la_re, la_im = (self.ansatz.log_amp_parts(samples) if is_complex
                             else (self.ansatz.log_amp(samples), None))
             surrogate_loss(la_re, la_im, e_loc, e_im, e_mean, e_im_mean).backward()
+        lr = self.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
         state.optimizer.step()
         state.step += 1
         return metrics
@@ -212,3 +276,39 @@ class VMCTrainer:
         ``num_steps`` axis).  Metrics stay on the device until read."""
         ms = [self.step(state)[1] for _ in range(num_steps)]
         return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    # -- training loop (the run_X equivalent) -------------------------------
+
+    def fit(self, num_steps: int, state: Optional[TrainState] = None, log_every: int = 10,
+            callback: Optional[Callable[[int, Dict[str, Any]], None]] = None):
+        """Trains for ``num_steps``; returns (state, meanE list, varE list),
+        the reference's ``run_X`` contract.  Blocks of ``log_every`` steps
+        run back to back (``run_steps``), each block's metrics read in one
+        device-to-host copy.  The JAX ``fit`` takes a key; here the
+        state's generator, seeded from ``config.seed``, is the stream."""
+        if state is None:
+            state = self.init()
+        mean_energy, var_energy = [], []
+        it = 0
+        while it < num_steps:
+            block = min(log_every, num_steps - it)
+            state, ms = self.run_steps(state, block)
+            for j, (me, ve) in enumerate(decode_metrics_block(ms)):
+                mean_energy.append(me)
+                var_energy.append(ve)
+                if callback is not None and (it + j) % log_every == 0:
+                    callback(it + j, {"mean_energy": me, "var_energy": ve})
+            it += block
+        return state, mean_energy, var_energy
+
+
+def decode_metrics_block(ms: Dict[str, torch.Tensor]) -> List[Tuple[Union[float, complex], float]]:
+    """One ``run_steps`` metrics block (leading axis = steps) as host-side
+    (mean_energy, var_energy) pairs, in one device-to-host copy; a complex
+    ansatz's mean comes back as ``complex(Re, Im)``.  Shared by ``fit`` and
+    the CLI loop (``cli/run_loop.py``)."""
+    keys = ["mean_energy", "var_energy"] + (["mean_energy_im"] if "mean_energy_im" in ms else [])
+    rows = torch.stack([ms[k] for k in keys]).cpu().tolist()
+    if len(rows) == 3:
+        return [(complex(re, im), ve) for re, ve, im in zip(*rows)]
+    return list(zip(*rows))

@@ -295,10 +295,15 @@ def _sector(device, seed=1, n=N):
     return (keys.argsort(dim=1) < n // 2).to(torch.int32).to(device)
 
 
+def _crnn_widest(device):
+    return max(v for v in range(1, 257) if fused_crnn.supports(N, (v,), device))
+
+
+@pytest.mark.parametrize("u", [50, "widest"])
 @pytest.mark.parametrize("u1", [True, False])
 @pytest.mark.parametrize("n", [N, N - 1], ids=["even", "odd"])
-def test_b7_matches_plain(cuda, u1, n):
-    w = _crnn_weights(50, cuda)
+def test_b7_matches_plain(cuda, u1, n, u):
+    w = _crnn_weights(_crnn_widest(cuda) if u == "widest" else u, cuda)
     # in and out of the sector; at odd n the mask forbids every class of a
     # late site, whose targets take the finite LOG_ZERO - log norm2
     for s in (_sector(cuda, n=n), _samples(cuda, n=n)):
@@ -308,6 +313,18 @@ def test_b7_matches_plain(cuda, u1, n):
         torch.testing.assert_close(re, want_re, atol=1e-5 * n, rtol=1e-6)
         torch.testing.assert_close(im, want_im, atol=1e-5 * n, rtol=0)
         assert fused_crnn.crnn_log_amp_parts.launches == before + 1
+
+
+@pytest.mark.parametrize("u", [50, "widest"])
+@pytest.mark.parametrize("u1", [True, False])
+def test_b7_equals_b11_log_psi_bit_for_bit(cuda, u1, u):
+    """B7 and B11 run one base pass, teacher-forced or drawing: B7's (Re, Im)
+    on B11's samples are B11's log psi bit for bit."""
+    w = _crnn_weights(_crnn_widest(cuda) if u == "widest" else u, cuda)
+    info = J1J2(N, j2=0.2).exchange_kernel_info
+    s11, _, _, re11, im11 = jk.j1j2_sample_and_exchange(w, B, N, 3, 5, u1=u1, **info)
+    re, im = fused_crnn.crnn_log_amp_parts(w, s11, u1)
+    assert torch.equal(re, re11) and torch.equal(im, im11)
 
 
 # B9 over its kernels' edges: (u1, N, U, B) with the mask on and off, N even
@@ -502,7 +519,7 @@ def test_crnn_kernels_at_the_widest(cuda):
     pass takes two 64-row tiles per gate): B7, B9 alone and from its
     replay, B10, B11 and B8, B19 storing and B20 against their plain
     versions."""
-    u = max(v for v in range(1, 257) if fused_crnn.supports(N, (v,), cuda))
+    u = _crnn_widest(cuda)
     w, s = _crnn_weights(u, cuda), _sector(cuda)
     re, im = fused_crnn.crnn_log_amp_parts(w, s, True)
     want_re, want_im = fused_crnn.log_amp_parts_plain(w, s, True)
@@ -533,6 +550,25 @@ def test_crnn_kernels_at_the_widest(cuda):
     douts = torch.randn(2, B, N, u, generator=torch.Generator().manual_seed(4)).to(cuda)
     _close_to_max(fused_jac.sweep_dgates(trunk, s, hist, douts, gates=gates),
                   fused_jac.sweep_dgates_plain(trunk, s, hist, douts))
+
+
+def test_cli_run_resumes_on_the_card(cuda, tmp_path):
+    """The 1D-TFIM CLI on the card: 30 steps, resumed to 60, give the series
+    of one 60-step run, every update on K1, K2 and K3."""
+    from rnnwavefunctions_tpu_torch.cli import run_1dtfim
+
+    argv = ["--systemsize", str(N), "--num-units", "16", "--numsamples", str(B),
+            "--device", str(cuda)]
+    fns = (fused_gru.gru_log_prob, fused_gru_bwd.gru_log_prob_bwd, tk.tfim_sample_and_flip_sum)
+    counts = [fn.launches for fn in fns]
+    whole = run_1dtfim.main(argv + ["--numsteps", "60", "--workdir", str(tmp_path / "a")])
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [61, 61, 61]
+    run_1dtfim.main(argv + ["--numsteps", "30", "--workdir", str(tmp_path / "b")])
+    split = run_1dtfim.main(argv + ["--numsteps", "60", "--resume",
+                                    "--workdir", str(tmp_path / "b")])
+    assert len(whole[0]) == 61 and np.isfinite(whole[0]).all()
+    for a, b in zip(whole, split):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # ---- the 2D MDRNN kernels (B12-B16)

@@ -166,11 +166,25 @@ def test_j1j2_steps_are_reproducible_from_the_seed():
     assert torch.equal(a["mean_energy_im"], b["mean_energy_im"])
 
 
-@pytest.mark.parametrize("schedule", ["inverse", "staged"])
-def test_config_rejects_what_is_not_ported(schedule):
-    with pytest.raises(ValueError, match="not ported yet"):
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(schedule="inverse", optimizer="sgd"), "unknown optimizer"),
+    (dict(schedule="staged", lr_stage_bounds=(10,), lr_stage_scales=()), "matching"),
+    (dict(schedule="staged", lr_stage_bounds=(10, 5), lr_stage_scales=(0.1, 0.2)), "ascend"),
+    (dict(schedule="cosine"), "unknown schedule"),
+    (dict(optimizer="minsr", sr_damping=0.0), "sr_damping must be > 0"),
+], ids=["inverse", "staged", "staged-descending", "unknown-schedule", "minsr-damping"])
+def test_config_rejects_what_is_not_ported(kwargs, match):
+    """The settings the JAX trainer refuses raise the same ValueError at
+    VMCTrainer's construction; every schedule of the JAX package is ported."""
+    from rnnwavefunctions_tpu import TrainConfig as JTrainConfig
+    from rnnwavefunctions_tpu import VMCTrainer as JVMCTrainer
+
+    with pytest.raises(ValueError, match=match) as want:
+        JVMCTrainer(JPRNN1D(num_sites=5, units=(8,)), JTFIM1D(num_sites=5),
+                    JTrainConfig(num_samples=8, **kwargs))
+    with pytest.raises(ValueError, match=match) as got:
+        VMCTrainer(PRNN1D(5, (8,), device="cpu"), TFIM1D(5, 1.0), TrainConfig(**kwargs))
+    assert str(got.value) == str(want.value)
+    schedule = kwargs.get("schedule")
+    if schedule in ("inverse", "staged"):  # the schedule alone builds
         VMCTrainer(PRNN1D(5, (8,), device="cpu"), TFIM1D(5, 1.0), TrainConfig(schedule=schedule))
-    # minSR is ported; an optimizer of neither kind raises as in the JAX package
-    assert TrainConfig(optimizer="minsr").optimizer == "minsr"
-    with pytest.raises(ValueError, match="unknown optimizer"):
-        VMCTrainer(PRNN1D(5, (8,), device="cpu"), TFIM1D(5, 1.0), TrainConfig(optimizer="sgd"))
