@@ -16,6 +16,7 @@ JAX compilation cache of the JAX loop have no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 from typing import Optional
@@ -25,6 +26,7 @@ import torch
 from ..utils.checkpoints import Checkpointer
 from ..utils.metrics import MetricsSeries
 from ..utils.summary import summarize_params
+from ..utils.trace import span
 from ..vmc.trainer import VMCTrainer, decode_metrics_block
 
 
@@ -75,8 +77,11 @@ def run_training(
     profile_dir: Optional[str] = None,
 ):
     """Returns (final_state, mean_energy list, var_energy list).  With
-    ``profile_dir``, the second block runs under ``torch.profiler`` and its
-    trace is written there as ``trace_<tag>.json`` (Chrome format)."""
+    ``profile_dir``, the second block runs under ``torch.profiler``, its
+    metrics copy and its JSONL, ``.npy`` and checkpoint writes included
+    (spans ``rnnwf.readback``, ``rnnwf.cli.log``, ``rnnwf.cli.npy``,
+    ``rnnwf.cli.checkpoint``), and its trace is written there as
+    ``trace_<tag>.json`` (Chrome format)."""
     metrics = MetricsSeries(workdir, tag, resume=resume)
     ckpt_dir = os.path.join(workdir, f"ckpt_{tag}")
     if not resume and os.path.isdir(ckpt_dir):
@@ -113,41 +118,37 @@ def run_training(
     print(summarize_params(trainer.ansatz))
 
     device = next(trainer.ansatz.parameters()).device
-    prof = None
-    try:
-        it = start
-        while it <= num_steps:
-            # a block ends at the next log_every multiple (so its last
-            # metrics entry is the logging step) and never runs past a
-            # checkpoint step (the saved state is the ckpt_every-step state)
-            stop = ((it + log_every - 1) // log_every) * log_every
-            if ckpt_every:
-                stop = min(stop, ((it + ckpt_every - 1) // ckpt_every) * ckpt_every)
-            block = min(stop, num_steps) - it + 1
+    it = start
+    while it <= num_steps:
+        # a block ends at the next log_every multiple (so its last metrics
+        # entry is the logging step) and never runs past a checkpoint step
+        # (the saved state is the ckpt_every-step state)
+        stop = ((it + log_every - 1) // log_every) * log_every
+        if ckpt_every:
+            stop = min(stop, ((it + ckpt_every - 1) // ckpt_every) * ckpt_every)
+        block = min(stop, num_steps) - it + 1
+        last = it + block - 1
 
-            if profile_dir is not None and it > start:
-                prof = _profiler(profile_dir, device)
-                prof.__enter__()
+        # one traced block, its copy and writes included
+        traced = profile_dir is not None and it > start
+        with _profiler(profile_dir, device) if traced else contextlib.nullcontext() as prof:
             state, ms = trainer.run_steps(state, block)
             for m, v in decode_metrics_block(ms):
                 metrics.append(m, v)
-            if prof is not None:
-                prof.__exit__(None, None, None)
-                prof.export_chrome_trace(os.path.join(profile_dir, f"trace_{tag}.json"))
-                prof = profile_dir = None  # one traced block is enough
-
-            last = it + block - 1
             if last % log_every == 0:
-                metrics.print_line(last, trainer.config.num_samples)
-                metrics.log_jsonl(last)
+                with span("rnnwf.cli.log"):
+                    metrics.print_line(last, trainer.config.num_samples)
+                    metrics.log_jsonl(last)
             if any((it + j) % save_every == 0 for j in range(block)):
-                metrics.flush_npy()
+                with span("rnnwf.cli.npy"):
+                    metrics.flush_npy()
             if ckpt_every and last % ckpt_every == 0 and last > start:
-                ckpt.save(state)
-            it += block
-    finally:
-        if prof is not None:
-            prof.__exit__(None, None, None)
+                with span("rnnwf.cli.checkpoint"):
+                    ckpt.save(state)
+        if traced:
+            prof.export_chrome_trace(os.path.join(profile_dir, f"trace_{tag}.json"))
+            profile_dir = None
+        it += block
 
     ckpt.save(state)
     metrics.flush_npy()

@@ -28,15 +28,14 @@ in place of the CG kernel.
         [--optimizer minsr] [--sr-solver cg|chol]
     python -m rnnwavefunctions_tpu_torch.tools.profile_step system --model j1j2 --at 150,250
 
-``profile``: steps/s of the kernel path over three repeats of 50 steps
-(host clock, ending in a synchronize, after 3 warm-up steps), and of the
-plain path (``impl="plain"``) over two repeats of 5 steps (1 for
-``chain1000``, whose plain step takes seconds); then
-``torch.profiler`` over 20 kernel-path steps: device time per step of each
-kernel, the device's idle share, 1 - (summed kernel time) / (wall time
-of the profiled window), and the host's self CPU time per step, in all and
-for the ten largest ops (a step whose host time exceeds its device time
-leaves the card idle).
+``profile``: steps/s of the plain path (``impl="plain"``; host clock,
+ending in a synchronize) over two repeats of 5 steps (1 for
+``chain1000``, whose plain step takes seconds); then ``torch.profiler``
+over 20 kernel-path steps, after 3 warm-up steps: device time per step of
+each kernel, and the host's self CPU time per step, in all and for the ten
+largest ops (a step whose host time exceeds its device time leaves the
+card idle).  The kernel path's steps/s and the card's idle share are the
+benchmark's (``benchmark/``).
 
 ``accuracy``: ``--steps`` steps from ``--seed`` (``TrainConfig()``'s by
 default) with ``--samples`` samples per step (500), the metrics read back
@@ -125,51 +124,42 @@ def _trainer(model: str, impl: str = "auto", marshall_sign: bool = False, lattic
     return trainer, trainer.init()
 
 
-def _steps_per_second(trainer, state, steps: int) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.run_steps(state, steps)
-    torch.cuda.synchronize()
-    return steps / (time.perf_counter() - t0)
-
-
 def profile(model: str, marshall_sign: bool, optimizer: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     trainer, state = _trainer(model, marshall_sign=marshall_sign, optimizer=optimizer)
     trainer.run_steps(state, 3)  # warm-up: build, allocator
-    kernel_rates = [_steps_per_second(trainer, state, 50) for _ in range(3)]
     plain, plain_state = _trainer(model, "plain", marshall_sign, optimizer=optimizer)
     plain.run_steps(plain_state, 1)
-    plain_rates = [_steps_per_second(plain, plain_state, PLAIN_STEPS.get(model, 5))
-                   for _ in range(2)]
+    plain_steps, plain_rates = PLAIN_STEPS.get(model, 5), []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.run_steps(plain_state, plain_steps)
+        torch.cuda.synchronize()
+        plain_rates.append(plain_steps / (time.perf_counter() - t0))
 
     steps = 20
     torch.cuda.synchronize()
     with torch.profiler.profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
-        t0 = time.perf_counter()
         trainer.run_steps(state, steps)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in device}
-    busy_ms = steps * sum(per_step.values())
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
+    # the profiler mirrors host ranges (the rnnwf.* spans) onto the device: not work
+    ranges = {e.key for e in host}
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in device}
     return {
         "model": model,
         "optimizer": optimizer,
         "marshall_sign": marshall_sign,
-        "kernel_steps_per_s": kernel_rates,
         "plain_steps_per_s": plain_rates,
         "profiled_steps": steps,
-        "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / wall_ms,
         "device_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])),
         "host_self_cpu_ms_per_step": sum(e.self_cpu_time_total for e in host) / 1e3 / steps,
         "host_top_ms_per_step": {e.key: e.self_cpu_time_total / 1e3 / steps for e in host[:10]},

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..interop import param_tree, tree_leaves, tree_map, tree_unflatten
+from ..utils.trace import span
 from . import jacobian
 
 SOLVERS = ("chol", "cg")
@@ -75,11 +76,12 @@ def per_sample_log_amp_grad_trees(ansatz: Any, samples: torch.Tensor):
     """Per-sample log-derivative rows as parameter-shaped trees (the JAX
     package's layout, leaves (S, *param-shape)): ``(rows_re, rows_im)``,
     ``rows_im`` None for a real log psi."""
-    if jacobian.supports(ansatz):
-        if getattr(ansatz, "is_complex", False):
-            return jacobian.crnn_log_amp_rows(ansatz, samples)
-        return jacobian.log_amp_rows(ansatz, samples), None
-    return _generic_rows(ansatz, samples)
+    with span("rnnwf.minsr.rows"):
+        if jacobian.supports(ansatz):
+            if getattr(ansatz, "is_complex", False):
+                return jacobian.crnn_log_amp_rows(ansatz, samples)
+            return jacobian.log_amp_rows(ansatz, samples), None
+        return _generic_rows(ansatz, samples)
 
 
 def _flatten_rows(tree) -> torch.Tensor:
@@ -106,11 +108,12 @@ def per_sample_log_amp_grads(ansatz: Any, samples: torch.Tensor
 
 
 def _solve(t: torch.Tensor, c: torch.Tensor, solver: str, cg_iters: int) -> torch.Tensor:
-    if solver == "cg":
-        from ..ops import sr_cg
+    with span("rnnwf.minsr.solve"):
+        if solver == "cg":
+            from ..ops import sr_cg
 
-        return sr_cg.sr_cg_solve(t.contiguous(), c.contiguous(), cg_iters)
-    return torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t))[:, 0]
+            return sr_cg.sr_cg_solve(t.contiguous(), c.contiguous(), cg_iters)
+        return torch.cholesky_solve(c[:, None], torch.linalg.cholesky(t))[:, 0]
 
 
 def sample_space_system(rows_re, rows_im, e_re: torch.Tensor, e_im: Optional[torch.Tensor],
@@ -150,8 +153,9 @@ def minsr_direction_tree(rows_re, rows_im, e_re: torch.Tensor, e_im: Optional[to
     ``per_sample_log_amp_grad_trees``, as a parameter tree (the values of
     ``minsr_direction``): the solve of ``sample_space_system``, then the
     back-contraction ``2 A^T x`` split per leaf."""
-    t, c, a_parts = sample_space_system(rows_re, rows_im, e_re, e_im, e_mean_re, e_mean_im,
-                                        damping)
+    with span("rnnwf.minsr.gram"):
+        t, c, a_parts = sample_space_system(rows_re, rows_im, e_re, e_im, e_mean_re, e_mean_im,
+                                            damping)
     x_parts = torch.split(_solve(t, c, solver, cg_iters), a_parts[0][0].shape[0])
 
     def back(i, leaf):

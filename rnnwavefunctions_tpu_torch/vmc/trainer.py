@@ -32,6 +32,12 @@ key, this generator is the whole stream: a run is a function of
 generator's state (``utils/checkpoints.py``).  Samples keep the ansatz's
 own shape ((S, N) chains, (S, Nx, Ny) lattices): the step only averages
 over their leading axis.
+
+The phases run inside the spans of ``utils/trace.py`` (``rnnwf.block``,
+``rnnwf.step``, ``rnnwf.sample_energy``, ``rnnwf.key_draw``,
+``rnnwf.gradient``, ``rnnwf.minsr`` and its parts, ``rnnwf.optimizer``,
+``rnnwf.readback``): profiler ranges while a profiler runs, one check
+otherwise.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from ..interop import param_tree, tree_leaves
+from ..utils.trace import span
 from . import minsr
 from .local_energy import make_fused_sample_energy_fn, make_local_energy_fn
 from .loss import surrogate_loss
@@ -210,17 +217,20 @@ class VMCTrainer:
 
     def _sample_and_energy(self, state: TrainState):
         """Returns (samples, e_re, e_im); e_im is None for a real ansatz."""
-        n = self.config.num_samples
-        if self._fused_sample_energy is not None:
-            seed, offset = torch.randint(
-                0, 2**32, (2,), generator=state.generator, dtype=torch.int64
-            ).tolist()
-            samples, _, e_re, e_im = self._fused_sample_energy(n, seed, offset)
+        with span("rnnwf.sample_energy"):
+            n = self.config.num_samples
+            if self._fused_sample_energy is not None:
+                with span("rnnwf.key_draw"):
+                    seed, offset = torch.randint(
+                        0, 2**32, (2,), generator=state.generator, dtype=torch.int64
+                    ).tolist()
+                samples, _, e_re, e_im = self._fused_sample_energy(n, seed, offset)
+                return samples, e_re, e_im
+            samples, logp = self.ansatz.sample_with_log_prob(n, state.generator)
+            la = (self._log_amp_of_batch(samples, logp) if self.local_energy.needs_log_amp
+                  else None)
+            e_re, e_im, _ = self.local_energy(samples, la)
             return samples, e_re, e_im
-        samples, logp = self.ansatz.sample_with_log_prob(n, state.generator)
-        la = self._log_amp_of_batch(samples, logp) if self.local_energy.needs_log_amp else None
-        e_re, e_im, _ = self.local_energy(samples, la)
-        return samples, e_re, e_im
 
     def _update(self, state: TrainState, samples: torch.Tensor, e_loc: torch.Tensor,
                 e_im: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -243,13 +253,15 @@ class VMCTrainer:
         if self.config.optimizer == "minsr":
             self._set_minsr_direction(samples, e_loc, e_im, e_mean, e_im_mean)
         else:
-            la_re, la_im = (self.ansatz.log_amp_parts(samples) if is_complex
-                            else (self.ansatz.log_amp(samples), None))
-            surrogate_loss(la_re, la_im, e_loc, e_im, e_mean, e_im_mean).backward()
+            with span("rnnwf.gradient"):
+                la_re, la_im = (self.ansatz.log_amp_parts(samples) if is_complex
+                                else (self.ansatz.log_amp(samples), None))
+                surrogate_loss(la_re, la_im, e_loc, e_im, e_mean, e_im_mean).backward()
         lr = self.schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
-        state.optimizer.step()
+        with span("rnnwf.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return metrics
 
@@ -258,24 +270,27 @@ class VMCTrainer:
         """The minSR direction of these samples into every parameter's
         ``.grad``."""
         c = self.config
-        rows_re, rows_im = minsr.per_sample_log_amp_grad_trees(self.ansatz, samples)
-        direction = minsr.minsr_direction_tree(
-            rows_re, rows_im, e_loc, e_im, e_mean, e_im_mean, c.sr_damping,
-            solver=c.sr_solver, cg_iters=c.sr_cg_iters,
-        )
+        with span("rnnwf.minsr"):
+            rows_re, rows_im = minsr.per_sample_log_amp_grad_trees(self.ansatz, samples)
+            direction = minsr.minsr_direction_tree(
+                rows_re, rows_im, e_loc, e_im, e_mean, e_im_mean, c.sr_damping,
+                solver=c.sr_solver, cg_iters=c.sr_cg_iters,
+            )
         for p, d in zip(tree_leaves(param_tree(self.ansatz)), tree_leaves(direction)):
             p.grad = d
 
     def step(self, state: TrainState):
         """One VMC update.  Returns (state, metrics dict of 0-dim tensors)."""
-        samples, e_re, e_im = self._sample_and_energy(state)
-        return state, self._update(state, samples, e_re, e_im)
+        with span("rnnwf.step"):
+            samples, e_re, e_im = self._sample_and_energy(state)
+            return state, self._update(state, samples, e_re, e_im)
 
     def run_steps(self, state: TrainState, num_steps: int):
         """``num_steps`` updates; returns (state, metrics with a leading
         ``num_steps`` axis).  Metrics stay on the device until read."""
-        ms = [self.step(state)[1] for _ in range(num_steps)]
-        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        with span("rnnwf.block"):
+            ms = [self.step(state)[1] for _ in range(num_steps)]
+            return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     # -- training loop (the run_X equivalent) -------------------------------
 
@@ -308,7 +323,8 @@ def decode_metrics_block(ms: Dict[str, torch.Tensor]) -> List[Tuple[Union[float,
     ansatz's mean comes back as ``complex(Re, Im)``.  Shared by ``fit`` and
     the CLI loop (``cli/run_loop.py``)."""
     keys = ["mean_energy", "var_energy"] + (["mean_energy_im"] if "mean_energy_im" in ms else [])
-    rows = torch.stack([ms[k] for k in keys]).cpu().tolist()
+    with span("rnnwf.readback"):
+        rows = torch.stack([ms[k] for k in keys]).cpu().tolist()
     if len(rows) == 3:
         return [(complex(re, im), ve) for re, ve, im in zip(*rows)]
     return list(zip(*rows))

@@ -222,7 +222,9 @@ def test_fit_is_a_function_of_the_seed_and_steps():
 def test_profile_dir_writes_one_trace(tmp_path):
     run_training(_tiny_trainer(), 12, str(tmp_path), "prof", profile_dir=str(tmp_path / "p"))
     assert os.listdir(tmp_path / "p") == ["trace_prof.json"]
-    assert json.load(open(tmp_path / "p" / "trace_prof.json"))["traceEvents"]
+    events = json.load(open(tmp_path / "p" / "trace_prof.json"))["traceEvents"]
+    # the traced block's copy and its JSONL write are inside the trace
+    assert {"rnnwf.readback", "rnnwf.cli.log"} <= {e.get("name") for e in events}
 
 
 def test_compat_run_1dtfim(tmp_path):
