@@ -9,12 +9,18 @@ Phases (each prints its time; any failure raises and exits non-zero):
 2. Each kernel against its plain PyTorch version on the card at the flagship
    shapes (N=100, U=50, B=500; parameters drawn from a seeded generator),
    every max error printed beside its tolerance; the K3 sampler's
-   frequencies at N=3 against the exact density.
+   frequencies at N=3 against the exact density; K4 and B6a at the suffix
+   pass's edges (B = 1, 64, 65 and the N=1000 chain's S=64; U = 56, the
+   turned-around pass's widest, 57 and 120 on the first suffix pass), each
+   also on its rows permuted, which must give each sample the same bits;
+   K3 and B6b at N=1000, S=64 (B6b K3's draws, and B6a's lpf on them).
 3. Each kernel and its plain version timed with CUDA events; K3's three
-   launches (base pass, suffix pass, ratio sum) and K2's four (the replay,
-   the reverse sweep, the weight cotangent, the chunk sum) timed apart by
-   ``torch.profiler``, beside their FP32 and (K3) tensor-core bounds; K2
-   from K1's stored replay, as the training step runs it.
+   launches (base pass, suffix pass, ratio sum; at N=100 and at N=1000,
+   S=64, where the suffix pass must be ``flip_suffix_rs_kernel``) and K2's
+   four (the replay, the reverse sweep, the weight cotangent, the chunk sum)
+   timed apart by ``torch.profiler``, beside their FP32 and (K3)
+   tensor-core bounds; K2 from K1's stored replay, as the training step
+   runs it.
 4. VMC training of the 1D TFIM at N=10 (300 steps, impl "auto") against
    exact diagonalization; all four kernels must have launched.
 5. 50 steps of the flagship (N=100, one GRU layer of 50 units, S=500, Adam
@@ -374,8 +380,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def print_launches(name: str, fn, parts, calls: int = 10) -> None:
-    """Prints the device ms per call of fn of each launch whose kernel name
-    holds parts[label], by torch.profiler."""
+    """Prints (and returns) the device ms per call of fn of each launch whose
+    kernel name holds parts[label], by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -387,6 +393,7 @@ def print_launches(name: str, fn, parts, calls: int = 10) -> None:
     print(f"{name} launches (torch.profiler, ms per call): " + ", ".join(
         f"{label} {ms:.4f}" if ms > 0 else f"{label} not measured"
         for label, ms in split.items()))
+    return split
 
 
 def perturbed_model(pkg, n, u, seed, device, cls="PRNN1D"):
@@ -560,6 +567,46 @@ def main() -> None:
               f"sum p = {probs.sum():.6f}")
         require(e <= 0.02, "K3 sampler distribution")
 
+        # the suffix pass's edges: groups of 64 trajectories (one sample, a
+        # full group and one more, the flagship's 8 groups, the N=1000
+        # chain's one), the turned-around pass's widest U (56), the first U
+        # past it (57, the first suffix pass) and the family's widest (120)
+        for b_, n_, u_ in ((1, N_FLAG, U_FLAG), (64, N_FLAG, U_FLAG), (65, N_FLAG, U_FLAG),
+                           (S_LONG, N_LONG, U_FLAG), (65, N_FLAG, 56), (65, N_FLAG, 57),
+                           (65, N_FLAG, 120)):
+            we = tuple(t.detach() for t in perturbed_model(pkg, n_, u_, 7, dev).weights())
+            se = (torch.rand(b_, n_, generator=gen) < 0.5).to(torch.int32).to(dev)
+            ratio_e, lp_e = tk.tfim_flip_ratio_sum(we, se)
+            lpf_e, lp6_e = tk.tfim_flip_log_probs(we, se)
+            ratio_ep, lp_ep = tk.flip_ratio_sum_plain(we, se)
+            lpf_ep, _ = tk.per_flip_log_probs_plain(we, se)
+            # a sample's terms wherever it lands: the rows permuted
+            perm = torch.randperm(b_, generator=gen).to(dev)
+            ratio_pm, _ = tk.tfim_flip_ratio_sum(we, se[perm].contiguous())
+            lpf_pm, _ = tk.tfim_flip_log_probs(we, se[perm].contiguous())
+            torch.cuda.synchronize()
+            tol = 1e-5 * n_
+            er, el, ef = rel(ratio_e, ratio_ep), max_err(lp_e, lp_ep), max_err(lpf_e, lpf_ep)
+            same = bool(torch.equal(ratio_pm, ratio_e[perm])) and bool(
+                torch.equal(lpf_pm, lpf_e[perm])) and bool(torch.equal(lp6_e, lp_e))
+            print(f"K4/B6a at B={b_}, N={n_}, U={u_}: ratio relative err {er:.3e} (tol "
+                  f"{rel_tol:.0e}), log p {el:.3e}, lpf {ef:.3e} (tol {tol:.1e}); rows permuted, "
+                  f"the same bits per sample: {same}")
+            require(er <= rel_tol and el <= tol and ef <= tol and same,
+                    f"K4/B6a at B={b_}, N={n_}, U={u_}")
+        wl = tuple(t.detach() for t in perturbed_model(pkg, N_LONG, U_FLAG, 8, dev).weights())
+        sl, lpl, ratio_l = tk.tfim_sample_and_flip_sum(wl, S_LONG, N_LONG, 5, 2)
+        sl6, lpl6, lpfl6 = tk.tfim_sample_and_flip_sum(wl, S_LONG, N_LONG, 5, 2, per_flip=True)
+        ratio_lp, lp_lp = tk.flip_ratio_sum_plain(wl, sl)
+        torch.cuda.synchronize()
+        e1, e2 = rel(ratio_l, ratio_lp), max_err(lpl, lp_lp)
+        same = (bool(torch.equal(sl6, sl)) and bool(torch.equal(lpl6, lpl))
+                and bool(torch.equal(tk.tfim_flip_log_probs(wl, sl)[0], lpfl6)))
+        print(f"K3 at N={N_LONG}, S={S_LONG}: ratio vs plain K4 on its samples: relative err "
+              f"{e1:.3e} (tol {rel_tol:.0e}), log p {e2:.3e} (tol {1e-5 * N_LONG:.1e}); B6b "
+              f"draws K3's samples and gives B6a's lpf on them, bit for bit: {same}")
+        require(e1 <= rel_tol and e2 <= 1e-5 * N_LONG and same, f"K3 and B6b at N={N_LONG}")
+
     with Phase("3 times at the flagship shapes (CUDA events)"):
         uni = torch.rand(S_FLAG, N_FLAG, generator=gen).to(dev)
         pairs = {
@@ -579,9 +626,17 @@ def main() -> None:
             print(f"{name}: kernel {record[name]['ms']:.4f} ms, "
                   f"plain {record[name]['plain_ms']:.4f} ms")
         # K3's and K2's launches apart: device time per call of each
-        print_launches("K3", lambda: tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 3, 4),
-                       {"base pass": "flip_base_kernel", "suffix pass": "flip_suffix_kernel",
-                        "ratio sum": "flip_sum_kernel"})
+        # K3's suffix pass runs flip_suffix_rs_kernel at U <= 56 (the first
+        # design, flip_suffix_kernel, only past it)
+        for label, call in (
+                ("K3", lambda: tk.tfim_sample_and_flip_sum(w, S_FLAG, N_FLAG, 3, 4)),
+                (f"K3 at N={N_LONG}, S={S_LONG}",
+                 lambda: tk.tfim_sample_and_flip_sum(w, S_LONG, N_LONG, 3, 4))):
+            split = print_launches(label, call, {
+                "base pass": "flip_base_kernel", "suffix pass": "flip_suffix_rs_kernel",
+                "first suffix pass": "flip_suffix_kernel", "ratio sum": "flip_sum_kernel"})
+            require(split["suffix pass"] > 0 and split["first suffix pass"] == 0,
+                    f"{label}: the suffix pass is the turned-around one")
         print_launches("K2", lambda: fused_gru_bwd.gru_log_prob_bwd(w, samples, g),
                        {"replay": "flip_base_kernel", "reverse sweep": "bwd_sweep_kernel",
                         "weight cotangent": "bwd_weights_kernel",
@@ -1351,6 +1406,8 @@ def main() -> None:
         require(gru_u >= U_FLAG and crnn_u >= U_FLAG, "the flagships are covered")
         require(gru_u >= 91 and crnn_u >= 91,
                 "the K1-K4 and cRNN families take every width to U=91 on an H100")
+        require(gru_u >= 120, "the K1-K4 family takes every width to U=120 on an H100, through "
+                "the turned-around suffix pass to U=56 and the first one past it")
         wide = tuple(t.detach() for t in perturbed_model(pkg, 4, gru_u + 1, 3, dev).weights())
         wide_c = tuple(t.detach() for t in
                        perturbed_model(pkg, 4, crnn_u + 1, 3, dev, cls="CRNNU1").weights())

@@ -44,7 +44,8 @@ __host__ __device__ inline int weight_floats_exact(int u) {
 size_t k2_smem_bytes(int u);       // K2's reverse sweep (also B17's) and weight cotangent
 size_t crnn_sweep_smem_bytes(int u);  // the reverse sweep of B9 and B20 (csrc/fused_gru_bwd.cu)
 size_t flip_base_smem_bytes(int u);
-size_t flip_suffix_smem_bytes(int u);
+size_t flip_suffix_smem_bytes(int u);     // K3/K4/B6's first suffix pass (past U = 56)
+size_t flip_suffix_rs_smem_bytes(int u);  // the turned-around one (0 past U = 56)
 size_t rollout_smem_bytes(int u);  // B19 (csrc/fused_jac.cu)
 
 struct Weights {

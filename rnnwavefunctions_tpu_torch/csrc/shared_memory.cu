@@ -39,7 +39,8 @@ extern "C" int rnnwf_fits_shared_memory(int family, int nx, int u, int device, i
   if (err != cudaSuccess) return static_cast<int>(err);
   size_t need = 0;
   if (family == 0) {
-    need = std::max({k2_smem_bytes(u), flip_base_smem_bytes(u), flip_suffix_smem_bytes(u)});
+    need = std::max({k2_smem_bytes(u), flip_base_smem_bytes(u), flip_suffix_smem_bytes(u),
+                     flip_suffix_rs_smem_bytes(u)});
   } else if (family == 1) {
     size_t needs[kCrnnKernels];
     crnn_needs(u, needs);

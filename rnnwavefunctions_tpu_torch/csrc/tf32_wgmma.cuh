@@ -220,4 +220,116 @@ __device__ __forceinline__ void product_held_a(float (&d)[MT][N / 2],
   pin_all<MT, N>(d);
 }
 
+// ---- The turned-around product of K3/K4/B6's suffix pass (csrc/tfim_flip.cu):
+// d += a . b for the warpgroup's 64 x N tile, N = 24 KS (KS = 1..7): a
+// (64 x 8, TF32) the m16n8k8 A fragment of each warp's 16 rows, in
+// registers; b (8 x N) in shared memory; d[4 cb + 2 rh + v] as above.
+#define RNNWF_ACC4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define RNNWF_ACC12(i) RNNWF_ACC4(i), RNNWF_ACC4((i) + 4), RNNWF_ACC4((i) + 8)
+
+template <int KS>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[12 * KS], const uint32_t (&a)[4],
+                                              uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<1>(float (&d)[12], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+               "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+               : RNNWF_ACC12(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<2>(float (&d)[24], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+               "%17, %18, %19, %20, %21, %22, %23"
+               "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+               : RNNWF_ACC12(0), RNNWF_ACC12(12)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<3>(float (&d)[36], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+               "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35"
+               "}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+               : RNNWF_ACC12(0), RNNWF_ACC12(12), RNNWF_ACC12(24)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<4>(float (&d)[48], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+               "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+               "%47"
+               "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+               : RNNWF_ACC12(0), RNNWF_ACC12(12), RNNWF_ACC12(24), RNNWF_ACC12(36)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<5>(float (&d)[60], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n120k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+               "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+               "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59"
+               "}, {%60, %61, %62, %63}, %64, p, 1, 1;\n}\n"
+               : RNNWF_ACC12(0), RNNWF_ACC12(12), RNNWF_ACC12(24), RNNWF_ACC12(36),
+                 RNNWF_ACC12(48)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<6>(float (&d)[72], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n144k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+               "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+               "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+               "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+               "}, {%72, %73, %74, %75}, %76, p, 1, 1;\n}\n"
+               : RNNWF_ACC12(0), RNNWF_ACC12(12), RNNWF_ACC12(24), RNNWF_ACC12(36),
+                 RNNWF_ACC12(48), RNNWF_ACC12(60)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<7>(float (&d)[84], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %89, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n168k8.f32.tf32.tf32 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+               "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+               "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+               "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+               "%77, %78, %79, %80, %81, %82, %83"
+               "}, {%84, %85, %86, %87}, %88, p, 1, 1;\n}\n"
+               : RNNWF_ACC12(0), RNNWF_ACC12(12), RNNWF_ACC12(24), RNNWF_ACC12(36),
+                 RNNWF_ACC12(48), RNNWF_ACC12(60), RNNWF_ACC12(72)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef RNNWF_ACC12
+#undef RNNWF_ACC4
+
 }  // namespace rnnwf

@@ -41,33 +41,62 @@
 //      log-prob fl[n] and the base log p.  B5 and K1 run
 //      this launch alone and store no history, only the spins (B5) and log p;
 //      the arithmetic is the same code, so B5 draws K3's spins bit for bit.
-//   2. Suffix pass on the tensor cores, a block (one warpgroup) per 32
-//      trajectories that share flip f (so they have one length), blocks
-//      ordered by flip, longest suffix first.  Each site is the product
-//      W_h^T (3U x U) . H^T (U x 32) by wgmma m64n32k8 in TF32, made
-//      float32-accurate by the 3xTF32 split: each operand x = hi + lo with
-//      hi = x with its low 13 mantissa bits cleared and lo = (x - hi) cleared
-//      the same way, and hi.hi + hi.lo + lo.hi accumulated in float32
-//      (lo.hi first, then hi.lo, then hi.hi, each k-step of 8 in turn).
-//      A = W_h^T comes from registers, split there from W_h in shared
-//      memory; B = the states, from shared memory as two operands (the
-//      state, whose TF32 part the tensor cores read, and its remainder lo),
-//      written by the gate update in wgmma's core-matrix layout.  Every gate
-//      is padded to 64 rows (U rounded up to 64), so the r, z and c of a
-//      unit land in the same thread's accumulators and the gate update runs
-//      on them in registers; the accumulators start from b_h.  The head's
-//      two logits are shuffle sums over each warp's units, added over the
-//      warps in order.  Flip f starts from h_hist[f] with input 1 - s_f and
-//      acc = pfx[f-1] + fl[f], then Kahan-adds sites f+1..N-1; the last
-//      flip has an empty suffix.  K3/K4 write the ratio term exp(0.5 (lpf -
-//      lp)); B6 writes lpf itself (the log of a term would be -inf where it
-//      underflows).  Every column of a tile runs the same arithmetic, so a
-//      trajectory's result does not depend on the block or column it lands
-//      in.
+//   2. Suffix pass on the tensor cores, turned around for the H100
+//      (flip_suffix_rs_kernel, where pad8(U) <= 56).  Each site is the
+//      product Gates (64 x N) = H (64 trajectories x Kp) . W_h (Kp x N) by
+//      wgmma m64nNk8 in TF32, made float32-accurate by the 3xTF32 split:
+//      each operand x = hi + lo with hi = x with its low 13 mantissa bits
+//      cleared and lo = (x - hi) cleared the same way, and per k-step of 8
+//      units H_hi.W_lo, then H_lo.W_hi, then H_hi.W_hi accumulated in
+//      float32, starting from b_h.  H is the A operand, from registers: a
+//      thread's states are its A fragments (the tensor cores read their
+//      TF32 part), lo split beside them.  W_h is the B operand, split once
+//      into hi and lo tables that stay in shared memory.  Kp = U rounded up
+//      to 8.  W_h's K rows are ordered so that the A fragment of k-step j
+//      holds, at columns t and t + 4, the units 8 j + 2 t and 8 j + 2 t + 1
+//      of the thread's rows g and g + 8; its N = 3 Kp columns by octet of
+//      units, [r | z | c] blocks of 8 each (168 at U = 50, where the first
+//      design padded each gate to 64 rows: 192).  The thread's accumulators
+//      of columns 8 (3 j + gate) + 2 t + v then hold the gates of those
+//      same units, so the thread that updates h (z h_prev included) already
+//      holds it as the next site's A fragment, and no state leaves its
+//      registers.  A site issues its 3 Kp / 8 wgmmas as one group and
+//      waits once.  The head stays in float32 on the CUDA cores: each
+//      thread sums hw . h over its units in order, two shuffles within the
+//      quad give both logits of its two trajectories, and one lane per
+//      trajectory adds its log-softmax to its Kahan pair while the next
+//      site's products run.  No barrier and no shared-memory store per
+//      site.  Each thread loads its two trajectories' spins a site ahead.
+//      Persistent blocks, one per SM, of kRsGroups warpgroups, each
+//      walking (flip, group of 64) items: flips in order, longest suffix
+//      first, in rounds of the card's warpgroups, every other round
+//      reversed so that the sums of the suffix lengths even out; padding
+//      trajectories repeat the last sample.
+//      Past pad8(U) = 56 the accumulators outgrow the registers, and
+//      flip_suffix_kernel, the first H100 design, stays the path (to the
+//      family's U = 120): a block (one warpgroup) per 32 trajectories of one
+//      flip, W_h^T (3U x U, each gate padded to 64 rows) . H^T (U x 32) by
+//      wgmma m64n32k8, A loaded from a fragment table per k-step, the states
+//      in shared memory, the head summed over the warps after a barrier per
+//      site.  The launch chooses by U alone.
+//      Flip f starts from h_hist[f] with input 1 - s_f and acc = pfx[f-1] +
+//      fl[f], then Kahan-adds sites f+1..N-1; the last flip has an empty
+//      suffix.  K3/K4 write the ratio term exp(0.5 (lpf - lp)); B6 writes
+//      lpf itself (the log of a term would be -inf where it underflows).
+//      Every trajectory of a tile runs the same arithmetic, so its result
+//      does not depend on the block, warpgroup or row it lands in.
+//      Design steps at N=1000, S=64, U=50 (the suffix launch, ms; H100 at
+//      700 W; PERF.md): the first design 12.85; turned around, two
+//      warpgroups a block 7.48-7.54; three (168 registers, 36 bytes
+//      spilled) 7.94-7.96, though 0.58 against 0.66 at N=100, B=500; the
+//      product in two groups of columns, the first group's update under
+//      the second group's products, 9.15-9.21; b_h held in registers 7.88.
 //   3. (K3/K4) A per-sample sum of the N ratio terms in flip order, so the
 //      result does not depend on how blocks were scheduled.
 // The TPU kernel's wavefront groups, lane packing and VMEM spill rings are
 // TPU-only and have no counterpart here.
+#include <algorithm>
+
 #include "gru_common.cuh"
 #include "tf32_wgmma.cuh"
 
@@ -87,7 +116,7 @@ __host__ __device__ inline int base_buffer_floats(int u) {
          2 * kWarp * kBaseP;
 }
 
-// Suffix pass, in this order: the states of the block's trajectories as
+// The first suffix pass, in this order: the states of the block's trajectories as
 // the product's B operand, in two parts (the state and its remainder below
 // TF32, lo), each kTraj x Kp in the 8 x 4 core-matrix layout of wgmma
 // (Kp = U rounded up to 8); W_h^T in the A-fragment order of wgmma
@@ -101,12 +130,33 @@ __host__ __device__ inline int suffix_table_floats(int u) {
   return (pad8(u) / 8) * (3 * ug / kGateRows) * 4 * kWarp * 4 + 6 * ug + 3 * ug + 2 * ug + 4;
 }
 
+// The turned-around suffix pass (launch 2 where pad8(U) <= 8 kRsSteps): KS
+// = pad8(U) / 8 octets of units, N = 24 KS columns, kRsGroups warpgroups
+// per block, each walking items of 64 trajectories.
+constexpr int kRsSteps = 7;
+constexpr int kRsGroups = 2;
+constexpr int kRsTraj = kGateRows;  // trajectories per item (wgmma's M)
+__host__ __device__ inline int rs_steps(int u) { return pad8(u) / 8; }
+
+// In this order: W_h as the B operand in two parts (its TF32 part hi and
+// the remainder lo), each Kp x N in the core-matrix layout (state_at with
+// N columns); the input gates wx[x] + bx [octet][gate][unit of the
+// octet][x]; b_h [octet][gate][unit of the octet]; the head [unit][2]; its
+// bias (2, padded to 4).  Padding entries zero.
+__host__ __device__ inline int rs_table_floats(int ks) { return 24 * ks * 8 * ks; }
+__host__ __device__ inline int rs_floats(int ks) {
+  return 2 * rs_table_floats(ks) + 48 * ks + 24 * ks + 16 * ks + 4;
+}
+
 size_t flip_base_smem_bytes(int u) {
   return sizeof(float) * (weight_floats(u) + base_buffer_floats(u));
 }
 size_t flip_suffix_smem_bytes(int u) {
   return sizeof(float) * (2 * suffix_state_floats(u) + suffix_table_floats(u) +
                           2 * 4 * kTraj * 2);
+}
+size_t flip_suffix_rs_smem_bytes(int u) {
+  return rs_steps(u) <= kRsSteps ? sizeof(float) * rs_floats(rs_steps(u)) : 0;
 }
 
 // What the base pass stores beside log p: nothing (K1, B5), the suffix
@@ -276,9 +326,10 @@ __global__ void flip_base_kernel(int32_t* __restrict__ samples, uint32_t seed,
   }
 }
 
-// kPerFlip: out[b, f] is the flipped configuration's log p (B6), else its
-// ratio term exp(0.5 (lpf - lp)) (K3/K4).  MG: 64-row tiles per gate, U
-// rounded up to 64 MG.
+// The first suffix pass, the path past pad8(U) = 56.  kPerFlip: out[b, f]
+// is the flipped configuration's log p (B6), else its ratio term
+// exp(0.5 (lpf - lp)) (K3/K4).  MG: 64-row tiles per gate, U rounded up to
+// 64 MG.
 template <bool kPerFlip, int MG>
 __global__ void __launch_bounds__(4 * kWarp)
 flip_suffix_kernel(const int32_t* __restrict__ samples, const float* wx, const float* wh,
@@ -442,6 +493,211 @@ flip_suffix_kernel(const int32_t* __restrict__ samples, const float* wx, const f
   }
 }
 
+// One site's products of the turned-around suffix pass, whole warpgroup:
+// d += H . W_h over the KS k-steps, each as H_hi . W_lo, H_lo . W_hi,
+// H_hi . W_hi, all issued as one wgmma group.  h (whose TF32 part the
+// tensor cores read) and lo are the A fragments; the caller waits.
+template <int KS>
+__device__ __forceinline__ void rs_issue(float (&d)[12 * KS], const float (&h)[KS][4],
+                                         const float (&lo)[KS][4], const float* whi,
+                                         const float* wlo) {
+  constexpr uint32_t sbo = 8 * KS * 32;  // bytes between 8-column groups
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    const uint32_t ah[4] = {__float_as_uint(h[j][0]), __float_as_uint(h[j][1]),
+                            __float_as_uint(h[j][2]), __float_as_uint(h[j][3])};
+    const uint32_t al[4] = {__float_as_uint(lo[j][0]), __float_as_uint(lo[j][1]),
+                            __float_as_uint(lo[j][2]), __float_as_uint(lo[j][3])};
+    const uint64_t dhi = smem_desc(whi + j * 64, 128, sbo);
+    const uint64_t dlo = smem_desc(wlo + j * 64, 128, sbo);
+    wgmma_tf32_rs<KS>(d, ah, dlo);
+    wgmma_tf32_rs<KS>(d, al, dhi);
+    wgmma_tf32_rs<KS>(d, ah, dhi);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// The turned-around suffix pass (KS = pad8(U) / 8 <= kRsSteps): out as
+// flip_suffix_kernel's for kPerFlip = per_flip (an argument here, so that
+// the build compiles each KS once).  Warpgroup wg of block b is slot
+// kRsGroups b + wg; the slots walk the (flip, group of 64) items in order
+// of flip, longest suffix first, in rounds of the slots, every other round
+// reversed.
+template <int KS>
+__global__ void __launch_bounds__(kRsGroups * 4 * kWarp, 1)
+flip_suffix_rs_kernel(const int32_t* __restrict__ samples, const float* wx, const float* wh,
+                      const float* bx, const float* bh, const float* hw, const float* hb,
+                      const float* __restrict__ hist, const float* __restrict__ pfx,
+                      const float* __restrict__ fl, const float* __restrict__ lp,
+                      float* __restrict__ out, int b_total, int n_sites, int u, bool per_flip) {
+  constexpr int KP = 8 * KS, TF = 24 * KS * KP;
+  extern __shared__ __align__(16) float smem[];
+  float* whi = smem;
+  float* wlo = whi + TF;
+  float* gxs = wlo + TF;
+  float* bhs = gxs + 48 * KS;
+  float* hws = bhs + 24 * KS;
+  float* hbs = hws + 2 * KP;
+  const int g3 = 3 * u;
+  // entry i of a table is (column n, row k) of state_at(n, k, KP): column
+  // n is gate (n / 8) % 3 of unit 8 (n / 24) + n % 8, row k unit
+  // 8 (k / 8) + 2 (k % 4) + (k / 4) % 2, so that a thread's A fragment of
+  // k-step j holds the units 8 j + 2 t + v whose gates its accumulators hold
+  for (int i = threadIdx.x; i < TF; i += blockDim.x) {
+    const int grp = i / (KP * 8), rem = i - grp * (KP * 8);
+    const int k = 4 * (rem >> 5) + (rem & 3);
+    const int un = 8 * (grp / 3) + ((rem >> 2) & 7);
+    const int uk = 8 * (k >> 3) + 2 * (k & 3) + ((k >> 2) & 1);
+    const float v = (uk < u && un < u) ? wh[uk * g3 + (grp % 3) * u + un] : 0.0f;
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    whi[i] = __uint_as_float(hi);
+    wlo[i] = __uint_as_float(lo);
+  }
+  for (int i = threadIdx.x; i < 24 * KS; i += blockDim.x) {
+    const int unit = 8 * (i / 24) + i % 8, col = ((i / 8) % 3) * u + unit;
+    const bool ok = unit < u;
+    bhs[i] = ok ? bh[col] : 0.0f;
+    gxs[2 * i] = ok ? wx[col] + bx[col] : 0.0f;
+    gxs[2 * i + 1] = ok ? wx[g3 + col] + bx[col] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < 2 * KP; i += blockDim.x) hws[i] = i < 2 * u ? hw[i] : 0.0f;
+  if (threadIdx.x < 2) hbs[threadIdx.x] = hb[threadIdx.x];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = threadIdx.x / (4 * kWarp), warp = (threadIdx.x / kWarp) % 4;
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  // the thread's rows (trajectories) 16 warp + g + 8 rh, and the one whose
+  // Kahan pair it keeps (lanes t and t ^ 2 keep the same)
+  const int r0 = 16 * warp + g, mine = t & 1;
+  const float4* gx4 = reinterpret_cast<const float4*>(gxs) + t;  // [octet][gate][t]
+  const float2* bh2 = reinterpret_cast<const float2*>(bhs) + t;  // [octet][gate][t]
+  const float4* hw4 = reinterpret_cast<const float4*>(hws) + t;  // [octet][t]
+  const float hb0 = hbs[0], hb1 = hbs[1];
+  const int groups = (b_total + kRsTraj - 1) / kRsTraj, items = n_sites * groups;
+  const int slots = gridDim.x * kRsGroups, slot = blockIdx.x * kRsGroups + wg;
+  for (int round = 0;; ++round) {
+    const int item = round * slots + ((round & 1) ? slots - 1 - slot : slot);
+    if (item >= items) break;
+    const int f = item / groups, bt0 = (item - f * groups) * kRsTraj;
+    // padding trajectories repeat the last sample
+    const int32_t* srow[2];
+    float h[KS][4], lo[KS][4], d[12 * KS], x[2], nxt[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int64_t b = min(bt0 + r0 + 8 * rh, b_total - 1);
+      srow[rh] = samples + b * n_sites;
+      x[rh] = 1.0f - static_cast<float>(srow[rh][f]);
+      if (f + 1 < n_sites) nxt[rh] = static_cast<float>(srow[rh][f + 1]);
+      const float* hf = hist + (b * n_sites + f) * u;
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int unit = 8 * j + 2 * t + v;
+          h[j][2 * v + rh] = unit < u ? hf[unit] : 0.0f;
+          lo[j][2 * v + rh] = tf32_lo(h[j][2 * v + rh]);
+        }
+    }
+    // the accumulators start from b_h: d[4 (3 j + gate) + 2 rh + v] is
+    // (row r0 + 8 rh, unit 8 j + 2 t + v) of the gate
+    const auto start_from_bh = [&](int j) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float2 b = bh2[4 * (3 * j + q)];
+        d[4 * (3 * j + q)] = b.x;
+        d[4 * (3 * j + q) + 1] = b.y;
+        d[4 * (3 * j + q) + 2] = b.x;
+        d[4 * (3 * j + q) + 3] = b.y;
+      }
+    };
+#pragma unroll
+    for (int j = 0; j < KS; ++j) start_from_bh(j);
+    const int64_t row_mine = static_cast<int64_t>(min(bt0 + r0 + 8 * mine, b_total - 1)) *
+                             n_sites;
+    float acc = (f > 0 ? pfx[row_mine + f - 1] : 0.0f) + fl[row_mine + f], cmp = 0.0f;
+    // the head's partial sums of the last site [rh][logit], settled while
+    // the next site's products run: summed over the quad, then the lane's
+    // trajectory's log p added to its Kahan pair
+    bool pending = false;
+    float q[2][2] = {}, ptgt = 0.0f;
+    const auto settle = [&] {
+      if (!pending) return;
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+        for (int l = 0; l < 2; ++l) {
+          q[rh][l] += __shfl_xor_sync(0xffffffffu, q[rh][l], 1);
+          q[rh][l] += __shfl_xor_sync(0xffffffffu, q[rh][l], 2);
+        }
+      const float l0 = mine ? q[1][0] : q[0][0], l1 = mine ? q[1][1] : q[0][1];
+      kadd(acc, cmp, logp2(l0 + hb0, l1 + hb1, ptgt));
+      pending = false;
+    };
+
+    for (int n = f + 1; n < n_sites; ++n) {
+      const float tgt[2] = {nxt[0], nxt[1]};  // s_n
+      if (n + 1 < n_sites) {
+        nxt[0] = static_cast<float>(srow[0][n + 1]);
+        nxt[1] = static_cast<float>(srow[1][n + 1]);
+      }
+      rs_issue<KS>(d, h, lo, whi, wlo);
+      settle();
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) { pin(h[j][i]); pin(lo[j][i]); }
+#pragma unroll
+      for (int i = 0; i < 12 * KS; ++i) pin(d[i]);
+      // the gate update on the accumulators; h becomes the next site's A
+      // fragment in place, and the head's partials follow the units in order
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) { q[rh][0] = 0.0f; q[rh][1] = 0.0f; }
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const float4 gr = gx4[4 * (3 * j)], gz = gx4[4 * (3 * j + 1)], gc = gx4[4 * (3 * j + 2)];
+        const float4 hwj = hw4[4 * j];
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const bool real = j + 1 < KS || 8 * j + 2 * t + v < u;  // only the last octet pads
+          const float r0x = v ? gr.z : gr.x, r1x = v ? gr.w : gr.y;
+          const float z0x = v ? gz.z : gz.x, z1x = v ? gz.w : gz.y;
+          const float c0x = v ? gc.z : gc.x, c1x = v ? gc.w : gc.y;
+          const float hw0 = v ? hwj.z : hwj.x, hw1 = v ? hwj.w : hwj.y;
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int i = 2 * rh + v;
+            const bool up_spin = x[rh] > 0.5f;
+            const float rg = sigmoid_tanh((up_spin ? r1x : r0x) + d[4 * (3 * j) + i]);
+            const float zg = sigmoid_tanh((up_spin ? z1x : z0x) + d[4 * (3 * j + 1) + i]);
+            const float cg = tanhf((up_spin ? c1x : c0x) + rg * d[4 * (3 * j + 2) + i]);
+            const float hu = zg * h[j][2 * v + rh] + (1.0f - zg) * cg;
+            const float hv = real ? hu : 0.0f;
+            h[j][2 * v + rh] = hv;
+            lo[j][2 * v + rh] = tf32_lo(hv);
+            q[rh][0] = fmaf(hv, hw0, q[rh][0]);
+            q[rh][1] = fmaf(hv, hw1, q[rh][1]);
+          }
+        }
+        start_from_bh(j);
+      }
+      x[0] = tgt[0];
+      x[1] = tgt[1];
+      ptgt = mine ? tgt[1] : tgt[0];
+      pending = true;
+    }
+    settle();
+    const int b_mine = bt0 + r0 + 8 * mine;
+    if (t < 2 && b_mine < b_total) {
+      const float lpf = acc - cmp;
+      out[row_mine + f] = per_flip ? lpf : expf(0.5f * (lpf - lp[b_mine]));
+    }
+  }
+}
+
 __global__ void flip_sum_kernel(const float* __restrict__ terms, float* __restrict__ ratio,
                                 int b_total, int n_sites) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -477,8 +733,8 @@ inline void weight_ptrs(const float* (&W)[6], const void* wx, const void* wh, co
   W[5] = static_cast<const float*>(hb);
 }
 
-// The suffix pass for MG 64-row tiles per gate (U <= 128; the GRU family's
-// shared memory stops well below).
+// The first suffix pass (past pad8(U) = 56), for MG 64-row tiles per gate
+// (U <= 128; the GRU family's shared memory stops at U = 120).
 template <bool kPerFlip, int MG>
 cudaError_t launch_suffix(void* samples, const float* const* W, void* hist, void* pfx,
                           void* fl, void* lp, void* out, int b_total, int n_sites, int u,
@@ -495,6 +751,58 @@ cudaError_t launch_suffix(void* samples, const float* const* W, void* hist, void
       static_cast<const float*>(fl), static_cast<const float*>(lp), static_cast<float*>(out),
       b_total, n_sites, u);
   return cudaGetLastError();
+}
+
+// The turned-around suffix pass: one block per SM (as many as fit), or
+// fewer where the items do not fill them.
+template <bool kPerFlip, int KS>
+cudaError_t launch_suffix_rs(void* samples, const float* const* W, void* hist, void* pfx,
+                             void* fl, void* lp, void* out, int b_total, int n_sites, int u,
+                             cudaStream_t st) {
+  static_assert(KS <= kRsSteps, "the turned-around suffix pass takes pad8(U) <= 8 kRsSteps");
+  const auto kernel = flip_suffix_rs_kernel<KS>;
+  constexpr int threads = kRsGroups * 4 * kWarp;
+  const size_t smem = sizeof(float) * rs_floats(KS);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, device = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int items = n_sites * ((b_total + kRsTraj - 1) / kRsTraj);
+  const int grid = std::min(per_sm * sms, (items + kRsGroups - 1) / kRsGroups);
+  kernel<<<grid, threads, smem, st>>>(
+      static_cast<const int32_t*>(samples), W[0], W[1], W[2], W[3], W[4], W[5],
+      static_cast<const float*>(hist), static_cast<const float*>(pfx),
+      static_cast<const float*>(fl), static_cast<const float*>(lp), static_cast<float*>(out),
+      b_total, n_sites, u, kPerFlip);
+  return cudaGetLastError();
+}
+
+// Launch 2 by U alone: the turned-around suffix pass at its KS, else
+// flip_suffix_kernel.
+template <bool kPerFlip, int KS = 1>
+cudaError_t launch_suffix_by_u(void* samples, const float* const* W, void* hist, void* pfx,
+                               void* fl, void* lp, void* out, int b_total, int n_sites, int u,
+                               cudaStream_t st) {
+  if constexpr (KS <= kRsSteps) {
+    return rs_steps(u) == KS
+               ? launch_suffix_rs<kPerFlip, KS>(samples, W, hist, pfx, fl, lp, out, b_total,
+                                                n_sites, u, st)
+               : launch_suffix_by_u<kPerFlip, KS + 1>(samples, W, hist, pfx, fl, lp, out,
+                                                      b_total, n_sites, u, st);
+  } else {
+    return pad64(u) == kGateRows
+               ? launch_suffix<kPerFlip, 1>(samples, W, hist, pfx, fl, lp, out, b_total,
+                                            n_sites, u, st)
+               : launch_suffix<kPerFlip, 2>(samples, W, hist, pfx, fl, lp, out, b_total,
+                                            n_sites, u, st);
+  }
 }
 
 // The base pass, then the suffix pass into out (ratio terms, or the per-flip
@@ -516,11 +824,8 @@ int launch_flip(void* samples, uint32_t seed, uint32_t offset, const void* wx,
                                                        offset, W, base, b_total, n_sites, u, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = pad64(u) == kGateRows
-            ? launch_suffix<kPerFlip, 1>(samples, W, hist, pfx, fl, lp, out, b_total, n_sites,
-                                         u, st)
-            : launch_suffix<kPerFlip, 2>(samples, W, hist, pfx, fl, lp, out, b_total, n_sites,
-                                         u, st);
+  err = launch_suffix_by_u<kPerFlip>(samples, W, hist, pfx, fl, lp, out, b_total, n_sites, u,
+                                     st);
   if (err != cudaSuccess || kPerFlip) return static_cast<int>(err);
 
   flip_sum_kernel<<<(b_total + 127) / 128, 128, 0, st>>>(

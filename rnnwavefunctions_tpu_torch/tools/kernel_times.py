@@ -25,10 +25,11 @@ B9's replay and B9 from it; B19 (storing the gates where the checkout
 takes it) and B20 on two random cotangent sets (from B19's stored gates and
 alone where the checkout takes them); B13; B21 on SR-Gram-like systems at
 S=64, 100, 230, 250, 500 and 1000 beside Cholesky, with the path it took where
-the checkout reports one; then K3's, K2's, B16's, B17/B18's,
-B10's, B11's, B14's (alone and from the replay), B9's (alone and from the
-replay) and B20's launches apart by ``torch.profiler`` over 10 calls (B16
-over 3).  The card's name and power limit come first, a JSON line last.
+the checkout reports one; then K3's (at N=100 and at N=1000, S=64), K2's,
+B16's, B17/B18's, B10's, B11's, B14's (alone and from the replay), B9's
+(alone and from the replay) and B20's launches apart by ``torch.profiler``
+over 10 calls (K3 and B16 over 3).  The card's name and power limit come
+first, a JSON line last.
 """
 
 from __future__ import annotations
@@ -165,10 +166,14 @@ def main() -> None:
                                {f"{name} replay": "flip_base_kernel",
                                 f"{name} reverse sweep": "bwd_sweep_kernel",
                                 f"{name} one-warp kernel": "jac_sweep_kernel"}))
-    split.update(_profiled(lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4),
-                           {"K3 base pass": "flip_base_kernel",
-                            "K3 suffix pass": "flip_suffix_kernel",
-                            "K3 ratio sum": "flip_sum_kernel"}))
+    # K3's launches at N=100, B=500 and at N=1000, S=64 (its suffix pass by
+    # either kernel's name: flip_suffix_rs_kernel, or flip_suffix_kernel
+    # past U = 56 and in earlier trees)
+    for name, call in (("K3", lambda: tk.tfim_sample_and_flip_sum(w, 500, 100, 3, 4)),
+                       ("K3 N=1000 S=64", lambda: tk.tfim_sample_and_flip_sum(w, 64, 1000, 3, 4))):
+        split.update(_profiled(call, {f"{name} base pass": "flip_base_kernel",
+                                      f"{name} suffix pass": "flip_suffix",
+                                      f"{name} ratio sum": "flip_sum_kernel"}, calls=3))
     # K2's launches: this tree's stages a-c and the chunk sum, or the one
     # warp-per-sample kernel of earlier trees
     split.update(_profiled(lambda: fused_gru_bwd.gru_log_prob_bwd(w, s, g),

@@ -145,6 +145,38 @@ def test_k4_and_k3_match_plain(cuda, b, n, u):
                zip(tk.tfim_sample_and_flip_sum(w, b, n, 3, 5), (s3, lp3, ratio3)))
 
 
+# the suffix pass's groups of 64 trajectories (one full, one and one more,
+# the N=1000 chain's S=64) and its two paths: the turned-around one to U=56,
+# the first one past it
+SUFFIX_EDGES = [(64, 100, 50), (65, 100, 50), (64, 1000, 50), (65, 100, 56), (65, 100, 57)]
+
+
+@pytest.mark.parametrize("b,n,u", SUFFIX_EDGES)
+def test_flip_suffix_edges_match_plain_wherever_a_sample_lands(cuda, b, n, u):
+    """K4 and B6a against the plain path at the suffix pass's edges, and a
+    batch with its rows permuted: each sample's ratio sum and per-flip log
+    p are the same bits wherever its trajectories land."""
+    w, s = _flip_case(cuda, b, n, u)
+    ratio, lp = tk.tfim_flip_ratio_sum(w, s)
+    lpf, lp6 = tk.tfim_flip_log_probs(w, s)
+    ratio_p, lp_p = tk.flip_ratio_sum_plain(w, s)
+    torch.testing.assert_close(ratio, ratio_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(lp, lp_p, atol=1e-5 * n, rtol=0)
+    torch.testing.assert_close(lpf, tk.per_flip_log_probs_plain(w, s)[0], atol=1e-5 * n, rtol=0)
+    assert torch.equal(lp6, lp)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(b + u)).to(cuda)
+    assert torch.equal(tk.tfim_flip_ratio_sum(w, s[perm].contiguous())[0], ratio[perm])
+    assert torch.equal(tk.tfim_flip_log_probs(w, s[perm].contiguous())[0], lpf[perm])
+
+
+def test_gru_family_covers_every_width_to_120(cuda):
+    """Every U to 120 runs K1-K4 at N=100 and N=1000: the turned-around
+    suffix pass to U=56 and the first suffix pass past it, whose shared
+    memory sets the family's widest, as before the turned-around pass."""
+    for n in (100, 1000):
+        assert all(fused_gru.supports(n, (u,), cuda) for u in range(1, 121))
+
+
 def test_wrappers_reject_cpu_cuda_mix(cuda):
     w = _weights(16, cuda)
     with pytest.raises(ValueError, match="devices"):

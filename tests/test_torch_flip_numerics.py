@@ -5,13 +5,17 @@ known to meet the tolerances before any card runs them.
 * K3/K4/B6's suffix pass multiplies on the tensor cores in TF32 made
   float32-accurate by the 3xTF32 split (``csrc/tfim_flip.cu``): each operand
   x = hi + lo, hi = x with the low 13 mantissa bits cleared, lo = (x - hi)
-  cleared the same way; per k-step of 8 the accumulators (starting from
-  b_h) take W_lo.h_hi, then W_hi.h_lo, then W_hi.h_hi in float32 (W_h^T is
-  the product's A operand, the states its B).  The emulation below runs
-  that scheme for all flips of B=16 chains of N=100 sites at U=50, from its
-  own emulation of the base pass, against ``tfim_flip_log_probs`` of the
-  JAX package (its Pallas kernel in interpret mode, as
-  tests/test_torch_parity.py runs it).
+  cleared the same way; per k-step of 8 units the accumulators (starting
+  from b_h) take h_hi.W_lo, then h_lo.W_hi, then h_hi.W_hi in float32 (the
+  states are the product's A operand, W_h its B; past U=56, W_h^T and the
+  states, the same three terms in the same order).  The emulation below
+  runs that scheme for all flips of B=16 chains of N=100 sites at U=50,
+  from its own emulation of the base pass, against ``tfim_flip_log_probs``
+  of the JAX package (its Pallas kernel in interpret mode, as
+  tests/test_torch_parity.py runs it).  A second test lays the states and
+  W_h out as that suffix pass does, in wgmma's fragments, and checks that
+  the product is the gates and that each thread's accumulators hold the
+  gates of the units its A fragment holds.
 * B19 and the base pass split each site's product over four slices of k,
   each summed in order with fused multiply-adds, the slices then added in
   order (``slice_product``/``slice_update`` in ``csrc/gru_common.cuh``); the
@@ -28,6 +32,7 @@ the port's path imports them.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -217,6 +222,69 @@ def test_tensor_core_flip_scheme_matches_jax():
     # the scheme is not a no-op: TF32 alone is ~3 digits, far from float32
     hi = _tf32(weights[1])
     assert float((hi - weights[1]).abs().max()) > 1e-5
+
+
+def _rs_table(wh, ks):
+    """W_h as the turned-around suffix pass's B operand (Kp x 24 KS):
+    table entry i of ``flip_suffix_rs_kernel`` is (column n, row k) of
+    ``state_at(n, k, Kp)``; column n is gate (n / 8) % 3 of unit
+    8 (n / 24) + n % 8, row k unit 8 (k / 8) + 2 (k % 4) + (k / 4) % 2."""
+    u, kp = wh.shape[0], 8 * ks
+    b = torch.zeros(kp, 24 * ks, dtype=torch.float64)
+    for i in range(24 * ks * kp):
+        grp, rem = divmod(i, kp * 8)
+        k = 4 * (rem >> 5) + (rem & 3)
+        n = 8 * grp + ((rem >> 2) & 7)
+        un = 8 * (grp // 3) + (n & 7)
+        uk = 8 * (k >> 3) + 2 * (k & 3) + ((k >> 2) & 1)
+        assert (grp * kp * 8 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3)) == i  # state_at
+        if uk < u and un < u:
+            b[k, n] = float(wh[uk, (grp % 3) * u + un])
+    return b
+
+
+@pytest.mark.parametrize("u", [7, 16, 41, 50, 56])
+def test_turned_around_tile_holds_each_state_in_its_thread(u):
+    """The states of 64 trajectories as wgmma's A fragments (thread (w, g,
+    t) holds rows 16 w + g (+8) and, for k-step j, columns t and t + 4,
+    the units 8 j + 2 t and 8 j + 2 t + 1) times the table give the gates
+    H W_h, and accumulator 4 (3 j + gate) + 2 rh + v of that thread (row
+    16 w + g + 8 rh, column 8 (3 j + gate) + 2 t + v) is that gate of unit
+    8 j + 2 t + v: the unit whose state its A fragment holds as element
+    2 v + rh."""
+    ks = -(-u // 8)
+    kp = 8 * ks
+    gen = torch.Generator().manual_seed(u)
+    wh = torch.randn(u, 3 * u, generator=gen, dtype=torch.float64)
+    h = torch.randn(64, u, generator=gen, dtype=torch.float64)
+    a = torch.full((64, kp), float("nan"), dtype=torch.float64)
+    held = {}  # (row, unit) -> (thread, element) of the A fragments
+    for w in range(4):
+        for g in range(8):
+            for t in range(4):
+                for j in range(ks):
+                    for e in range(4):
+                        rh, v = e & 1, e >> 1
+                        row, col, unit = 16 * w + g + 8 * rh, 8 * j + t + 4 * v, 8 * j + 2 * t + v
+                        a[row, col] = h[row, unit] if unit < u else 0.0
+                        held[(row, unit)] = ((w, g, t), (j, e))
+    assert not bool(a.isnan().any())
+    d = a @ _rs_table(wh, ks)
+    gates = h @ wh
+    for w in range(4):
+        for g in range(8):
+            for t in range(4):
+                for cb in range(3 * ks):
+                    j, gate = divmod(cb, 3)
+                    for rh in range(2):
+                        for v in range(2):
+                            row, unit = 16 * w + g + 8 * rh, 8 * j + 2 * t + v
+                            got = d[row, 8 * cb + 2 * t + v]
+                            if unit >= u:
+                                assert got == 0.0
+                                continue
+                            assert held[(row, unit)] == ((w, g, t), (j, 2 * v + rh))
+                            torch.testing.assert_close(got, gates[row, gate * u + unit])
 
 
 def test_sliced_rollout_matches_jax():
