@@ -59,7 +59,7 @@ def own_path(cell, record: FirstSteps, precision: Precision = FP32,
         out.samples.append(samples)
         out.log_prob.append(lp)
         out.e_loc.append(e_loc)
-        out.energies.append(float(e_loc.mean().real))
+        out.energies.append(complex(e_loc.mean()))
         out.params.append(params)
         if out.first is None:
             out.first = direction

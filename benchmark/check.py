@@ -15,7 +15,9 @@ compared (``readings``):
 * ``eloc_gap``: the largest local-energy gap over the samples of every
   update, over the update's mean |E_loc|;
 * ``energy_gap``: the largest gap of the mean energy ``fit`` reported, over
-  the reference's |mean energy|;
+  the reference's |mean energy|, both as complex numbers (a real
+  ansatz's with an imaginary part of 0), so that a complex ansatz's
+  imaginary part is judged too;
 * ``grad_gap``: the first update's direction as the optimizer got it (the
   loss gradient, or the minSR direction), by the worst leaf: the gap of the
   two norms over the larger of the reference leaf's norm and the median
@@ -25,7 +27,7 @@ compared (``readings``):
   the same measure, over the leaves whose reference gradient is at least
   a thousandth of the median leaf's (a smaller one moves under Adam by
   round-off alone);
-* ``nonfinite``: the window's mean energies that are not finite.
+* ``nonfinite``: the window's mean energies with a part that is not finite.
 
 The configuration names the reference's modules (``reference`` in its
 file): ``model`` (``log_prob``), ``hamiltonian`` (``local_energy``) and
@@ -35,6 +37,7 @@ file): ``model`` (``log_prob``), ``hamiltonian`` (``local_energy``) and
 
 from __future__ import annotations
 
+import cmath
 import dataclasses
 import importlib
 import math
@@ -116,7 +119,7 @@ def follow(config: Dict, traffic: Dict, record: FirstSteps,
         out.samples.append(samples)
         out.log_prob.append(lp)
         out.e_loc.append(e_loc)
-        out.energies.append(float(e_loc.mean().real))
+        out.energies.append(complex(e_loc.mean()))
         out.params.append({k: record.params0[k] + change[k] for k in change})
         if out.first is None:
             out.first = direction
@@ -155,14 +158,15 @@ def by_leaf(got: FirstSteps, ref: FirstSteps) -> Dict[str, Dict[str, float]]:
             "update": _leaf_gaps(_change(got), _change(ref), moved)}
 
 
-def readings(got: FirstSteps, ref: FirstSteps, window_energies: List[float]) -> Dict[str, float]:
+def readings(got: FirstSteps, ref: FirstSteps, window_energies: List[complex]
+             ) -> Dict[str, float]:
     """The numbers compared: ``got`` is the program's record (or the
     control's), ``ref`` the reference's."""
     logp = max(float((a - b).abs().max()) for a, b in zip(got.log_prob, ref.log_prob))
     eloc = max(float((a - b).abs().max() / b.abs().mean()) for a, b in zip(got.e_loc, ref.e_loc))
     energy = max(abs(a - b) / abs(b) for a, b in zip(got.energies, ref.energies))
     leaves = by_leaf(got, ref)
-    nonfinite = sum(1 for e in window_energies if not math.isfinite(e))
+    nonfinite = sum(1 for e in window_energies if not cmath.isfinite(e))
     return {"logp_gap": logp, "eloc_gap": eloc, "energy_gap": energy,
             "grad_gap": max(leaves["grad"].values()),
             "update_gap": max(leaves["update"].values()), "nonfinite": float(nonfinite)}
@@ -197,7 +201,7 @@ def by_step(got: FirstSteps, ref: FirstSteps) -> Dict[str, List[float]]:
             "energy_gap": [abs(a - b) / abs(b) for a, b in zip(got.energies, ref.energies)]}
 
 
-def decide(config: Dict, traffic: Dict, record: FirstSteps, window_energies: List[float],
+def decide(config: Dict, traffic: Dict, record: FirstSteps, window_energies: List[complex],
            limits: Dict[str, float]) -> Verdict:
     values = readings(record, follow(config, traffic, record), window_energies)
     return Verdict(judge(values, limits), values, limits)

@@ -23,12 +23,13 @@ spans gives no names and no boundaries.
 
 ``readings`` turns that into five per-layer numbers: ``minsr_rows_ms_per_step``,
 ``minsr_solve_ms_per_step``, ``optimizer_ms_per_step``, ``launches_per_step``
-and ``boundary_idle_ms_per_block``.  ``benchmark.run`` does not call this
-module; run it alone on a machine with a card,
+and ``boundary_idle_ms_per_block``.  ``benchmark.run --trace 1`` puts
+``summarize``'s output in the summary as ``program``, and each of the five
+has its reader, ``metrics/<name>.py``.  Run alone on a machine with a card,
 
     python3 -m benchmark.program_spans --workload <cell> --seed <n> --seconds <s>
 
-to profile the cell's window as ``benchmark.run --trace 1`` does and print
+it profiles the cell's window as ``benchmark.run --trace 1`` does and prints
 one JSON line: the readings, and beside them the per-layer metrics the cell
 reports, from the same window.
 """
@@ -167,7 +168,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     import torch
 
-    from . import roofline, run
+    from . import run
     from . import trace as tracing
     from .spec import load_cell, metric_reader
 
@@ -187,15 +188,12 @@ def main(argv=None) -> int:
     with tracing.traced(True) as prof:
         with tracing.window_range():
             run.run_window(trainer, state, args.seconds, log_every, torch.cuda.synchronize)
-    events = tracing.events_of(prof)
-    summary = tracing.summarize(events)
-    summary["least_s"] = roofline.least_s(roofline.step_work(cell.config, cell.traffic))
-    program = summarize(events)
+    summary = run.traced_summary(cell, tracing.events_of(prof))
     print(json.dumps({
         "workload": args.workload, "seed": args.seed,
-        "readings": readings(program),
+        "readings": readings(summary["program"]),
         "metrics": {m["name"]: metric_reader(m["name"])(summary) for m in cell.per_layer},
-        "spans": program["spans"],
+        "spans": summary["program"]["spans"],
     }), flush=True)
     return 0
 

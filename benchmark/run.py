@@ -13,7 +13,10 @@ after another; each block ends in ``decode_metrics_block``'s single
 device-to-host copy, and the window ends at the first block boundary after
 ``--seconds``.  ``--trace 1`` runs the same window under the profiler with
 the benchmark's ranges around the trainer's layers (``trace.py``) and
-reports the per-layer metrics in place of the end-to-end ones.
+reports the per-layer metrics in place of the end-to-end ones, read from
+the window's events by those ranges and by the program's own spans
+(``program_spans.py``).  A complex ansatz's mean energies are kept and
+judged as complex numbers.
 
 After the window: the peak device memory, a check that no JAX module was
 loaded, then the reference's check of the recorded updates
@@ -42,6 +45,7 @@ def _process_age_s() -> float:
 T_START = time.perf_counter() - _process_age_s()
 
 import argparse  # noqa: E402
+import cmath  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
@@ -65,7 +69,7 @@ class Window:
     steps: int
     seconds: float
     block_s: List[float]
-    energies: List[float]
+    energies: List[complex]  # fit's mean energies: complex for a complex ansatz
 
 
 def run_window(trainer, state, seconds: float, log_every: int, sync: Callable) -> Window:
@@ -101,7 +105,7 @@ def set_up(cell, seed: int, device, plant: Optional[Callable] = None, phases=Non
     log_every = traffic["log_every"]
     state, mean_energy, _ = trainer.fit(log_every, state, log_every=log_every)
     record = recorder.remove()
-    record.energies = [float(e) for e in mean_energy[:traffic["check_steps"]]]
+    record.energies = [complex(e) for e in mean_energy[:traffic["check_steps"]]]
     mark("first block")
     return trainer, state, record
 
@@ -129,6 +133,19 @@ def _finite(x: float):
     return x if math.isfinite(x) else None
 
 
+def traced_summary(cell, events) -> Dict:
+    """What the per-layer metrics read of a traced window's events:
+    ``trace.summarize``'s numbers, the step's least time (``least_s``) and
+    the program's own spans (``program``, ``program_spans.summarize``)."""
+    from . import program_spans, roofline
+    from . import trace as tracing
+
+    summary = tracing.summarize(events)
+    summary["least_s"] = roofline.least_s(roofline.step_work(cell.config, cell.traffic))
+    summary["program"] = program_spans.summarize(events)
+    return summary
+
+
 def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
              plant: Optional[Callable] = None, t_start: Optional[float] = None,
              phases: Optional[Phases] = None) -> Dict:
@@ -137,7 +154,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     path and reads no device number."""
     import torch
 
-    from . import check, roofline
+    from . import check
     from . import trace as tracing
     from .spec import metric_reader
 
@@ -168,9 +185,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
                    "count": 1, "memory_peak_bytes": memory_peak}
     breakdown = None
     if trace:
-        summary = tracing.summarize(tracing.events_of(prof))
+        events = tracing.events_of(prof)
         del prof
-        summary["least_s"] = roofline.least_s(roofline.step_work(cell.config, cell.traffic))
+        summary = traced_summary(cell, events)
+        del events
         metrics = {}
         for m in cell.per_layer:
             value = metric_reader(m["name"])(summary)
@@ -195,7 +213,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     result = {
         "correct": verdict.correct,
         "attempted": window.steps,
-        "failed": sum(1 for e in window.energies if not math.isfinite(e)),
+        "failed": sum(1 for e in window.energies if not cmath.isfinite(e)),
         "metrics": metrics,
         "device": device_info,
     }

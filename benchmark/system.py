@@ -96,7 +96,8 @@ class FirstSteps:
     update the drawn samples, their log p and local energies as the
     estimator returned them, and the parameters after it; the first
     direction as the optimizer got it; and (``energies``, set by the
-    caller) the mean energies that ``fit`` reported."""
+    caller) the mean energies that ``fit`` reported, as complex numbers
+    (a real ansatz's with an imaginary part of 0)."""
 
     params0: Params
     steps: int
@@ -105,7 +106,7 @@ class FirstSteps:
     e_loc: List[torch.Tensor] = dataclasses.field(default_factory=list)
     params: List[Params] = dataclasses.field(default_factory=list)
     first: Optional[Params] = None
-    energies: List[float] = dataclasses.field(default_factory=list)
+    energies: List[complex] = dataclasses.field(default_factory=list)
 
 
 class Recorder:
