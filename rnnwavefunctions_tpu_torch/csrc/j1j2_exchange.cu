@@ -65,7 +65,10 @@
 //      the base pass's own; its flipped terms come from it).  Each site is
 //      the product W_h^T (3U x U) . H^T (U x 32) by wgmma m64n32k8 in
 //      3xTF32 (tf32_wgmma.cuh; each gate padded to 64 rows, so a unit's r,
-//      z, c land in one thread's accumulators, which start from b_h); the
+//      z, c land in one thread's accumulators, which start from b_h), both
+//      operands split to nearest (split_tf32_nearest: a truncating split
+//      shrinks every product, which biases the ratios of long suffixes
+//      alike, ~4e-5 of E_loc at 1000 sites); the
 //      four logits of a trajectory are shuffle sums over each warp's units,
 //      added over the warps in order; warp 3's lane t keeps trajectory t's
 //      up-count and two Kahan pairs and applies the U(1) mask with that
@@ -98,7 +101,8 @@ __host__ __device__ inline int ex_base_buffer_floats(int u) {
 }
 
 // Suffix pass, in this order: the states of the block's trajectories as the
-// product's B operand in two parts (the state and its remainder below TF32),
+// product's B operand in two parts (the state rounded to TF32 and its exact
+// remainder, whose sum is the state),
 // each kExTraj x Kp in wgmma's core-matrix layout (Kp = U rounded up to 8);
 // W_h^T in wgmma's A-fragment order (Kp/8 k-steps x 3 Ug/64 tiles x 4 warps
 // x 32 lanes x 4, Ug = U rounded up to 64); the input gates wx[x] + bx for
@@ -501,14 +505,16 @@ exchange_suffix_kernel(const int32_t* __restrict__ samples, WeightPtrs wp, Bonds
     hbs[threadIdx.x] = wp.p[5][threadIdx.x];
     hbs[2 + threadIdx.x] = wp.p[7][threadIdx.x];
   }
-  // the trajectories' states h[a] and their remainders below TF32,
+  // the trajectories' states h[a] as their TF32 part rounded to nearest and
+  // its exact remainder (split_tf32_nearest; their sum is the state),
   // zero-padded to kp units; padding columns repeat the last listed term
   for (int i = threadIdx.x; i < kExTraj * kp; i += blockDim.x) {
     const int n = i / kp, k = i - n * kp;
     const int b = list[min(t0 + n, count - 1)] % b_total;
     const float v = k < u ? in.hist[(static_cast<int64_t>(b) * n_sites + a) * u + k] : 0.0f;
-    states[state_at(n, k, kp)] = v;
-    states[sf + state_at(n, k, kp)] = tf32_lo(v);
+    const float hi = round_tf32(v);
+    states[state_at(n, k, kp)] = hi;
+    states[sf + state_at(n, k, kp)] = v - hi;
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
@@ -559,8 +565,8 @@ exchange_suffix_kernel(const int32_t* __restrict__ samples, WeightPtrs wp, Bonds
 #pragma unroll
       for (int i = 0; i < 16; ++i) pin(d[m][i]);
     }
-    product_k_steps<MT, kExTraj>(d, wfrag, states, states + sf, kp * 32, 0, ks_n, warp, lane,
-                                 [] {});
+    product_k_steps<MT, kExTraj, true>(d, wfrag, states, states + sf, kp * 32, 0, ks_n, warp,
+                                       lane, [] {});
     // the gate update on the accumulators: the r, z, c of a unit are the
     // same register of tiles mg, MG + mg, 2 MG + mg
     float q[4][8];
@@ -587,10 +593,11 @@ exchange_suffix_kernel(const int32_t* __restrict__ samples, WeightPtrs wp, Bonds
           const float zg = sigmoid_tanh((up_spin ? gx1[1] : gx0[1]) + d[MG + mg][i]);
           const float cg = tanhf((up_spin ? gx1[2] : gx0[2]) + rg * d[2 * MG + mg][i]);
           // in place: only this thread reads or writes the element here
-          const float hu = zg * states[at] + (1.0f - zg) * cg;
+          const float hu = zg * (states[at] + states[sf + at]) + (1.0f - zg) * cg;
           const float hv = unit < u ? hu : 0.0f;
-          states[at] = hv;
-          states[sf + at] = tf32_lo(hv);
+          const float hi = round_tf32(hv);
+          states[at] = hi;
+          states[sf + at] = hv - hi;
           q[0][e] = fmaf(hv, hw.x, q[0][e]);
           q[1][e] = fmaf(hv, hw.y, q[1][e]);
           q[2][e] = fmaf(hv, hw.z, q[2][e]);

@@ -4,7 +4,8 @@
 // (csrc/mdrnn_flip.cu).
 //
 // Each operand x = hi + lo, with hi = x with its low 13 mantissa bits
-// cleared and lo = (x - hi) cleared the same way; a k-step of 8 takes
+// cleared and lo = (x - hi) cleared the same way (B10/B11: hi rounded to
+// nearest, split_tf32_nearest); a k-step of 8 takes
 // lo.hi, then hi.lo, then hi.hi into float32 accumulators.  A (64 rows per
 // tile, the weights) comes from registers in the m16n8k8 A-fragment order
 // of each warp's 16 rows, loaded per k-step from a fragment table in
@@ -33,6 +34,24 @@ __host__ __device__ inline int pad64(int u) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(x) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// x rounded to TF32 to nearest (ties away from zero), as a float.
+__device__ __forceinline__ float round_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// x = hi + lo to nearest: hi is x rounded to TF32, lo the exact remainder
+// x - hi, whose TF32 part (its low 13 bits ignored) the tensor cores read.
+// split_tf32's two cuts both round towards zero, so every operand, and every
+// product, comes out a little short of its value, by ~2^-21 on average: a
+// bias that sums over the sites of a long suffix (~4e-5 of the J1-J2 local
+// energy at 1000 sites).  Here lo takes either sign, so its cut and the
+// dropped lo.lo are unbiased.
+__device__ __forceinline__ void split_tf32_nearest(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = round_tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(x - h);
 }
 
 // The remainder lo of split_tf32, as a float.
@@ -84,18 +103,24 @@ __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memo
 __device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // The A fragments of k-step ks for the MT tiles, one 16-byte load per tile
-// from the fragment table, split in registers.
-template <int MT>
+// from the fragment table, split in registers (kNearest: split_tf32_nearest,
+// for a B operand stored as its rounded part and exact remainder).
+template <int MT, bool kNearest = false>
 __device__ __forceinline__ void load_a(const float* wfrag, int ks, int warp, int lane,
                                        uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     const float4 a =
         reinterpret_cast<const float4*>(wfrag)[((ks * MT + m) * 4 + warp) * 32 + lane];
-    split_tf32(a.x, hi[m][0], lo[m][0]);
-    split_tf32(a.y, hi[m][1], lo[m][1]);
-    split_tf32(a.z, hi[m][2], lo[m][2]);
-    split_tf32(a.w, hi[m][3], lo[m][3]);
+    const float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kNearest) {
+        split_tf32_nearest(v[i], hi[m][i], lo[m][i]);
+      } else {
+        split_tf32(v[i], hi[m][i], lo[m][i]);
+      }
+    }
   }
 }
 
@@ -142,24 +167,24 @@ __device__ __forceinline__ void pin_all(float (&d)[MT][N / 2]) {
 // two fragment sets, so that the loads of one k-step overlap the previous
 // k-step's products.  after_issue() runs once, while the first k-step's
 // products are in flight.  Returns with every product done and d readable.
-template <int MT, int N, typename AfterIssue>
+template <int MT, int N, bool kNearest = false, typename AfterIssue>
 __device__ __forceinline__ void product_k_steps(float (&d)[MT][N / 2], const float* wfrag,
                                                 const float* b_hi, const float* b_lo,
                                                 uint32_t sbo, int ks0, int ks1, int warp,
                                                 int lane, AfterIssue&& after_issue) {
   uint32_t hi0[MT][4], lo0[MT][4], hi1[MT][4] = {}, lo1[MT][4] = {};
-  load_a<MT>(wfrag, ks0, warp, lane, hi0, lo0);
+  load_a<MT, kNearest>(wfrag, ks0, warp, lane, hi0, lo0);
   for (int ks = ks0; ks < ks1; ks += 2) {
     issue_k_step<MT, N>(d, hi0, lo0, b_hi, b_lo, sbo, ks);
     if (ks == ks0) after_issue();
     if (ks + 1 < ks1) {
       wait_groups<1, MT>(hi1, lo1);
-      load_a<MT>(wfrag, ks + 1, warp, lane, hi1, lo1);
+      load_a<MT, kNearest>(wfrag, ks + 1, warp, lane, hi1, lo1);
       issue_k_step<MT, N>(d, hi1, lo1, b_hi, b_lo, sbo, ks + 1);
     }
     if (ks + 2 < ks1) {
       wait_groups<1, MT>(hi0, lo0);
-      load_a<MT>(wfrag, ks + 2, warp, lane, hi0, lo0);
+      load_a<MT, kNearest>(wfrag, ks + 2, warp, lane, hi0, lo0);
     }
   }
   wait_groups<0, MT>(hi0, lo0);

@@ -35,7 +35,8 @@ over their leading axis.
 
 The phases run inside the spans of ``utils/trace.py`` (``rnnwf.block``,
 ``rnnwf.step``, ``rnnwf.sample_energy``, ``rnnwf.key_draw``,
-``rnnwf.gradient``, ``rnnwf.minsr`` and its parts, ``rnnwf.optimizer``,
+``rnnwf.gradient`` with its forward ``rnnwf.gradient.forward``,
+``rnnwf.minsr`` and its parts, ``rnnwf.optimizer``,
 ``rnnwf.readback``): profiler ranges while a profiler runs, one check
 otherwise.
 """
@@ -254,8 +255,9 @@ class VMCTrainer:
             self._set_minsr_direction(samples, e_loc, e_im, e_mean, e_im_mean)
         else:
             with span("rnnwf.gradient"):
-                la_re, la_im = (self.ansatz.log_amp_parts(samples) if is_complex
-                                else (self.ansatz.log_amp(samples), None))
+                with span("rnnwf.gradient.forward"):
+                    la_re, la_im = (self.ansatz.log_amp_parts(samples) if is_complex
+                                    else (self.ansatz.log_amp(samples), None))
                 surrogate_loss(la_re, la_im, e_loc, e_im, e_mean, e_im_mean).backward()
         lr = self.schedule(state.step)
         for group in state.optimizer.param_groups:

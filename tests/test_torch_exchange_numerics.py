@@ -14,7 +14,8 @@ tolerances before any card runs them.
   the wraps, in one list; padding columns repeat the last listed term),
   starts each at site a+1 from h[a] with input 1 - s_a, up-count
   cup[a] + 1 - s_a and the sums pfx[a-1] + fl[a], and multiplies on the
-  tensor cores in TF32 made float32-accurate by the 3xTF32 split; each
+  tensor cores in TF32 made float32-accurate by the 3xTF32 split, each
+  operand rounded to TF32 to nearest with its exact remainder; each
   column keeps its own second flip site, up-count and U(1) mask.
 
 The JAX kernel recomputes site a from h[a-1]; the emulation takes site a's
@@ -44,6 +45,7 @@ from test_torch_flip_numerics import (
     _pad_gates,
     _sigmoid,
     _sliced_sums,
+    _split_nearest,
     _tensor_core_sums,
 )
 
@@ -127,7 +129,7 @@ def _emulated_exchange(weights, samples, u1, el_nn, el_nnn, has_nnn, periodic):
         im = base["fl_im"][bs, a] + (base["pfx_im"][bs, a - 1] if a > 0 else 0.0)
         rec, imc = torch.zeros_like(re), torch.zeros_like(im)
         for i in range(a + 1, n):
-            sums = _tensor_core_sums(h, wh_pad, bh_pad, kp)
+            sums = _tensor_core_sums(h, wh_pad, bh_pad, kp, _split_nearest)
             sums = torch.cat([sums[:, q * kp:q * kp + u] for q in range(3)], dim=1)
             gx = wx[x.long()] + bx
             r = _sigmoid(gx[:, :u] + sums[:, :u])

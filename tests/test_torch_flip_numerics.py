@@ -130,6 +130,14 @@ def _split(x):
     return hi, _tf32(x - hi)
 
 
+def _split_nearest(x):
+    """B10/B11's split: hi is x rounded to TF32 to nearest (ties away from
+    zero), lo the exact remainder, of which the tensor cores read the TF32
+    part."""
+    hi = ((x.view(torch.int32) + 4096) & -8192).view(torch.float32)
+    return hi, _tf32(x - hi)
+
+
 def _pad_gates(m, u, up):
     """(..., 3U) -> (..., 3Up): each gate's columns padded with zeros."""
     out = torch.zeros(*m.shape[:-1], 3 * up)
@@ -138,15 +146,16 @@ def _pad_gates(m, u, up):
     return out
 
 
-def _tensor_core_sums(h, wh_pad, bh_pad, up):
+def _tensor_core_sums(h, wh_pad, bh_pad, up, split=_split):
     """The suffix pass's gate accumulators: b_h, then per k-step of 8 the
-    three 3xTF32 products W_lo.h_hi, W_hi.h_lo, W_hi.h_hi in float32."""
+    three 3xTF32 products W_lo.h_hi, W_hi.h_lo, W_hi.h_hi in float32, both
+    operands split by ``split``."""
     hp = torch.zeros(h.shape[0], up)
     hp[:, :h.shape[1]] = h
     acc = bh_pad.expand(h.shape[0], -1).clone()
     for k0 in range(0, up, 8):
-        h_hi, h_lo = _split(hp[:, k0:k0 + 8])
-        w_hi, w_lo = _split(wh_pad[k0:k0 + 8])
+        h_hi, h_lo = split(hp[:, k0:k0 + 8])
+        w_hi, w_lo = split(wh_pad[k0:k0 + 8])
         acc = acc + h_hi @ w_lo
         acc = acc + h_lo @ w_hi
         acc = acc + h_hi @ w_hi
