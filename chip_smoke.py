@@ -43,9 +43,11 @@ Phases (each prints its time; any failure raises and exits non-zero):
 7. The J1-J2 kernels and their plain versions timed with CUDA events, B9's
    replay and B9 from it beside them; B9's four launches (the replay, the
    reverse sweep, the weight cotangent, the chunk sum) and B10's and B11's
-   four (base pass, bond lists, the tensor-core suffix pass, sum) timed
-   apart by ``torch.profiler``; their FP32 and (B10, B11) tensor-core
-   bounds.
+   four (base pass, bond lists, the tensor-core suffix pass, sum; also B11
+   at N=1000, S=64, where the suffix pass must be
+   ``exchange_suffix_rs_kernel``, as at N=100, and the packed tiles'
+   occupancy is printed) timed apart by ``torch.profiler``; their FP32 and
+   (B10, B11) tensor-core bounds.
 8. VMC training of J1-J2 at N=10, J2=0.2, Marshall sign on (500 steps)
    against exact diagonalization; every J1-J2 kernel must have launched
    (B7 by the evaluation of log psi after training, under no_grad).
@@ -892,12 +894,55 @@ def main() -> None:
                         "reverse sweep bwd_sweep_kernel": "bwd_sweep_kernel",
                         "weight cotangent bwd_weights_kernel": "bwd_weights_kernel",
                         "chunk sum sum_partials_kernel": "sum_partials_kernel"})
-        for name in ("B10 j1j2_exchange_offdiag", "B11 j1j2_sample_and_exchange"):
-            print_launches(name.split()[0], pairs[name][0],
-                           {"base pass": "exchange_base_kernel",
-                            "bond lists": "exchange_list_kernel",
-                            "tensor-core suffix pass exchange_suffix_kernel":
-                                "exchange_suffix_kernel", "sum": "exchange_sum_kernel"})
+        # B10/B11's suffix pass runs exchange_suffix_rs_kernel at U <= 56 (the
+        # first design, exchange_suffix_kernel, only past it), here and at the
+        # J1-J2 cell's N=1000, S=64, where the packed tiles' occupancy is printed
+        wl = tuple(t.detach() for t in perturbed_model(pkg, N_LONG, U_FLAG, 8, dev,
+                                                       cls="CRNNU1").weights())
+        long_info = pkg.J1J2(N_LONG, j2=J2_FLAG, marshall_sign=True).exchange_kernel_info
+        s_long, *k11_long = jk.j1j2_sample_and_exchange(wl, S_LONG, N_LONG, 3, 4, u1=True,
+                                                        **long_info)
+        print(f"B11 at N={N_LONG}, S={S_LONG}: packed suffix tiles' occupancy "
+              f"{jk.suffix_occupancy(jk.list_lengths(s_long, **long_info)):.4f}")
+        # B11 against the plain version on its own chains (packed tiles across
+        # start sites, rows joining late, 999-site suffixes): on the cell's
+        # first weights (Glorot, zero biases) with the n1000 test's limits, and
+        # on these perturbed weights within 1e-3 of the largest sum, where both
+        # suffix designs read ~2.2e-4 of it from the plain and ~1.8e-4 from a
+        # float64 plain (the plain float32 ~4.8e-5): the split's rounding over
+        # 999 sites, not the packing; a term misplaced would move a sum by up
+        # to ~0.8.  B10 on B11's chains gives B11's numbers bit for bit.
+        cell = pkg.CRNNU1(N_LONG, (U_FLAG,), device="cpu").init(torch.Generator().manual_seed(5))
+        wg = tuple(t.detach().to(dev) for t in cell.weights())
+        s_cell, *k11_cell = jk.j1j2_sample_and_exchange(wg, S_LONG, N_LONG, 5, 6, u1=True,
+                                                        **long_info)
+        for label, wts, chains, got, rel_tol in (
+                ("the cell's first weights", wg, s_cell, k11_cell, 1e-4),
+                ("the perturbed weights", wl, s_long, k11_long, 1e-3)):
+            k10_long = jk.j1j2_exchange_offdiag(wts, chains, u1=True, **long_info)
+            p_long = jk.exchange_offdiag_plain(wts, chains, u1=True, **long_info)
+            torch.cuda.synchronize()
+            scale = float(torch.complex(*p_long[:2]).abs().max())
+            es = max(max_err(a, b) for a, b in zip(got[:2], p_long[:2]))
+            el = max(max_err(a, b) for a, b in zip(got[2:], p_long[2:]))
+            same = all(bool(torch.equal(a, b)) for a, b in zip(k10_long, got))
+            print(f"B11 at N={N_LONG}, S={S_LONG} on {label} vs plain on its samples: sums "
+                  f"{es:.3e} ({es / scale:.2e} of the largest, tol {rel_tol:.0e}), log psi "
+                  f"{el:.3e} (tol 2e-4); B10 on B11's samples gives B11's numbers bit for bit: "
+                  f"{same}")
+            require(es <= rel_tol * scale and el <= 2e-4 and same,
+                    f"B10/B11 at N={N_LONG} on {label}")
+        for label, call in (
+                ("B10", pairs["B10 j1j2_exchange_offdiag"][0]),
+                ("B11", pairs["B11 j1j2_sample_and_exchange"][0]),
+                (f"B11 at N={N_LONG}, S={S_LONG}", lambda: jk.j1j2_sample_and_exchange(
+                    wl, S_LONG, N_LONG, 3, 4, u1=True, **long_info))):
+            split = print_launches(label, call, {
+                "base pass": "exchange_base_kernel", "bond lists": "exchange_list_kernel",
+                "suffix pass": "exchange_suffix_rs_kernel",
+                "first suffix pass": "exchange_suffix_kernel", "sum": "exchange_sum_kernel"})
+            require(split["suffix pass"] > 0 and split["first suffix pass"] == 0,
+                    f"{label}: the suffix pass is the turned-around one")
 
     # bounds at the main paths' shapes, from this run's inputs
     b_, n_, u_ = S_FLAG, N_FLAG, U_FLAG

@@ -37,6 +37,7 @@ __host__ __device__ inline int crnn_weight_floats(int u) {
 // kernel and used both by its launch and by rnnwf_fits_shared_memory.
 size_t exchange_base_smem_bytes(int u);
 size_t exchange_suffix_smem_bytes(int u);
+size_t exchange_suffix_rs_smem_bytes(int u);  // 0 past pad8(U) = 56
 
 // The eight weight tensors as device pointers, in the layout order.
 struct WeightPtrs {

@@ -54,26 +54,49 @@
 //      (0, N-1), (0, N-2), (1, N-1)) whose bond is anti-aligned, by bond,
 //      then sample (a ballot per 32 samples); the others get a term of
 //      exactly 0 and no work.  The TPU kernel ran every bond and multiplied
-//      the aligned ones by 0.
-//   3. Suffix pass on the tensor cores, a block (one warpgroup) per tile of
-//      32 listed trajectories that share the start site a, so all have one
-//      length N-1-a; tiles run by start site, longest first (the wraps
-//      start at 0 and 1).  NN and NNN trajectories of one start fill one
-//      tile, each column with its own second flip site.  A trajectory
+//      the aligned ones by 0.  The last block to finish (a counter the base
+//      pass zeroes) sums the lists' lengths in start-site order, the packed
+//      offsets that the turned-around suffix pass reads.
+//   3. Suffix pass on the tensor cores.  A trajectory of start site a
 //      starts at site a+1 from h[a] with input 1 - s_a, up-count
 //      cup[a] + 1 - s_a and the sums pfx[a-1] + fl[a] (site a's state is
-//      the base pass's own; its flipped terms come from it).  Each site is
-//      the product W_h^T (3U x U) . H^T (U x 32) by wgmma m64n32k8 in
-//      3xTF32 (tf32_wgmma.cuh; each gate padded to 64 rows, so a unit's r,
-//      z, c land in one thread's accumulators, which start from b_h), both
-//      operands split to nearest (split_tf32_nearest: a truncating split
-//      shrinks every product, which biases the ratios of long suffixes
-//      alike, ~4e-5 of E_loc at 1000 sites); the
-//      four logits of a trajectory are shuffle sums over each warp's units,
-//      added over the warps in order; warp 3's lane t keeps trajectory t's
-//      up-count and two Kahan pairs and applies the U(1) mask with that
-//      count, as crnn_logps does.  Padding columns repeat the tile's last
-//      listed trajectory and write nothing.
+//      the base pass's own; its flipped terms come from it), and keeps its
+//      own second flip site, up-count, two Kahan pairs and U(1) mask.
+//      Every product is 3xTF32 (tf32_wgmma.cuh) with both operands split
+//      to nearest (split_tf32_nearest: a truncating split shrinks every
+//      product, which biases the ratios of long suffixes alike, ~4e-5 of
+//      E_loc at 1000 sites).  Turned around as K3's (csrc/tfim_flip.cu,
+//      exchange_suffix_rs_kernel, where pad8(U) <= 56): a tile is 64
+//      consecutive terms of all start sites' lists taken in start-site
+//      order (the lists' offsets through the list launch's prefix sum of
+//      their lengths), so a tile spans start sites and is full but for the
+//      last.  Each site is Gates (64 x 24 KS) =
+//      H (64 trajectories x Kp) . W_h (Kp x 24 KS) by wgmma m64nNk8, H the
+//      A operand in the registers of the thread that updates it (its part
+//      rounded to TF32 and the exact remainder, whose sum the update
+//      reads), W_h's split tables resident in shared memory, one wgmma
+//      group a site.  Each thread sums the amplitude and phase logits over
+//      its own units in order, two shuffles within the quad give both rows'
+//      four logits, and one lane per trajectory applies the mask and adds
+//      to its Kahan pairs while the next site's products run: no barrier
+//      and no shared-memory store a site.  A row whose start lies past the
+//      tile's first start idles, and adds nothing, until it joins at its
+//      start from h[a] (its L1 line prefetched a site ahead).  Persistent
+//      blocks of kRsGroups warpgroups walk the tiles longest suffix first
+//      in rounds, every other round reversed; the number of tiles is read
+//      on the card.  Past pad8(U) = 56 the first design,
+//      exchange_suffix_kernel, stays the path (to the family's U = 120): a
+//      block (one warpgroup) per tile of 32 listed trajectories of one
+//      start site (tiles run by start site, longest first, the wraps with
+//      sites 0 and 1), each site the product W_h^T (3U x U) . H^T (U x 32)
+//      by wgmma m64n32k8 (each gate padded to 64 rows, so a unit's r, z, c
+//      land in one thread's accumulators, which start from b_h), the four
+//      logits of a trajectory shuffle sums over each warp's units, added
+//      over the warps in order after a barrier, where warp 3's lane t keeps
+//      trajectory t's books.  The launch chooses by U alone.  In both,
+//      padding rows or columns repeat the last listed term and write
+//      nothing, and a trajectory's arithmetic does not depend on its tile
+//      or row.
 //   4. A per-sample sum of the bond terms in a fixed order (NN bonds
 //      ascending, then NNN, then the wraps), as the TPU kernel adds them, so
 //      the result does not depend on how blocks were scheduled.
@@ -119,6 +142,18 @@ size_t exchange_base_smem_bytes(int u) {
   return sizeof(float) * (crnn_weight_floats(u) + ex_base_buffer_floats(u));
 }
 size_t exchange_suffix_smem_bytes(int u) { return sizeof(float) * ex_suffix_floats(u); }
+
+// The turned-around suffix pass, in this order: W_h's two parts and the
+// input gates and b_h as rs_gru_tables lays them out (split to nearest);
+// the heads [octet][t][amplitude | phase][unit 2 t, 2 t + 1 of the octet][2];
+// their biases (amplitude 2, phase 2).  The lists' packed offsets are read
+// from the list launch's scratch, so the size does not depend on N.
+__host__ __device__ inline int ex_rs_floats(int ks) {
+  return 2 * rs_table_floats(ks) + 48 * ks + 24 * ks + 32 * ks + 4;
+}
+size_t exchange_suffix_rs_smem_bytes(int u) {
+  return rs_steps(u) <= kRsSteps ? sizeof(float) * ex_rs_floats(rs_steps(u)) : 0;
+}
 
 // The bond families of one call.
 struct Bonds {
@@ -166,6 +201,7 @@ struct ExBase {
   float* seeds;   // (B, N, 2) [a_n, q_n], the heads' seeds of B9's reverse sweep
   float* lp_re;   // (B,) Re log psi; log |psi|^2 in B8's mode (sampling, kNone)
   float* lp_im;   // (B,) Im log psi
+  int* ticket;    // the list launch's count of finished blocks, zeroed here (kFlip)
 };
 
 // B9's seeds at site n from the amplitude logits' difference d = l0 - l1,
@@ -234,6 +270,9 @@ exchange_base_kernel(int32_t* __restrict__ samples, uint32_t seed, uint32_t offs
   const int64_t arow_mine = static_cast<int64_t>(min(b_mine, b_total - 1)) * (n_sites + 1);
   if constexpr (kStore == ExStore::kReplay) {
     if (ks < kExP && j < u && b_mine < b_total) out.rows[arow_mine * (u + 3) + j] = 0.0f;
+  }
+  if constexpr (kStore == ExStore::kFlip) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *out.ticket = 0;
   }
   __syncthreads();
 
@@ -388,53 +427,90 @@ exchange_base_kernel(int32_t* __restrict__ samples, uint32_t seed, uint32_t offs
   }
 }
 
+// start[a] = the count[a'] of a' < a summed, for a = 0..n (start[n] the
+// total), whole block; count is read past L1, as other blocks wrote it.
+__device__ void exclusive_scan(const int32_t* count, int32_t* start, int n) {
+  __shared__ int warp_sums[32];
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = threadIdx.x * per, hi = min(lo + per, n);
+  int sum = 0;
+  for (int a = lo; a < hi; ++a) sum += __ldcg(count + a);  // other blocks' lengths
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == kWarp - 1) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = incl - sum;
+  for (int w = 0; w < warp; ++w) before += warp_sums[w];
+  for (int a = lo; a < hi; ++a) {
+    start[a] = before;
+    before += __ldcg(count + a);
+  }
+  if (threadIdx.x == blockDim.x - 1) start[n] = before;
+}
+
 // Start site a's list: the terms (k B + b) of the bonds k that start at a,
 // by bond, then sample, whose bond is anti-aligned with a nonzero element;
 // meta[a] is the list's offset in lists (B times the bonds that start
-// before a) and meta[N + a] its length.  The other terms are set to 0.
+// before a), meta[N + a] its length and meta[2 N + a] its packed offset
+// (exclusive_scan, by the last block; ticket, zeroed by the base pass,
+// counts the blocks that have written their lengths).  The other terms
+// are set to 0.
 __global__ void exchange_list_kernel(const int32_t* __restrict__ samples, Bonds bs,
                                      int32_t* __restrict__ lists, int32_t* __restrict__ meta,
-                                     float* __restrict__ terms_re, float* __restrict__ terms_im,
-                                     int b_total, int n_bonds) {
+                                     int* __restrict__ ticket, float* __restrict__ terms_re,
+                                     float* __restrict__ terms_im, int b_total, int n_bonds) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int a = blockIdx.x * kExListWarps + warp;
-  if (a >= bs.n) return;
-  int before = 0;
-  for (int k = lane; k < n_bonds; k += kWarp) {
-    int ka, kb;
-    float el;
-    bond_at(bs, k, ka, kb, el);
-    before += ka < a;
-  }
-  before = __reduce_add_sync(0xffffffffu, before);
-  int32_t* list = lists + static_cast<int64_t>(before) * b_total;
-  int count = 0;
-  for (int k = 0; k < n_bonds; ++k) {
-    int ka, kb;
-    float el;
-    bond_at(bs, k, ka, kb, el);
-    if (ka != a) continue;
-    const int64_t base = static_cast<int64_t>(k) * b_total;
-    for (int b0 = 0; b0 < b_total; b0 += kWarp) {
-      const int b = b0 + lane;
-      bool live = false;
-      if (b < b_total) {
-        const int32_t* s_row = samples + static_cast<int64_t>(b) * bs.n;
-        live = el != 0.0f && kb < bs.n && s_row[a] != s_row[kb];
-        if (!live) {
-          terms_re[base + b] = 0.0f;
-          terms_im[base + b] = 0.0f;
+  if (a < bs.n) {
+    int before = 0;
+    for (int k = lane; k < n_bonds; k += kWarp) {
+      int ka, kb;
+      float el;
+      bond_at(bs, k, ka, kb, el);
+      before += ka < a;
+    }
+    before = __reduce_add_sync(0xffffffffu, before);
+    int32_t* list = lists + static_cast<int64_t>(before) * b_total;
+    int count = 0;
+    for (int k = 0; k < n_bonds; ++k) {
+      int ka, kb;
+      float el;
+      bond_at(bs, k, ka, kb, el);
+      if (ka != a) continue;
+      const int64_t base = static_cast<int64_t>(k) * b_total;
+      for (int b0 = 0; b0 < b_total; b0 += kWarp) {
+        const int b = b0 + lane;
+        bool live = false;
+        if (b < b_total) {
+          const int32_t* s_row = samples + static_cast<int64_t>(b) * bs.n;
+          live = el != 0.0f && kb < bs.n && s_row[a] != s_row[kb];
+          if (!live) {
+            terms_re[base + b] = 0.0f;
+            terms_im[base + b] = 0.0f;
+          }
         }
+        const unsigned mask = __ballot_sync(0xffffffffu, live);
+        if (live) list[count + __popc(mask & ((1u << lane) - 1u))] = static_cast<int32_t>(base + b);
+        count += __popc(mask);
       }
-      const unsigned mask = __ballot_sync(0xffffffffu, live);
-      if (live) list[count + __popc(mask & ((1u << lane) - 1u))] = static_cast<int32_t>(base + b);
-      count += __popc(mask);
+    }
+    if (lane == 0) {
+      meta[a] = before * b_total;
+      meta[bs.n + a] = count;
     }
   }
-  if (lane == 0) {
-    meta[a] = before * b_total;
-    meta[bs.n + a] = count;
-  }
+  // the last block to finish sums the lengths
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (last) exclusive_scan(meta + bs.n, meta + 2 * bs.n, bs.n);
 }
 
 // What the suffix pass reads of the base pass.
@@ -658,6 +734,241 @@ exchange_suffix_kernel(const int32_t* __restrict__ samples, WeightPtrs wp, Bonds
   }
 }
 
+// The start site of packed term p < start[n]: the last a with start[a] <= p
+// (its list is not empty, since start[a + 1] > p).
+__device__ __forceinline__ int start_site_of(const int32_t* start, int n, int p) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (start[mid] <= p) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// The turned-around suffix pass (KS = pad8(U) / 8 <= kRsSteps).  Warpgroup
+// wg of block b is slot kRsGroups b + wg; the slots walk the tiles of 64
+// packed terms in order, longest suffix first, in rounds of the slots,
+// every other round reversed.  Thread (warp, g, t) holds rows 16 warp + g
+// and + 8 (rh = 0, 1) and, of k-step j, the units 8 j + 2 t + v; lanes t
+// and t ^ 2 keep the books of row 16 warp + g + 8 (t & 1), and t < 2 write.
+template <int KS>
+__global__ void __launch_bounds__(kRsGroups * 4 * kWarp, 1)
+exchange_suffix_rs_kernel(const int32_t* __restrict__ samples, WeightPtrs wp, Bonds bs, ExIn in,
+                          const int32_t* __restrict__ lists, const int32_t* __restrict__ meta,
+                          float* __restrict__ terms_re, float* __restrict__ terms_im,
+                          int b_total, int u, int u1) {
+  constexpr int KP = 8 * KS, TF = rs_table_floats(KS);
+  const int n_sites = bs.n;
+  extern __shared__ __align__(16) float smem[];
+  float* whi = smem;
+  float* wlo = whi + TF;
+  float* gxs = wlo + TF;
+  float* bhs = gxs + 48 * KS;
+  float* hds = bhs + 24 * KS;
+  float* hbs = hds + 4 * KP;
+  const int32_t* start = meta + 2 * n_sites;  // the lists' packed offsets
+  rs_gru_tables<KS, true>(whi, wlo, gxs, bhs, wp.p[0], wp.p[1], wp.p[2], wp.p[3], u);
+  // entry ((j 4 + t) 2 + head) 4 + 2 v + l: logit l of head (amplitude,
+  // phase) on unit 8 j + 2 t + v
+  for (int i = threadIdx.x; i < 4 * KP; i += blockDim.x) {
+    const int unit = 8 * (i >> 5) + 2 * ((i >> 3) & 3) + ((i >> 1) & 1);
+    const float* w = (i >> 2) & 1 ? wp.p[6] : wp.p[4];
+    hds[i] = unit < u ? w[2 * unit + (i & 1)] : 0.0f;
+  }
+  if (threadIdx.x < 2) {
+    hbs[threadIdx.x] = wp.p[5][threadIdx.x];
+    hbs[2 + threadIdx.x] = wp.p[7][threadIdx.x];
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = threadIdx.x / (4 * kWarp), warp = (threadIdx.x / kWarp) % 4;
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, mine = t & 1;
+  const float4* gx4 = reinterpret_cast<const float4*>(gxs) + t;      // [octet][gate][t]
+  const float2* bh2 = reinterpret_cast<const float2*>(bhs) + t;      // [octet][gate][t]
+  const float4* hd4 = reinterpret_cast<const float4*>(hds) + 2 * t;  // [octet][t][head]
+  const float hb[4] = {hbs[0], hbs[1], hbs[2], hbs[3]};
+  const int total = start[n_sites];
+  const int tiles = (total + kGateRows - 1) / kGateRows;
+  const int slots = gridDim.x * kRsGroups, slot = blockIdx.x * kRsGroups + wg;
+  for (int round = 0;; ++round) {
+    const int tile = rs_slot_tile(round, slots, slot);
+    if (tile >= tiles) break;
+    const int p0 = tile * kGateRows, a0 = start_site_of(start, n_sites, p0);
+    // the thread's rows: start site, sample, second flip site; padding rows
+    // repeat the last term
+    int at[2], second[2], term[2];
+    int64_t row[2];
+    float el[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int p = min(p0 + r0 + 8 * rh, total - 1);
+      const int a = start_site_of(start, n_sites, p);
+      term[rh] = lists[meta[a] + p - start[a]];
+      int ka;
+      bond_at(bs, term[rh] / b_total, ka, second[rh], el[rh]);
+      at[rh] = a;
+      row[rh] = static_cast<int64_t>(term[rh] % b_total) * n_sites;
+    }
+    // the books of row r0 + 8 mine: its sums from pfx[a-1] + fl[a], its
+    // up-count from cup[a] + 1 - s_a
+    const int am = mine ? at[1] : at[0];
+    const int64_t rm = mine ? row[1] : row[0];
+    float re = (am > 0 ? in.pfx_re[rm + am - 1] : 0.0f) + in.fl_re[rm + am], rec = 0.0f;
+    float im = (am > 0 ? in.pfx_im[rm + am - 1] : 0.0f) + in.fl_im[rm + am], imc = 0.0f;
+    float up = in.cup[rm + am] + (1.0f - static_cast<float>(samples[rm + am]));
+    // the target at site n: s_n, flipped at the second flip site
+    const auto target = [&](int rh, int n) {
+      const float s = static_cast<float>(samples[row[rh] + n]);
+      return n == second[rh] ? 1.0f - s : s;
+    };
+    float h[KS][4], lo[KS][4], d[12 * KS], x[2] = {0.0f, 0.0f};
+    const float nxt0 = target(0, a0 + 1), nxt1 = target(1, a0 + 1);
+    float nxt[2] = {nxt0, nxt1};
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) { h[j][i] = 0.0f; lo[j][i] = 0.0f; }
+    // the accumulators start from b_h: d[4 (3 j + gate) + 2 rh + v] is
+    // (row r0 + 8 rh, unit 8 j + 2 t + v) of the gate
+    const auto start_from_bh = [&](int j) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float2 b = bh2[4 * (3 * j + q)];
+        d[4 * (3 * j + q)] = b.x;
+        d[4 * (3 * j + q) + 1] = b.y;
+        d[4 * (3 * j + q) + 2] = b.x;
+        d[4 * (3 * j + q) + 3] = b.y;
+      }
+    };
+#pragma unroll
+    for (int j = 0; j < KS; ++j) start_from_bh(j);
+    // the four logits' partial sums of the last site [rh][amplitude 2 |
+    // phase 2], settled while the next site's products run: summed over the
+    // quad, then, once the row has joined, its site terms added to the books
+    bool pending = false;
+    int pn = 0;
+    float q[2][4] = {}, ptgt = 0.0f;
+    const auto settle = [&] {
+      if (!pending) return;
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          q[rh][l] += __shfl_xor_sync(0xffffffffu, q[rh][l], 1);
+          q[rh][l] += __shfl_xor_sync(0xffffffffu, q[rh][l], 2);
+        }
+      if (pn > am) {
+        float l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) l[i] = (mine ? q[1][i] : q[0][i]) + hb[i];
+        float lp0, lp1, ph0, ph1;
+        crnn_logps(l[0], l[1], l[2], l[3], pn, up, n_sites, u1 != 0, lp0, lp1, ph0, ph1);
+        const bool one = ptgt > 0.5f;
+        kadd(re, rec, 0.5f * (one ? lp1 : lp0));
+        kadd(im, imc, one ? ph1 : ph0);
+        up += ptgt;
+      }
+      pending = false;
+    };
+
+    for (int n = a0 + 1; n < n_sites; ++n) {
+      // rows of start n - 1 join: h[n-1], its part rounded to TF32 and the
+      // exact remainder, and input 1 - s_{n-1}
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        if (at[rh] == n - 1) {
+          const float* hf = in.hist + (row[rh] + n - 1) * u;
+#pragma unroll
+          for (int j = 0; j < KS; ++j)
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const int unit = 8 * j + 2 * t + v;
+              const float val = unit < u ? hf[unit] : 0.0f;
+              const float hi = round_tf32(val);
+              h[j][2 * v + rh] = hi;
+              lo[j][2 * v + rh] = val - hi;
+            }
+          x[rh] = 1.0f - static_cast<float>(samples[row[rh] + n - 1]);
+        } else if (at[rh] == n) {
+          const float* hf = in.hist + (row[rh] + n) * u + 2 * t;
+#pragma unroll
+          for (int j = 0; j < KS; ++j)
+            asm volatile("prefetch.global.L1 [%0];\n" ::"l"(hf + 8 * j));
+        }
+      }
+      __syncwarp();
+      const float tgt[2] = {nxt[0], nxt[1]};
+      if (n + 1 < n_sites) {
+        nxt[0] = target(0, n + 1);
+        nxt[1] = target(1, n + 1);
+      }
+      rs_issue<KS>(d, h, lo, whi, wlo);
+      settle();
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) { pin(h[j][i]); pin(lo[j][i]); }
+#pragma unroll
+      for (int i = 0; i < 12 * KS; ++i) pin(d[i]);
+      // the gate update on the accumulators, reading the state as hi + lo;
+      // the new state becomes the next site's A fragment in place, and the
+      // logits' partials follow the units in order
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+        for (int l = 0; l < 4; ++l) q[rh][l] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const float4 gr = gx4[4 * (3 * j)], gz = gx4[4 * (3 * j + 1)], gc = gx4[4 * (3 * j + 2)];
+        const float4 ha = hd4[8 * j], hp = hd4[8 * j + 1];
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const bool real = j + 1 < KS || 8 * j + 2 * t + v < u;  // only the last octet pads
+          const float r0x = v ? gr.z : gr.x, r1x = v ? gr.w : gr.y;
+          const float z0x = v ? gz.z : gz.x, z1x = v ? gz.w : gz.y;
+          const float c0x = v ? gc.z : gc.x, c1x = v ? gc.w : gc.y;
+          const float w[4] = {v ? ha.z : ha.x, v ? ha.w : ha.y, v ? hp.z : hp.x,
+                              v ? hp.w : hp.y};
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int i = 2 * rh + v;
+            const bool up_spin = x[rh] > 0.5f;
+            const float rg = sigmoid_tanh((up_spin ? r1x : r0x) + d[4 * (3 * j) + i]);
+            const float zg = sigmoid_tanh((up_spin ? z1x : z0x) + d[4 * (3 * j + 1) + i]);
+            const float cg = tanhf((up_spin ? c1x : c0x) + rg * d[4 * (3 * j + 2) + i]);
+            const float hu = zg * (h[j][2 * v + rh] + lo[j][2 * v + rh]) + (1.0f - zg) * cg;
+            const float hv = real ? hu : 0.0f;
+            const float hi = round_tf32(hv);
+            h[j][2 * v + rh] = hi;
+            lo[j][2 * v + rh] = hv - hi;
+#pragma unroll
+            for (int l = 0; l < 4; ++l) q[rh][l] = fmaf(hv, w[l], q[rh][l]);
+          }
+        }
+        start_from_bh(j);
+      }
+      x[0] = tgt[0];
+      x[1] = tgt[1];
+      ptgt = mine ? tgt[1] : tgt[0];
+      pn = n;
+      pending = true;
+    }
+    settle();
+    if (t < 2 && p0 + r0 + 8 * mine < total) {
+      const int my_term = mine ? term[1] : term[0];
+      const int my_b = my_term % b_total;
+      const float d_re = (re - rec) - in.lp_re[my_b];
+      const float d_im = (im - imc) - in.lp_im[my_b];
+      const float mag = (mine ? el[1] : el[0]) * expf(d_re);
+      terms_re[my_term] = mag * cosf(d_im);
+      terms_im[my_term] = mag * sinf(d_im);
+    }
+  }
+}
+
 __global__ void exchange_sum_kernel(const float* __restrict__ terms_re,
                                     const float* __restrict__ terms_im,
                                     float* __restrict__ eoff_re, float* __restrict__ eoff_im,
@@ -703,6 +1014,51 @@ cudaError_t launch_exchange_suffix(const int32_t* samples, const WeightPtrs& wp,
   return cudaGetLastError();
 }
 
+// The turned-around suffix pass: one block per SM (as many as fit), or
+// fewer where the most tiles the lists could fill do not fill them; the
+// blocks read the number of tiles from the list launch's packed offsets.
+template <int KS>
+cudaError_t launch_exchange_suffix_rs(const int32_t* samples, const WeightPtrs& wp,
+                                      const Bonds& bs, const ExIn& in, const int32_t* lists,
+                                      const int32_t* meta, float* terms_re, float* terms_im,
+                                      int b_total, int n_bonds, int u, int u1,
+                                      cudaStream_t st) {
+  static_assert(KS <= kRsSteps, "the turned-around suffix pass takes pad8(U) <= 8 kRsSteps");
+  const auto kernel = exchange_suffix_rs_kernel<KS>;
+  const size_t smem = exchange_suffix_rs_smem_bytes(8 * KS);
+  int grid = 0;
+  const cudaError_t err = rs_persistent_grid(
+      kernel, smem, (static_cast<int64_t>(n_bonds) * b_total + kGateRows - 1) / kGateRows, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kRsGroups * 4 * kWarp, smem, st>>>(samples, wp, bs, in, lists, meta, terms_re,
+                                                     terms_im, b_total, u, u1);
+  return cudaGetLastError();
+}
+
+// Launch 3 by U alone: the turned-around suffix pass at its KS, else
+// exchange_suffix_kernel with MG 64-row tiles per gate.
+template <int KS = 1>
+cudaError_t launch_exchange_suffix_by_u(const int32_t* samples, const WeightPtrs& wp,
+                                        const Bonds& bs, const ExIn& in, const int32_t* lists,
+                                        const int32_t* meta, float* terms_re, float* terms_im,
+                                        int b_total, int n_bonds, int tiles, int u, int u1,
+                                        cudaStream_t st) {
+  if constexpr (KS <= kRsSteps) {
+    return rs_steps(u) == KS
+               ? launch_exchange_suffix_rs<KS>(samples, wp, bs, in, lists, meta, terms_re,
+                                               terms_im, b_total, n_bonds, u, u1, st)
+               : launch_exchange_suffix_by_u<KS + 1>(samples, wp, bs, in, lists, meta,
+                                                     terms_re, terms_im, b_total, n_bonds,
+                                                     tiles, u, u1, st);
+  } else {
+    return pad64(u) == kGateRows
+               ? launch_exchange_suffix<1>(samples, wp, bs, in, lists, meta, terms_re,
+                                           terms_im, b_total, tiles, u, u1, st)
+               : launch_exchange_suffix<2>(samples, wp, bs, in, lists, meta, terms_re,
+                                           terms_im, b_total, tiles, u, u1, st);
+  }
+}
+
 // The most bonds that start at one site, those that start at site 0 (NN,
 // NNN and the wraps (0, N-1), (0, N-2)): the suffix pass gives each start
 // site the blocks of that many lists.
@@ -737,6 +1093,7 @@ int launch_exchange(void* samples_v, uint32_t seed, uint32_t offset, const Weigh
   float* terms_im = terms_re + kb;
   int32_t* lists = static_cast<int32_t*>(order_v);
   int32_t* meta = lists + kb;
+  base.ticket = meta + 3 * n_sites + 1;
   const Bonds bs{n_sites, has_nnn, periodic, el_nn, el_nnn};
 
   cudaError_t err = launch_exchange_base<kSample, ExStore::kFlip>(samples, seed, offset, wp,
@@ -745,7 +1102,8 @@ int launch_exchange(void* samples_v, uint32_t seed, uint32_t offset, const Weigh
   if (err != cudaSuccess) return static_cast<int>(err);
 
   exchange_list_kernel<<<(n_sites + kExListWarps - 1) / kExListWarps, kExListWarps * kWarp, 0,
-                         st>>>(samples, bs, lists, meta, terms_re, terms_im, b_total, n_bonds);
+                         st>>>(samples, bs, lists, meta, base.ticket, terms_re, terms_im, b_total,
+                               n_bonds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -753,11 +1111,8 @@ int launch_exchange(void* samples_v, uint32_t seed, uint32_t offset, const Weigh
   if (tiles > 0) {
     const ExIn in{base.hist, base.pfx_re, base.pfx_im, base.cup, base.fl_re, base.fl_im,
                   base.lp_re, base.lp_im};
-    err = pad64(u) == kGateRows
-              ? launch_exchange_suffix<1>(samples, wp, bs, in, lists, meta, terms_re, terms_im,
-                                          b_total, tiles, u, u1, st)
-              : launch_exchange_suffix<2>(samples, wp, bs, in, lists, meta, terms_re, terms_im,
-                                          b_total, tiles, u, u1, st);
+    err = launch_exchange_suffix_by_u(samples, wp, bs, in, lists, meta, terms_re, terms_im,
+                                      b_total, n_bonds, tiles, u, u1, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
@@ -776,8 +1131,9 @@ extern "C" int rnnwf_j1j2_num_bonds(int n_sites, int has_nnn, int periodic) {
 
 // Scratch (allocated by the caller): hist B*N*U floats; pfx 5*B*N floats
 // (the Re and Im prefixes, the up-counts, site n's flipped Re and Im
-// terms); terms 2*K*B floats; order K*B + 2*N ints (the start sites'
-// lists, then their offsets and lengths), K = rnnwf_j1j2_num_bonds.  out:
+// terms); terms 2*K*B floats; order K*B + 3*N + 2 ints (the start sites'
+// lists, then their offsets, lengths and N + 1 packed offsets, and a
+// counter), K = rnnwf_j1j2_num_bonds.  out:
 // 4*B floats (eoff_re, eoff_im, lp_re, lp_im).  seed and offset are unused.
 extern "C" int rnnwf_j1j2_exchange_offdiag(const void* samples, unsigned int seed,
                                            unsigned int offset, const void* wx, const void* wh,

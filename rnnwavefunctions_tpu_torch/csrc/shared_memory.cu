@@ -16,7 +16,7 @@ constexpr int kCrnnKernels = 4;
 void crnn_needs(int u, size_t (&need)[kCrnnKernels]) {
   using namespace rnnwf;
   need[0] = exchange_base_smem_bytes(u);
-  need[1] = exchange_suffix_smem_bytes(u);
+  need[1] = std::max(exchange_suffix_smem_bytes(u), exchange_suffix_rs_smem_bytes(u));
   need[2] = crnn_sweep_smem_bytes(u);
   need[3] = rollout_smem_bytes(u);
 }

@@ -1,7 +1,10 @@
 // Warpgroup products on the tensor cores in TF32, made float32-accurate by
 // the 3xTF32 split, for the flip and exchange suffix passes: K3/K4/B6
 // (csrc/tfim_flip.cu), B10/B11 (csrc/j1j2_exchange.cu) and B15/B16
-// (csrc/mdrnn_flip.cu).
+// (csrc/mdrnn_flip.cu).  The first H100 design of K3 and B10/B11 (past
+// pad8(U) = 56) and B15/B16 take W_h^T as A and the states as B, below;
+// the turned-around passes the states as A from registers and W_h as B
+// (wgmma_tf32_rs, rs_issue, at the end).
 //
 // Each operand x = hi + lo, with hi = x with its low 13 mantissa bits
 // cleared and lo = (x - hi) cleared the same way (B10/B11: hi rounded to
@@ -356,5 +359,112 @@ __device__ __forceinline__ void wgmma_tf32_rs<7>(float (&d)[84], const uint32_t 
 
 #undef RNNWF_ACC12
 #undef RNNWF_ACC4
+
+// The turned-around suffix passes (K3/K4/B6's flip_suffix_rs_kernel,
+// csrc/tfim_flip.cu; B10/B11's exchange_suffix_rs_kernel,
+// csrc/j1j2_exchange.cu): KS = pad8(U) / 8 octets of units, N = 24 KS
+// columns, at most kRsSteps (past it the accumulators outgrow the
+// registers), kRsGroups warpgroups a persistent block.
+constexpr int kRsSteps = 7;
+constexpr int kRsGroups = 2;
+__host__ __device__ inline int rs_steps(int u) { return pad8(u) / 8; }
+
+// Floats of W_h's table (one part): Kp x 24 KS.
+__host__ __device__ constexpr int rs_table_floats(int ks) { return 24 * ks * 8 * ks; }
+
+// The item that slot `slot` of `slots` takes in round `round`: the slots
+// walk the items in order, in rounds of the slots, every other round
+// reversed, so that the longest suffixes (first) spread over the card.
+__device__ __forceinline__ int rs_slot_tile(int round, int slots, int slot) {
+  return round * slots + ((round & 1) ? slots - 1 - slot : slot);
+}
+
+// A turned-around pass's persistent grid: as many blocks of kRsGroups
+// warpgroups as fit on the card with `smem` bytes each (set as the
+// kernel's dynamic shared memory), or fewer where `items` would leave
+// slots idle.
+template <typename Kernel>
+inline cudaError_t rs_persistent_grid(Kernel kernel, size_t smem, int64_t items, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, device = 0, sms = 0;
+  constexpr int threads = kRsGroups * 128;  // a warpgroup is 128 threads
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t full = static_cast<int64_t>(per_sm) * sms;
+  const int64_t fill = (items + kRsGroups - 1) / kRsGroups;
+  *grid = static_cast<int>(fill < full ? fill : full);
+  return cudaSuccess;
+}
+
+// W_h as the B operand in two parts (hi, whose TF32 part the tensor cores
+// read, and the remainder lo), each Kp x N in the core-matrix layout
+// (state_at with N columns); the input gates wx[x] + bx [octet][gate][unit
+// of the octet][x]; b_h [octet][gate][unit of the octet]; padding entries
+// zero, whole block.  Entry i of a table is (column n, row k) of
+// state_at(n, k, Kp): column n is gate (n / 8) % 3 of unit 8 (n / 24) +
+// n % 8, row k unit 8 (k / 8) + 2 (k % 4) + (k / 4) % 2, so that a thread's
+// A fragment of k-step j holds the units 8 j + 2 t + v whose gates its
+// accumulators hold.  kNearest: split_tf32_nearest, else split_tf32.
+template <int KS, bool kNearest>
+__device__ __forceinline__ void rs_gru_tables(float* whi, float* wlo, float* gxs, float* bhs,
+                                              const float* wx, const float* wh, const float* bx,
+                                              const float* bh, int u) {
+  constexpr int KP = 8 * KS;
+  const int g3 = 3 * u;
+  for (int i = threadIdx.x; i < rs_table_floats(KS); i += blockDim.x) {
+    const int grp = i / (KP * 8), rem = i - grp * (KP * 8);
+    const int k = 4 * (rem >> 5) + (rem & 3);
+    const int un = 8 * (grp / 3) + ((rem >> 2) & 7);
+    const int uk = 8 * (k >> 3) + 2 * (k & 3) + ((k >> 2) & 1);
+    const float v = (uk < u && un < u) ? wh[uk * g3 + (grp % 3) * u + un] : 0.0f;
+    uint32_t hi, lo;
+    if constexpr (kNearest) {
+      split_tf32_nearest(v, hi, lo);
+    } else {
+      split_tf32(v, hi, lo);
+    }
+    whi[i] = __uint_as_float(hi);
+    wlo[i] = __uint_as_float(lo);
+  }
+  for (int i = threadIdx.x; i < 24 * KS; i += blockDim.x) {
+    const int unit = 8 * (i / 24) + i % 8, col = ((i / 8) % 3) * u + unit;
+    const bool ok = unit < u;
+    bhs[i] = ok ? bh[col] : 0.0f;
+    gxs[2 * i] = ok ? wx[col] + bx[col] : 0.0f;
+    gxs[2 * i + 1] = ok ? wx[g3 + col] + bx[col] : 0.0f;
+  }
+}
+
+// One site's products of a turned-around suffix pass, whole warpgroup:
+// d += H . W_h over the KS k-steps, each as H_hi . W_lo, H_lo . W_hi,
+// H_hi . W_hi, all issued as one wgmma group.  h (whose TF32 part the
+// tensor cores read) and lo are the A fragments; the caller waits.
+template <int KS>
+__device__ __forceinline__ void rs_issue(float (&d)[12 * KS], const float (&h)[KS][4],
+                                         const float (&lo)[KS][4], const float* whi,
+                                         const float* wlo) {
+  constexpr uint32_t sbo = 8 * KS * 32;  // bytes between 8-column groups
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    const uint32_t ah[4] = {__float_as_uint(h[j][0]), __float_as_uint(h[j][1]),
+                            __float_as_uint(h[j][2]), __float_as_uint(h[j][3])};
+    const uint32_t al[4] = {__float_as_uint(lo[j][0]), __float_as_uint(lo[j][1]),
+                            __float_as_uint(lo[j][2]), __float_as_uint(lo[j][3])};
+    const uint64_t dhi = smem_desc(whi + j * 64, 128, sbo);
+    const uint64_t dlo = smem_desc(wlo + j * 64, 128, sbo);
+    wgmma_tf32_rs<KS>(d, ah, dlo);
+    wgmma_tf32_rs<KS>(d, al, dhi);
+    wgmma_tf32_rs<KS>(d, ah, dhi);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 
 }  // namespace rnnwf

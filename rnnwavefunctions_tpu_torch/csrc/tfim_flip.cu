@@ -95,8 +95,6 @@
 //      result does not depend on how blocks were scheduled.
 // The TPU kernel's wavefront groups, lane packing and VMEM spill rings are
 // TPU-only and have no counterpart here.
-#include <algorithm>
-
 #include "gru_common.cuh"
 #include "tf32_wgmma.cuh"
 
@@ -130,20 +128,14 @@ __host__ __device__ inline int suffix_table_floats(int u) {
   return (pad8(u) / 8) * (3 * ug / kGateRows) * 4 * kWarp * 4 + 6 * ug + 3 * ug + 2 * ug + 4;
 }
 
-// The turned-around suffix pass (launch 2 where pad8(U) <= 8 kRsSteps): KS
-// = pad8(U) / 8 octets of units, N = 24 KS columns, kRsGroups warpgroups
-// per block, each walking items of 64 trajectories.
-constexpr int kRsSteps = 7;
-constexpr int kRsGroups = 2;
+// The turned-around suffix pass (launch 2 where pad8(U) <= 8 kRsSteps,
+// tf32_wgmma.cuh): kRsGroups warpgroups per block, each walking items of
+// 64 trajectories.
 constexpr int kRsTraj = kGateRows;  // trajectories per item (wgmma's M)
-__host__ __device__ inline int rs_steps(int u) { return pad8(u) / 8; }
 
-// In this order: W_h as the B operand in two parts (its TF32 part hi and
-// the remainder lo), each Kp x N in the core-matrix layout (state_at with
-// N columns); the input gates wx[x] + bx [octet][gate][unit of the
-// octet][x]; b_h [octet][gate][unit of the octet]; the head [unit][2]; its
-// bias (2, padded to 4).  Padding entries zero.
-__host__ __device__ inline int rs_table_floats(int ks) { return 24 * ks * 8 * ks; }
+// In this order: W_h's two parts and the input gates and b_h as
+// rs_gru_tables lays them out; the head [unit][2]; its bias (2, padded to
+// 4).  Padding entries zero.
 __host__ __device__ inline int rs_floats(int ks) {
   return 2 * rs_table_floats(ks) + 48 * ks + 24 * ks + 16 * ks + 4;
 }
@@ -493,31 +485,6 @@ flip_suffix_kernel(const int32_t* __restrict__ samples, const float* wx, const f
   }
 }
 
-// One site's products of the turned-around suffix pass, whole warpgroup:
-// d += H . W_h over the KS k-steps, each as H_hi . W_lo, H_lo . W_hi,
-// H_hi . W_hi, all issued as one wgmma group.  h (whose TF32 part the
-// tensor cores read) and lo are the A fragments; the caller waits.
-template <int KS>
-__device__ __forceinline__ void rs_issue(float (&d)[12 * KS], const float (&h)[KS][4],
-                                         const float (&lo)[KS][4], const float* whi,
-                                         const float* wlo) {
-  constexpr uint32_t sbo = 8 * KS * 32;  // bytes between 8-column groups
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-  for (int j = 0; j < KS; ++j) {
-    const uint32_t ah[4] = {__float_as_uint(h[j][0]), __float_as_uint(h[j][1]),
-                            __float_as_uint(h[j][2]), __float_as_uint(h[j][3])};
-    const uint32_t al[4] = {__float_as_uint(lo[j][0]), __float_as_uint(lo[j][1]),
-                            __float_as_uint(lo[j][2]), __float_as_uint(lo[j][3])};
-    const uint64_t dhi = smem_desc(whi + j * 64, 128, sbo);
-    const uint64_t dlo = smem_desc(wlo + j * 64, 128, sbo);
-    wgmma_tf32_rs<KS>(d, ah, dlo);
-    wgmma_tf32_rs<KS>(d, al, dhi);
-    wgmma_tf32_rs<KS>(d, ah, dhi);
-  }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
 // The turned-around suffix pass (KS = pad8(U) / 8 <= kRsSteps): out as
 // flip_suffix_kernel's for kPerFlip = per_flip (an argument here, so that
 // the build compiles each KS once).  Warpgroup wg of block b is slot
@@ -539,29 +506,7 @@ flip_suffix_rs_kernel(const int32_t* __restrict__ samples, const float* wx, cons
   float* bhs = gxs + 48 * KS;
   float* hws = bhs + 24 * KS;
   float* hbs = hws + 2 * KP;
-  const int g3 = 3 * u;
-  // entry i of a table is (column n, row k) of state_at(n, k, KP): column
-  // n is gate (n / 8) % 3 of unit 8 (n / 24) + n % 8, row k unit
-  // 8 (k / 8) + 2 (k % 4) + (k / 4) % 2, so that a thread's A fragment of
-  // k-step j holds the units 8 j + 2 t + v whose gates its accumulators hold
-  for (int i = threadIdx.x; i < TF; i += blockDim.x) {
-    const int grp = i / (KP * 8), rem = i - grp * (KP * 8);
-    const int k = 4 * (rem >> 5) + (rem & 3);
-    const int un = 8 * (grp / 3) + ((rem >> 2) & 7);
-    const int uk = 8 * (k >> 3) + 2 * (k & 3) + ((k >> 2) & 1);
-    const float v = (uk < u && un < u) ? wh[uk * g3 + (grp % 3) * u + un] : 0.0f;
-    uint32_t hi, lo;
-    split_tf32(v, hi, lo);
-    whi[i] = __uint_as_float(hi);
-    wlo[i] = __uint_as_float(lo);
-  }
-  for (int i = threadIdx.x; i < 24 * KS; i += blockDim.x) {
-    const int unit = 8 * (i / 24) + i % 8, col = ((i / 8) % 3) * u + unit;
-    const bool ok = unit < u;
-    bhs[i] = ok ? bh[col] : 0.0f;
-    gxs[2 * i] = ok ? wx[col] + bx[col] : 0.0f;
-    gxs[2 * i + 1] = ok ? wx[g3 + col] + bx[col] : 0.0f;
-  }
+  rs_gru_tables<KS, false>(whi, wlo, gxs, bhs, wx, wh, bx, bh, u);
   for (int i = threadIdx.x; i < 2 * KP; i += blockDim.x) hws[i] = i < 2 * u ? hw[i] : 0.0f;
   if (threadIdx.x < 2) hbs[threadIdx.x] = hb[threadIdx.x];
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -579,7 +524,7 @@ flip_suffix_rs_kernel(const int32_t* __restrict__ samples, const float* wx, cons
   const int groups = (b_total + kRsTraj - 1) / kRsTraj, items = n_sites * groups;
   const int slots = gridDim.x * kRsGroups, slot = blockIdx.x * kRsGroups + wg;
   for (int round = 0;; ++round) {
-    const int item = round * slots + ((round & 1) ? slots - 1 - slot : slot);
+    const int item = rs_slot_tile(round, slots, slot);
     if (item >= items) break;
     const int f = item / groups, bt0 = (item - f * groups) * kRsTraj;
     // padding trajectories repeat the last sample
@@ -761,22 +706,12 @@ cudaError_t launch_suffix_rs(void* samples, const float* const* W, void* hist, v
                              cudaStream_t st) {
   static_assert(KS <= kRsSteps, "the turned-around suffix pass takes pad8(U) <= 8 kRsSteps");
   const auto kernel = flip_suffix_rs_kernel<KS>;
-  constexpr int threads = kRsGroups * 4 * kWarp;
   const size_t smem = sizeof(float) * rs_floats(KS);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  int grid = 0;
+  const cudaError_t err = rs_persistent_grid(
+      kernel, smem, static_cast<int64_t>(n_sites) * ((b_total + kRsTraj - 1) / kRsTraj), &grid);
   if (err != cudaSuccess) return err;
-  int per_sm = 0, device = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int items = n_sites * ((b_total + kRsTraj - 1) / kRsTraj);
-  const int grid = std::min(per_sm * sms, (items + kRsGroups - 1) / kRsGroups);
-  kernel<<<grid, threads, smem, st>>>(
+  kernel<<<grid, kRsGroups * 4 * kWarp, smem, st>>>(
       static_cast<const int32_t*>(samples), W[0], W[1], W[2], W[3], W[4], W[5],
       static_cast<const float*>(hist), static_cast<const float*>(pfx),
       static_cast<const float*>(fl), static_cast<const float*>(lp), static_cast<float*>(out),

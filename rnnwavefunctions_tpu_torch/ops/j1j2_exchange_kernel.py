@@ -72,6 +72,52 @@ def sample_and_exchange_plain(weights: Weights, uniforms: torch.Tensor, *, u1: b
 
 
 # ---------------------------------------------------------------------------
+# the suffix pass's packing (launch 3 where pad8(U) <= 56)
+# ---------------------------------------------------------------------------
+
+SUFFIX_ROWS = 64  # trajectories per tile of exchange_suffix_rs_kernel (wgmma's M)
+
+
+def list_lengths(samples: torch.Tensor, *, el_nn: float, el_nnn: float, has_nnn: bool,
+                 periodic: bool = False) -> torch.Tensor:
+    """The length of each start site's bond list, as the list launch forms
+    it: per start site a, the (bond, sample) terms of the bonds (a, b) with
+    a nonzero element whose spins differ.  (N,) int64."""
+    s = samples.to(torch.int64)
+    n = s.shape[1]
+    counts = torch.zeros(n, dtype=torch.int64, device=s.device)
+    bonds = []
+    if el_nn != 0.0:
+        bonds.append((torch.arange(n - 1), torch.arange(1, n)))
+    if has_nnn and el_nnn != 0.0:
+        bonds.append((torch.arange(n - 2), torch.arange(2, n)))
+    if periodic:
+        wraps = [(0, n - 1, el_nn)] + ([(0, n - 2, el_nnn), (1, n - 1, el_nnn)] if has_nnn else [])
+        bonds += [(torch.tensor([a]), torch.tensor([b])) for a, b, el in wraps if el != 0.0]
+    for a, b in bonds:
+        live = (s[:, a] != s[:, b]).sum(dim=0)
+        counts.index_add_(0, a.to(s.device), live)
+    return counts
+
+
+def suffix_occupancy(counts) -> float:
+    """Live trajectory-sites over issued row-sites of the packed suffix pass
+    for the start sites' list lengths ``counts`` (N,): tiles are runs of
+    SUFFIX_ROWS consecutive terms of all lists in start-site order, a term
+    of start site a lives on the N - 1 - a sites after it, and every row of
+    a tile is issued from its first start site on.  1.0 when nothing is
+    listed."""
+    counts = torch.as_tensor(counts, dtype=torch.int64).cpu()
+    n = counts.numel()
+    starts = torch.repeat_interleave(torch.arange(n), counts)
+    if starts.numel() == 0:
+        return 1.0
+    live = int((n - 1 - starts).sum())
+    issued = SUFFIX_ROWS * int((n - 1 - starts[::SUFFIX_ROWS]).sum())
+    return live / issued
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -89,8 +135,9 @@ def _launch(name: str, weights: Weights, samples: torch.Tensor, seed: int, offse
     hist = torch.empty(b * n * u, **f32)
     pfx = torch.empty(5, b * n, **f32)     # Re and Im prefixes, up-counts, flipped site terms
     terms = torch.empty(2, k * b, **f32)   # Re and Im term of each (bond, sample)
-    # the start sites' lists of exchanged terms, then their offsets and lengths
-    order = torch.empty(k * b + 2 * n, dtype=torch.int32, device=dev)
+    # the start sites' lists of exchanged terms, then their offsets, lengths
+    # and packed offsets, and the list launch's counter of finished blocks
+    order = torch.empty(k * b + 3 * n + 2, dtype=torch.int32, device=dev)
     out = torch.empty(4, b, **f32)         # eoff_re, eoff_im, lp_re, lp_im
     with torch.cuda.device(dev):
         err = getattr(lib, name)(

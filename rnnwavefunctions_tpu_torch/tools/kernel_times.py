@@ -25,11 +25,12 @@ B9's replay and B9 from it; B19 (storing the gates where the checkout
 takes it) and B20 on two random cotangent sets (from B19's stored gates and
 alone where the checkout takes them); B13; B21 on SR-Gram-like systems at
 S=64, 100, 230, 250, 500 and 1000 beside Cholesky, with the path it took where
-the checkout reports one; then K3's (at N=100 and at N=1000, S=64), K2's,
-B16's, B17/B18's, B10's, B11's, B14's (alone and from the replay), B9's
-(alone and from the replay) and B20's launches apart by ``torch.profiler``
-over 10 calls (K3 and B16 over 3).  The card's name and power limit come
-first, a JSON line last.
+the checkout reports one; B11 at the J1-J2 cell's N=1000, S=64; then K3's
+(at N=100 and at N=1000, S=64), K2's, B16's, B17/B18's, B10's, B11's (also
+at N=1000, S=64; the suffix pass under either kernel's name), B14's (alone
+and from the replay), B9's (alone and from the replay) and B20's launches
+apart by ``torch.profiler`` over 10 calls (K3 and B16 over 3).  The card's
+name and power limit come first, a JSON line last.
 """
 
 from __future__ import annotations
@@ -190,10 +191,17 @@ def main() -> None:
     times["B8"] = _cuda_ms(lambda: fused_crnn.crnn_sample(wc, 500, 100, 3, 4, True))
     times["B10"] = _cuda_ms(b10)
     times["B11"] = _cuda_ms(b11)
-    for name, fn in (("B10", b10), ("B11", b11)):
+    # B11 at the J1-J2 cell's N=1000, S=64 as well; the suffix pass by either
+    # kernel's name: exchange_suffix_rs_kernel, or exchange_suffix_kernel past
+    # U = 56 and in earlier trees
+    info_long = pkg.J1J2(1000, j2=0.2, marshall_sign=True).exchange_kernel_info
+    b11_long = lambda: jk.j1j2_sample_and_exchange(  # noqa: E731
+        wc, 64, 1000, 3, 4, u1=True, **info_long)
+    times["B11 N=1000 S=64"] = _cuda_ms(b11_long, reps=10)
+    for name, fn in (("B10", b10), ("B11", b11), ("B11 N=1000 S=64", b11_long)):
         split.update(_profiled(fn, {f"{name} base pass": "exchange_base_kernel",
                                     f"{name} bond lists": "exchange_list_kernel",
-                                    f"{name} suffix pass": "exchange_suffix_kernel",
+                                    f"{name} suffix pass": "exchange_suffix",
                                     f"{name} sum": "exchange_sum_kernel"}))
     # B12 and B14, and B14 from B12's stored replay where the checkout has it
     gm = torch.randn(500, generator=gen).to(dev)

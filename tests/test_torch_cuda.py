@@ -500,6 +500,7 @@ EXCHANGE_EDGES = [
     (N, True, 0.0, True, 50), (N, False, 0.2, False, 50), (N - 1, True, 0.2, False, 50),
     (N - 1, False, 0.0, False, 16), (N, True, 0.2, True, 7), (N, True, 0.2, True, 64),
     (N, True, 0.2, True, 91), (N, False, 0.2, True, 91), (4, True, 0.2, True, 16),
+    (N, True, 0.2, True, 56), (N, True, 0.2, True, 57),
 ]
 
 
@@ -528,6 +529,53 @@ def test_exchange_kernels_over_edges(cuda, n, periodic, j2, u1, u):
     s8, lp8 = fused_crnn.crnn_sample(w, B, n, 3, 5, u1)
     assert torch.equal(s8, s11)
     torch.testing.assert_close(lp8, 2.0 * rest[2], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("n,u", [(N, 50), (100, 50), (N, 64), (100, 64)])
+def test_b10_on_b11_samples_gives_b11_numbers(cuda, n, u):
+    """B10 and B11 run one suffix pass on the same lists: B10 on B11's
+    samples gives B11's sums and log psi bit for bit, on either suffix
+    pass (U = 50 the turned-around one, whose tiles span start sites, U =
+    64 the first design)."""
+    w = _crnn_weights(u, cuda)
+    info = J1J2(n, j2=0.2, marshall_sign=True).exchange_kernel_info
+    s11, *rest = jk.j1j2_sample_and_exchange(w, B, n, 3, 5, u1=True, **info)
+    got = jk.j1j2_exchange_offdiag(w, s11, u1=True, **info)
+    assert all(torch.equal(a, b) for a, b in zip(got, rest))
+
+
+@pytest.mark.parametrize("u,kernel", [(50, "exchange_suffix_rs_kernel"),
+                                      (56, "exchange_suffix_rs_kernel"),
+                                      (57, "exchange_suffix_kernel")])
+def test_exchange_suffix_pass_is_chosen_by_u(cuda, u, kernel):
+    """Launch 3 of B10 runs the turned-around suffix pass to pad8(U) = 56
+    and the first design past it (the profiler's kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w, s = _crnn_weights(u, cuda), _sector(cuda)
+    info = J1J2(N, j2=0.2).exchange_kernel_info
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        jk.j1j2_exchange_offdiag(w, s, u1=True, **info)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "exchange_suffix" in e.key}
+    assert len(names) == 1 and kernel + "<" in next(iter(names)), names
+
+
+def test_turned_around_suffix_pass_takes_any_chain_length(cuda):
+    """The turned-around suffix pass reads the lists' packed offsets from the
+    list launch's scratch, so its shared memory does not grow with N: at
+    N = 40,000, where N + 1 offsets beside U = 50's tables would pass the
+    H100's 227 KiB a block, the family takes the shape, B11 runs, B10 on its
+    samples gives its numbers bit for bit, and every sum is finite."""
+    n, b = 40_000, 2
+    assert fused_crnn.supports(n, (50,), cuda)
+    w = _crnn_weights(50, cuda)
+    info = J1J2(n, j2=0.2, marshall_sign=True).exchange_kernel_info
+    s11, *rest = jk.j1j2_sample_and_exchange(w, b, n, 3, 5, u1=True, **info)
+    got = jk.j1j2_exchange_offdiag(w, s11, u1=True, **info)
+    assert bool((s11.sum(dim=1) == n // 2).all())
+    assert all(torch.equal(a, c) for a, c in zip(got, rest))
+    assert all(bool(torch.isfinite(a).all()) for a in rest)
 
 
 def test_crnn_coverage_on_the_card(cuda):
