@@ -24,6 +24,7 @@ from torch import nn
 from . import cells
 from .base import resolve_device, resolve_impl
 from ..ops import fused_crnn
+from ..ops.launch import draw_key
 
 _REQUIREMENT = "one GRU layer with local_dim=2 whose weights fit shared memory"
 
@@ -115,8 +116,7 @@ class CRNNU1(nn.Module):
         kernel gets a (seed, offset) pair drawn from it, the plain loop its
         uniforms."""
         if self._use_kernels():
-            seed, offset = torch.randint(
-                0, 2**32, (2,), generator=generator, dtype=torch.int64).tolist()
+            seed, offset = draw_key(generator)
             return fused_crnn.crnn_sample(self.weights(), num_samples, self.num_sites,
                                           seed, offset, self.u1)
         uniforms = torch.rand(num_samples, self.num_sites, generator=generator).to(self.device)

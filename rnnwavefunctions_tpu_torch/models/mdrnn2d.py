@@ -26,6 +26,7 @@ from . import cells
 from .base import resolve_device, resolve_impl
 from ..ops import fused_mdrnn
 from ..ops.compsum import compensated_sum
+from ..ops.launch import draw_key
 
 _REQUIREMENT = "local_dim=2 on a lattice whose row buffers and weights fit shared memory"
 
@@ -129,8 +130,7 @@ class MDRNN2D(nn.Module):
         pair drawn from it, the plain sweeps its uniforms (visit order)."""
         nx, ny = self.nx, self.ny
         if self._use_kernels():
-            seed, offset = torch.randint(
-                0, 2**32, (2,), generator=generator, dtype=torch.int64).tolist()
+            seed, offset = draw_key(generator)
             return fused_mdrnn.mdrnn_sample(self.weights(), num_samples, nx, ny, seed, offset)
         uniforms = torch.rand(num_samples, nx * ny, generator=generator).to(self.device)
         if self.local_dim == 2:

@@ -27,6 +27,7 @@ from . import cells
 from .base import resolve_device, resolve_impl
 from ..ops import fused_gru
 from ..ops.compsum import compensated_sum
+from ..ops.launch import draw_key
 
 _REQUIREMENT = "one GRU layer with local_dim=2 whose weights fit shared memory"
 
@@ -131,8 +132,7 @@ class PRNN1D(nn.Module):
         randomness comes from ``generator`` (a CPU generator): the kernel gets
         a (seed, offset) pair drawn from it, the plain loops its uniforms."""
         if self._use_kernels():
-            seed, offset = torch.randint(
-                0, 2**32, (2,), generator=generator, dtype=torch.int64).tolist()
+            seed, offset = draw_key(generator)
             return fused_gru.gru_sample(self.weights(), num_samples, self.num_sites,
                                         seed, offset)
         d, dev = self.local_dim, self.device

@@ -144,9 +144,3 @@ def load_library() -> KernelLibrary:
         fn.restype = restype
     return KernelLibrary(lib, target, seconds, log)
 
-
-def check(err: int, name: str) -> None:
-    """Raises if a C entry point reported a CUDA error (a refused launch never
-    runs, and a later synchronize would not report it)."""
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")

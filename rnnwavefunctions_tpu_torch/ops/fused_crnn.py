@@ -31,30 +31,31 @@ stack: four tensors per GRU layer, then the two heads.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
-from .build import check, load_library
+from .build import load_library
 from .compsum import kadd, kfinal
-from .fused_gru import (
+from .fused_gru import a_rows, gru_gates, gru_layer, spin_input
+from .launch import (
     CRNN_FAMILY,
     Weights,
-    a_rows,
-    check_samples,
-    check_supported,
+    begin_draw,
+    check_chains,
     check_weights,
+    counts_launches,
     fits_shared_memory,
-    gru_gates,
-    gru_layer,
     is_cpu_call,
-    spin_input,
-    stream_of,
+    launch,
 )
-from .tfim_flip_kernel import check_key, plain_uniforms
 
 LOG_ZERO = -1e9  # finite stand-in for log 0 of a masked class
+
+# the cRNN kernels' weights: the GRU layer and the amplitude and phase heads
+check_crnn_weights = functools.partial(check_weights, heads=2)
 
 
 def supports(n_sites: int, units: Sequence[int], device) -> bool:
@@ -232,61 +233,40 @@ def replay_plain(weights: Weights, samples: torch.Tensor, u1: bool) -> CReplay:
 # B9 backward)
 # ---------------------------------------------------------------------------
 
+@counts_launches()
 def crnn_log_amp_parts(weights: Weights, samples: torch.Tensor, u1: bool):
     """(B, N) int32 samples -> (Re, Im) log psi, each (B,) float32 (no
     gradient)."""
     if is_cpu_call(samples, *weights):
         return log_amp_parts_plain(weights, samples, u1)
-    u = check_weights(weights, heads=2)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device, CRNN_FAMILY)
+    b, n, u = check_chains(weights, samples, CRNN_FAMILY, heads=2)
     re = torch.empty(b, dtype=torch.float32, device=samples.device)
     im = torch.empty_like(re)
-    lib = load_library().lib
-    with torch.cuda.device(samples.device):
-        err = lib.rnnwf_crnn_log_amp_parts(
-            samples.data_ptr(), *[w.data_ptr() for w in weights], re.data_ptr(),
-            im.data_ptr(), b, n, u, int(u1), stream_of(samples),
-        )
-    check(err, "rnnwf_crnn_log_amp_parts")
-    crnn_log_amp_parts.launches += 1
+    launch("rnnwf_crnn_log_amp_parts", samples.device, samples, *weights, re, im, b, n, u,
+           int(u1))
     return re, im
-
-
-crnn_log_amp_parts.launches = 0
 
 
 def launch_replay(weights: Weights, samples: torch.Tensor, u1: bool) -> CReplay:
     """Launches B10's base pass storing B9's replay on CUDA tensors (the
     callers count the launch: ``crnn_replay``, or B9's wrapper as its stage
     a)."""
-    u = check_weights(weights, heads=2)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device, CRNN_FAMILY)
+    b, n, u = check_chains(weights, samples, CRNN_FAMILY, heads=2)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                        device=samples.device)
     out = CReplay(empty(b), empty(b), empty(b, n + 1, u + 3), empty(b, n, 4 * u), empty(b, n, 2))
-    with torch.cuda.device(samples.device):
-        err = load_library().lib.rnnwf_crnn_replay(
-            samples.data_ptr(), *[w.data_ptr() for w in weights],
-            *[t.data_ptr() for t in (out.rows, out.gates, out.seeds, out.re, out.im)],
-            b, n, u, int(u1), stream_of(samples),
-        )
-    check(err, "rnnwf_crnn_replay")
+    launch("rnnwf_crnn_replay", samples.device, samples, *weights, out.rows, out.gates,
+           out.seeds, out.re, out.im, b, n, u, int(u1))
     return out
 
 
+@counts_launches()
 def crnn_replay(weights: Weights, samples: torch.Tensor, u1: bool) -> CReplay:
     """B9's replay of (B, N) int32 samples (no gradient): ``CReplay``, whose
     (Re, Im) are B7's function."""
     if is_cpu_call(samples, *weights):
         return replay_plain(weights, samples, u1)
-    out = launch_replay(weights, samples, u1)
-    crnn_replay.launches += 1
-    return out
-
-
-crnn_replay.launches = 0
+    return launch_replay(weights, samples, u1)
 
 
 class CRNNLogAmpParts(torch.autograd.Function):
@@ -340,6 +320,7 @@ def sample_plain(weights: Weights, uniforms: torch.Tensor, u1: bool):
     return spins.to(torch.int32), 2.0 * re
 
 
+@counts_launches()
 def crnn_sample(weights: Weights, num_samples: int, n_sites: int, seed: int, offset: int,
                 u1: bool):
     """B8: draw ``num_samples`` chains of ``n_sites`` spins from |psi|^2 (a
@@ -347,26 +328,11 @@ def crnn_sample(weights: Weights, num_samples: int, n_sites: int, seed: int, off
     (each in [0, 2^32)) keys the kernel's Philox generator, whose draws are
     B11's for the same key.  Returns (samples (B, N) int32, log |psi|^2
     (B,))."""
-    check_key(seed, offset)
-    if is_cpu_call(*weights):
-        return sample_plain(weights, plain_uniforms(num_samples, n_sites, seed, offset,
-                                                    weights[0].device), u1)
-    u = check_weights(weights, heads=2)
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
-    check_supported(n_sites, u, weights[0].device, CRNN_FAMILY)
-    dev = weights[0].device
-    samples = torch.empty(num_samples, n_sites, dtype=torch.int32, device=dev)
-    lp = torch.empty(num_samples, dtype=torch.float32, device=dev)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_crnn_sample(
-            seed, offset, *[w.data_ptr() for w in weights], samples.data_ptr(),
-            lp.data_ptr(), num_samples, n_sites, u, int(u1), stream_of(weights[0]),
-        )
-    check(err, "rnnwf_crnn_sample")
-    crnn_sample.launches += 1
-    return samples, lp
-
-
-crnn_sample.launches = 0
+    draw = begin_draw(weights, num_samples, (n_sites,), seed, offset, CRNN_FAMILY,
+                      check_crnn_weights)
+    if draw.uniforms is not None:
+        return sample_plain(weights, draw.uniforms, u1)
+    lp = torch.empty(num_samples, dtype=torch.float32, device=draw.samples.device)
+    launch("rnnwf_crnn_sample", lp.device, seed, offset, *weights, draw.samples, lp,
+           num_samples, n_sites, draw.u, int(u1))
+    return draw.samples, lp

@@ -20,23 +20,17 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .build import check, load_library
+from .build import load_library
 from .fused_crnn import CReplay, launch_replay, log_amp_parts_plain, replay_plain
-from .fused_gru import (
+from .fused_gru_bwd import CHUNK_ROWS, chunked_product, sweep_plain, trunk_grads
+from .launch import (
     CRNN_FAMILY,
     Weights,
-    check_samples,
-    check_supported,
-    check_weights,
+    check_chains,
+    check_float32,
+    counts_launches,
     is_cpu_call,
-    stream_of,
-)
-from .fused_gru_bwd import (
-    CHUNK_ROWS,
-    check_stored,
-    chunked_product,
-    sweep_plain,
-    trunk_grads,
+    launch,
 )
 
 
@@ -118,6 +112,7 @@ def log_amp_bwd_staged_plain(weights: Weights, samples: torch.Tensor, g_re: torc
 # wrappers
 # ---------------------------------------------------------------------------
 
+@counts_launches()
 def crnn_log_amp_bwd(weights: Weights, samples: torch.Tensor, g_re: torch.Tensor,
                      g_im: torch.Tensor, u1: bool,
                      replay: Optional[CReplay] = None) -> Tuple[torch.Tensor, ...]:
@@ -129,6 +124,7 @@ def crnn_log_amp_bwd(weights: Weights, samples: torch.Tensor, g_re: torch.Tensor
     return _launch(weights, samples, g_re, g_im, u1, replay)[0]
 
 
+@counts_launches(crnn_log_amp_bwd)
 def crnn_log_amp_bwd_stages(weights: Weights, samples: torch.Tensor, g_re: torch.Tensor,
                             g_im: torch.Tensor, u1: bool):
     """B9 with its stages' outputs, for the checks: (gradients, CReplay,
@@ -140,38 +136,20 @@ def crnn_log_amp_bwd_stages(weights: Weights, samples: torch.Tensor, g_re: torch
 
 def _launch(weights: Weights, samples: torch.Tensor, g_re: torch.Tensor, g_im: torch.Tensor,
             u1: bool, replay: Optional[CReplay]):
-    u = check_weights(weights, heads=2)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device, CRNN_FAMILY)
-    for g in (g_re, g_im):
-        if g.dtype != torch.float32 or tuple(g.shape) != (b,) or not g.is_contiguous():
-            raise ValueError(
-                f"cotangents must be contiguous float32 ({b},) tensors; got "
-                f"{tuple(g.shape)} {g.dtype}"
-            )
+    b, n, u = check_chains(weights, samples, CRNN_FAMILY, heads=2)
     dev = samples.device
+    check_float32("cotangent", (g_re, g_im), ((b,), (b,)), dev)
     if replay is None:
         replay = launch_replay(weights, samples, u1)
     else:
-        check_stored((replay.rows, replay.gates, replay.seeds),
-                     ((b, n + 1, u + 3), (b, n, 4 * u), (b, n, 2)), dev, "B9")
-    lib = load_library().lib
+        check_float32("B9's replay tensor", (replay.rows, replay.gates, replay.seeds),
+                      ((b, n + 1, u + 3), (b, n, 4 * u), (b, n, 2)), dev)
     sizes = [w.numel() for w in weights]
     rev = CReverse(torch.empty(b, n + 1, 4 * u + 3, dtype=torch.float32, device=dev))
-    partial = torch.empty(lib.rnnwf_crnn_bwd_partial_floats(b, n, u), dtype=torch.float32,
-                          device=dev)
+    partial = torch.empty(load_library().lib.rnnwf_crnn_bwd_partial_floats(b, n, u),
+                          dtype=torch.float32, device=dev)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_crnn_log_amp_bwd(
-            samples.data_ptr(), g_re.data_ptr(), g_im.data_ptr(), weights[1].data_ptr(),
-            weights[4].data_ptr(), weights[6].data_ptr(), replay.rows.data_ptr(),
-            replay.gates.data_ptr(), replay.seeds.data_ptr(), rev.cot.data_ptr(),
-            partial.data_ptr(), flat.data_ptr(), b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_crnn_log_amp_bwd")
-    crnn_log_amp_bwd.launches += 1
+    launch("rnnwf_crnn_log_amp_bwd", dev, samples, g_re, g_im, weights[1], weights[4],
+           weights[6], replay.rows, replay.gates, replay.seeds, rev.cot, partial, flat, b, n, u)
     grads = tuple(part.view(w.shape) for part, w in zip(torch.split(flat, sizes), weights))
     return grads, replay, rev
-
-
-crnn_log_amp_bwd.launches = 0

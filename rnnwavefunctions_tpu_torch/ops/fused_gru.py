@@ -8,8 +8,8 @@ of ``csrc/tfim_flip.cu`` without its history, teacher-forced (K1) or in
 sample mode (B5, so it draws K3's spins); when a gradient follows, K1 runs
 the same pass storing K2's forward replay (``Replay``), and K2
 (``ops/fused_gru_bwd.py``) starts from it.  The plain PyTorch versions are
-the same site loops written with tensor ops (B5's is
-``tfim_flip_kernel.base_pass_plain`` on ``plain_uniforms``; the replay's is
+the same site loops written with tensor ops (B5's is K3's base pass
+``base_pass_plain`` on ``launch.plain_uniforms``; the replay's is
 ``replay_plain``).
 
 A kernel's weights travel as a 6-tuple in the JAX package's parameter layout:
@@ -17,45 +17,27 @@ A kernel's weights travel as a 6-tuple in the JAX package's parameter layout:
 with gates packed ``[r | z | c]``.  Samples are (B, N) int32 spins in {0, 1}.
 
 Every wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; on any other input it raises.  Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+for CUDA tensors through ``ops/launch.py``; on any other input it raises.
+Each wrapper counts its kernel launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from .build import check, load_library
 from .compsum import kadd, kfinal
-
-Weights = Tuple[torch.Tensor, ...]
-
-# kernel families whose shared memory ``rnnwf_fits_shared_memory`` checks
-GRU_FAMILY, CRNN_FAMILY, MDRNN_FAMILY = 0, 1, 2
-
-
-def fits_shared_memory(family: int, n_sites: int, units: Sequence[int], device,
-                       nx: int = 0) -> bool:
-    """True when the kernels of ``family`` take this shape on ``device``:
-    one layer and, on a CUDA device, every kernel's shared memory within
-    the device's opt-in limit per block (asked of the kernel library, whose
-    launches use the same sizes; ``nx`` is the MDRNN family's lattice
-    width).  On the CPU only the plain versions run, and they take any
-    width."""
-    units = tuple(units)
-    if len(units) != 1 or n_sites < 1:
-        return False
-    device = torch.device(device)
-    if device.type != "cuda":
-        return True
-    fits = ctypes.c_int(0)
-    index = torch.cuda.current_device() if device.index is None else device.index
-    check(load_library().lib.rnnwf_fits_shared_memory(
-        family, nx, units[0], index, ctypes.byref(fits)), "rnnwf_fits_shared_memory")
-    return bool(fits.value)
+from .launch import (
+    GRU_FAMILY,
+    Weights,
+    begin_draw,
+    check_chains,
+    counts_launches,
+    fits_shared_memory,
+    is_cpu_call,
+    launch,
+)
 
 
 def supports(n_sites: int, units: Sequence[int], device) -> bool:
@@ -130,6 +112,37 @@ def log_prob_plain(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
     return kfinal(acc, cmp)
 
 
+def base_pass_plain(weights: Weights, samples: Optional[torch.Tensor] = None,
+                    uniforms: Optional[torch.Tensor] = None):
+    """Teacher-forced (``samples`` given) or sampling (``uniforms`` (B, N)
+    given: s = 1 iff u >= p0) base pass of K3's flip estimator, B5's plain
+    sampler.  Returns (spins (B, N) float, lp (B,), hist (B, N, U), pfx
+    (B, N), fl (B, N))."""
+    src = samples if samples is not None else uniforms
+    b, n = src.shape
+    u = weights[1].shape[0]
+    dev = src.device
+    h = torch.zeros(b, u, dtype=torch.float32, device=dev)
+    x = torch.zeros(b, dtype=torch.float32, device=dev)
+    acc = torch.zeros_like(x)
+    cmp = torch.zeros_like(x)
+    spins, hist, pfx, fl = [], [], [], []
+    for i in range(n):
+        h, l0, l1 = site_step(weights, h, x, 1.0 if i > 0 else 0.0)
+        if samples is not None:
+            s = samples[:, i].to(torch.float32)
+        else:
+            s = (uniforms[:, i] >= torch.sigmoid(l0 - l1)).to(torch.float32)
+        acc, cmp = kadd(acc, cmp, logp2(l0, l1, s))
+        spins.append(s)
+        hist.append(h)
+        pfx.append(kfinal(acc, cmp))
+        fl.append(logp2(l0, l1, 1.0 - s))
+        x = s
+    stack = lambda xs: torch.stack(xs, dim=1)  # noqa: E731
+    return stack(spins), kfinal(acc, cmp), stack(hist), stack(pfx), stack(fl)
+
+
 class Replay(NamedTuple):
     """K2's forward replay, K1 storing (stage a of ``csrc/fused_gru_bwd.cu``):
     the joint log p and, per (sample, site), what the reverse sweep and the
@@ -192,88 +205,22 @@ def log_prob_bwd_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor)
 
 
 # ---------------------------------------------------------------------------
-# argument checks shared by the wrappers
-# ---------------------------------------------------------------------------
-
-def is_cpu_call(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU (the plain version runs);
-    False when all lie on CUDA (the kernel runs); raises on a mix."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"}:
-        raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("all tensors must lie on one CUDA device")
-    return False
-
-
-def check_weights(weights: Weights, heads: int = 1) -> int:
-    """Checks the kernels' weight tuple: the GRU layer and ``heads`` 2-logit
-    heads (6 tensors for K1-K4, 8 for the cRNN kernels); returns U."""
-    count = 4 + 2 * heads
-    if len(weights) != count:
-        raise ValueError(f"expected {count} weight tensors, got {len(weights)}")
-    u = weights[1].shape[0]
-    shapes = [(2, 3 * u), (u, 3 * u), (3 * u,), (3 * u,)] + [(u, 2), (2,)] * heads
-    for w, shape in zip(weights, shapes):
-        if w.dtype != torch.float32 or tuple(w.shape) != shape:
-            raise ValueError(
-                f"weight of shape {tuple(w.shape)} and dtype {w.dtype}; the "
-                f"kernels take float32 {shape}"
-            )
-        if not w.is_contiguous():
-            raise ValueError("weights must be contiguous")
-    return u
-
-
-def check_samples(samples: torch.Tensor) -> Tuple[int, int]:
-    if samples.dtype != torch.int32 or samples.dim() != 2:
-        raise ValueError(
-            f"samples must be a (B, N) int32 tensor; got {tuple(samples.shape)} "
-            f"{samples.dtype}"
-        )
-    if not samples.is_contiguous():
-        raise ValueError("samples must be contiguous")
-    b, n = samples.shape
-    if b < 1 or n < 1:
-        raise ValueError(f"empty sample batch {tuple(samples.shape)}")
-    return b, n
-
-
-def check_supported(n: int, u: int, device, family: int = GRU_FAMILY) -> None:
-    if not fits_shared_memory(family, n, (u,), device):
-        raise ValueError(f"the CUDA kernels do not take N={n}, U={u} on {device}")
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-# ---------------------------------------------------------------------------
 # K1 wrapper and the autograd Function (K1 forward, K2 backward)
 # ---------------------------------------------------------------------------
 
 def launch_replay(weights: Weights, samples: torch.Tensor) -> Replay:
     """Launches K1's base pass storing K2's replay on CUDA tensors (the
     callers count the launch: K1's wrapper, or K2's as its stage a)."""
-    u = check_weights(weights)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device)
+    b, n, u = check_chains(weights, samples)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                        device=samples.device)
     out = Replay(empty(b), empty(b, n + 1, u + 3), empty(b, n, 4 * u), empty(b, n))
-    lib = load_library().lib
-    with torch.cuda.device(samples.device):
-        err = lib.rnnwf_gru_replay(
-            samples.data_ptr(), *[w.data_ptr() for w in weights],
-            *[t.data_ptr() for t in (out.rows, out.gates, out.p1, out.lp)],
-            b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_gru_replay")
+    launch("rnnwf_gru_replay", samples.device, samples, *weights, out.rows, out.gates, out.p1,
+           out.lp, b, n, u)
     return out
 
 
+@counts_launches()
 def gru_log_prob(weights: Weights, samples: torch.Tensor, store: bool = False):
     """(B, N) int32 samples -> (B,) float32 joint log p (no gradient); with
     ``store``, the ``Replay`` that K2 starts from (its ``lp`` the same log
@@ -281,24 +228,11 @@ def gru_log_prob(weights: Weights, samples: torch.Tensor, store: bool = False):
     if is_cpu_call(samples, *weights):
         return replay_plain(weights, samples) if store else log_prob_plain(weights, samples)
     if store:
-        out = launch_replay(weights, samples)
-    else:
-        u = check_weights(weights)
-        b, n = check_samples(samples)
-        check_supported(n, u, samples.device)
-        out = torch.empty(b, dtype=torch.float32, device=samples.device)
-        lib = load_library().lib
-        with torch.cuda.device(samples.device):
-            err = lib.rnnwf_gru_log_prob(
-                samples.data_ptr(), *[w.data_ptr() for w in weights], out.data_ptr(),
-                b, n, u, stream_of(samples),
-            )
-        check(err, "rnnwf_gru_log_prob")
-    gru_log_prob.launches += 1
+        return launch_replay(weights, samples)
+    b, n, u = check_chains(weights, samples)
+    out = torch.empty(b, dtype=torch.float32, device=samples.device)
+    launch("rnnwf_gru_log_prob", samples.device, samples, *weights, out, b, n, u)
     return out
-
-
-gru_log_prob.launches = 0
 
 
 class GRULogProb(torch.autograd.Function):
@@ -339,39 +273,20 @@ def log_prob(weights: Weights, samples: torch.Tensor) -> torch.Tensor:
 def sample_plain(weights: Weights, uniforms: torch.Tensor):
     """The sampling base pass on given (B, N) uniforms (s = 1 iff u >= p0):
     (samples (B, N) int32, log p (B,))."""
-    from .tfim_flip_kernel import base_pass_plain
-
     spins, lp, *_ = base_pass_plain(weights, uniforms=uniforms)
     return spins.to(torch.int32), lp
 
 
+@counts_launches()
 def gru_sample(weights: Weights, num_samples: int, n_sites: int, seed: int, offset: int):
     """B5: draw ``num_samples`` chains of ``n_sites`` spins and their joint
     log p.  ``(seed, offset)`` (each in [0, 2^32)) keys the kernel's Philox
     generator, whose draws are K3's for the same key.  Returns (samples
     (B, N) int32, log p (B,))."""
-    from .tfim_flip_kernel import check_key, plain_uniforms
-
-    check_key(seed, offset)
-    if is_cpu_call(*weights):
-        return sample_plain(weights, plain_uniforms(num_samples, n_sites, seed, offset,
-                                                    weights[0].device))
-    u = check_weights(weights)
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
-    check_supported(n_sites, u, weights[0].device)
-    dev = weights[0].device
-    samples = torch.empty(num_samples, n_sites, dtype=torch.int32, device=dev)
-    lp = torch.empty(num_samples, dtype=torch.float32, device=dev)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_gru_sample(
-            seed, offset, *[w.data_ptr() for w in weights], samples.data_ptr(),
-            lp.data_ptr(), num_samples, n_sites, u, stream_of(weights[0]),
-        )
-    check(err, "rnnwf_gru_sample")
-    gru_sample.launches += 1
-    return samples, lp
-
-
-gru_sample.launches = 0
+    draw = begin_draw(weights, num_samples, (n_sites,), seed, offset, GRU_FAMILY)
+    if draw.uniforms is not None:
+        return sample_plain(weights, draw.uniforms)
+    lp = torch.empty(num_samples, dtype=torch.float32, device=draw.samples.device)
+    launch("rnnwf_gru_sample", lp.device, seed, offset, *weights, draw.samples, lp,
+           num_samples, n_sites, draw.u)
+    return draw.samples, lp

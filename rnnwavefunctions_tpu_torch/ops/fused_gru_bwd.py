@@ -21,18 +21,15 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .build import check, load_library
-from .fused_gru import (
-    Replay,
+from .build import load_library
+from .fused_gru import Replay, launch_replay, log_prob_bwd_plain, replay_plain
+from .launch import (
     Weights,
-    check_samples,
-    check_supported,
-    check_weights,
+    check_chains,
+    check_float32,
+    counts_launches,
     is_cpu_call,
-    launch_replay,
-    log_prob_bwd_plain,
-    replay_plain,
-    stream_of,
+    launch,
 )
 
 # rows of the weight-cotangent product per block of stage c (kChunkRows in
@@ -176,6 +173,7 @@ def log_prob_bwd_staged_plain(weights: Weights, samples: torch.Tensor,
 # wrappers
 # ---------------------------------------------------------------------------
 
+@counts_launches()
 def gru_log_prob_bwd(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
                      replay: Optional[Replay] = None) -> Tuple[torch.Tensor, ...]:
     """Gradients of sum(g * log p(samples)) for the six weights, in their
@@ -186,6 +184,7 @@ def gru_log_prob_bwd(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
     return _launch(weights, samples, g, replay)[0]
 
 
+@counts_launches(gru_log_prob_bwd)
 def gru_log_prob_bwd_stages(weights: Weights, samples: torch.Tensor, g: torch.Tensor):
     """K2 with its stages' outputs, for the checks: (gradients, Replay,
     Reverse); on CPU tensors the staged plain version's."""
@@ -198,31 +197,13 @@ def _checked(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
              replay: Optional[Replay]) -> Tuple[int, int, int, Replay]:
     """(B, N, U, replay) after the argument checks of stages b and c; runs
     stage a when no replay is handed over."""
-    u = check_weights(weights)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device)
-    if g.dtype != torch.float32 or tuple(g.shape) != (b,) or not g.is_contiguous():
-        raise ValueError(
-            f"cotangent must be a contiguous float32 ({b},) tensor; got "
-            f"{tuple(g.shape)} {g.dtype}"
-        )
+    b, n, u = check_chains(weights, samples)
+    check_float32("cotangent", (g,), ((b,),), samples.device)
     if replay is None:
         return b, n, u, launch_replay(weights, samples)
-    check_stored((replay.rows, replay.gates, replay.p1),
-                 ((b, n + 1, u + 3), (b, n, 4 * u), (b, n)), samples.device, "K2")
+    check_float32("K2's replay tensor", (replay.rows, replay.gates, replay.p1),
+                  ((b, n + 1, u + 3), (b, n, 4 * u), (b, n)), samples.device)
     return b, n, u, replay
-
-
-def check_stored(tensors, shapes, device, kernel: str) -> None:
-    """Raises unless each of ``tensors`` (a stored replay's, handed to a
-    later stage) is a contiguous float32 tensor of its shape on ``device``."""
-    for t, shape in zip(tensors, shapes):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != device):
-            raise ValueError(
-                f"replay tensor {tuple(t.shape)} {t.dtype} on {t.device}; {kernel} takes "
-                f"contiguous float32 {shape} on {device}"
-            )
 
 
 def launch_reverse(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
@@ -232,13 +213,8 @@ def launch_reverse(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
     the caller counts the launch)."""
     b, n, u, replay = _checked(weights, samples, g, replay)
     rev = Reverse(torch.empty(b, n + 1, 4 * u + 1, dtype=torch.float32, device=samples.device))
-    with torch.cuda.device(samples.device):
-        err = load_library().lib.rnnwf_gru_bwd_sweep(
-            samples.data_ptr(), g.data_ptr(), weights[1].data_ptr(), weights[4].data_ptr(),
-            replay.rows.data_ptr(), replay.gates.data_ptr(), replay.p1.data_ptr(),
-            rev.cot.data_ptr(), b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_gru_bwd_sweep")
+    launch("rnnwf_gru_bwd_sweep", samples.device, samples, g, weights[1], weights[4],
+           replay.rows, replay.gates, replay.p1, rev.cot, b, n, u)
     return replay, rev
 
 
@@ -246,23 +222,12 @@ def _launch(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
             replay: Optional[Replay]):
     b, n, u, replay = _checked(weights, samples, g, replay)
     dev = samples.device
-    lib = load_library().lib
     sizes = [w.numel() for w in weights]
     rev = Reverse(torch.empty(b, n + 1, 4 * u + 1, dtype=torch.float32, device=dev))
-    partial = torch.empty(lib.rnnwf_gru_bwd_partial_floats(b, n, u), dtype=torch.float32,
-                          device=dev)
+    partial = torch.empty(load_library().lib.rnnwf_gru_bwd_partial_floats(b, n, u),
+                          dtype=torch.float32, device=dev)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_gru_log_prob_bwd(
-            samples.data_ptr(), g.data_ptr(), weights[1].data_ptr(), weights[4].data_ptr(),
-            replay.rows.data_ptr(), replay.gates.data_ptr(), replay.p1.data_ptr(),
-            rev.cot.data_ptr(), partial.data_ptr(), flat.data_ptr(),
-            b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_gru_log_prob_bwd")
-    gru_log_prob_bwd.launches += 1
+    launch("rnnwf_gru_log_prob_bwd", dev, samples, g, weights[1], weights[4], replay.rows,
+           replay.gates, replay.p1, rev.cot, partial, flat, b, n, u)
     grads = tuple(part.view(w.shape) for part, w in zip(torch.split(flat, sizes), weights))
     return grads, replay, rev
-
-
-gru_log_prob_bwd.launches = 0

@@ -39,20 +39,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .build import check, load_library
-from .fused_gru import (
+from .fused_gru import gru_gates, replay_plain, spin_input
+from .fused_gru_bwd import launch_reverse, reverse_plain, sweep_plain
+from .launch import (
     CRNN_FAMILY,
     Weights,
-    check_samples,
-    check_supported,
-    check_weights,
-    gru_gates,
+    check_chains,
+    check_float32,
+    counts_launches,
     is_cpu_call,
-    replay_plain,
-    spin_input,
-    stream_of,
+    launch,
 )
-from .fused_gru_bwd import check_stored, launch_reverse, reverse_plain, sweep_plain
 
 
 class JacSweep(NamedTuple):
@@ -167,6 +164,7 @@ def jac_sweep_plain(weights: Weights, samples: torch.Tensor) -> JacSweep:
 # ---------------------------------------------------------------------------
 
 
+@counts_launches()
 def jac_sweep(weights: Weights, samples: torch.Tensor) -> JacSweep:
     """B17: ``JacSweep`` of the pRNN's log p for (B, N) int32 samples and
     the 6-tuple of kernel weights: K2's replay, then its reverse sweep with
@@ -175,44 +173,30 @@ def jac_sweep(weights: Weights, samples: torch.Tensor) -> JacSweep:
         return jac_sweep_plain(weights, samples)
     g = torch.ones(samples.shape[0], dtype=torch.float32, device=samples.device)
     replay, rev = launch_reverse(weights, samples, g)
-    jac_sweep.launches += 1
     return JacSweep(replay.lp, replay.rows, rev.cot)
-
-
-jac_sweep.launches = 0
 
 
 def _launch_rollout(trunk: Weights, samples: torch.Tensor, store: bool):
     """B19 on CUDA tensors (the callers count the launch): ``hist``, or with
     ``store`` ``(hist, gates)``."""
-    u = check_weights(trunk, heads=0)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device, CRNN_FAMILY)
+    b, n, u = check_chains(trunk, samples, CRNN_FAMILY, heads=0)
     hist = torch.empty(b, n, u, dtype=torch.float32, device=samples.device)
     gates = torch.empty(b, n, 4 * u, dtype=torch.float32, device=samples.device) if store else None
-    with torch.cuda.device(samples.device):
-        err = load_library().lib.rnnwf_rollout_hist(
-            samples.data_ptr(), *[w.data_ptr() for w in trunk], hist.data_ptr(),
-            None if gates is None else gates.data_ptr(), b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_rollout_hist")
+    launch("rnnwf_rollout_hist", samples.device, samples, *trunk, hist, gates, b, n, u)
     return (hist, gates) if store else hist
 
 
+@counts_launches()
 def rollout_hist(trunk: Weights, samples: torch.Tensor, store: bool = False):
     """B19: ``hist`` (B, N, U) for (B, N) int32 samples and the trunk
     (wx, wh, bx, bh); with ``store``, ``(hist, gates)``, the gates (B, N,
     4U) ``[r | z | c | ghc]`` that B20 starts from."""
     if is_cpu_call(samples, *trunk):
         return rollout_hist_plain(trunk, samples, store)
-    out = _launch_rollout(trunk, samples, store)
-    rollout_hist.launches += 1
-    return out
+    return _launch_rollout(trunk, samples, store)
 
 
-rollout_hist.launches = 0
-
-
+@counts_launches()
 def sweep_dgates(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor,
                  douts: torch.Tensor, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B20: ``dg`` (P, B, N, 4U) for the cotangent sets ``douts`` (P, B, N, U)
@@ -224,32 +208,20 @@ def sweep_dgates(trunk: Weights, samples: torch.Tensor, hist: torch.Tensor,
         if gates is None:
             return sweep_dgates_plain(trunk, samples, hist, douts)
         return sweep_stored_plain(trunk, hist, gates, douts)
-    u = check_weights(trunk, heads=0)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device, CRNN_FAMILY)
+    b, n, u = check_chains(trunk, samples, CRNN_FAMILY, heads=0)
     parts = douts.shape[0] if douts.dim() == 4 else 0
-    for name, t, shape in (("hist", hist, (b, n, u)), ("douts", douts, (parts, b, n, u))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 (P, B, N, U) / (B, N, U) "
-                             f"tensor; got {tuple(t.shape)} {t.dtype}")
+    check_float32("B20's hist and douts", (hist, douts), ((b, n, u), (parts, b, n, u)),
+                  samples.device)
     if parts < 1:
         raise ValueError("douts needs at least one part")
     if gates is None:
         _, gates = _launch_rollout(trunk, samples, True)
     else:
-        check_stored((gates,), ((b, n, 4 * u),), samples.device, "B20")
+        check_float32("B20's replay tensor", (gates,), ((b, n, 4 * u),), samples.device)
     dg = torch.empty(parts, b, n, 4 * u, dtype=torch.float32, device=samples.device)
-    with torch.cuda.device(samples.device):
-        err = load_library().lib.rnnwf_sweep_dgates(
-            samples.data_ptr(), trunk[1].data_ptr(), hist.data_ptr(), gates.data_ptr(),
-            douts.data_ptr(), dg.data_ptr(), b, parts, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_sweep_dgates")
-    sweep_dgates.launches += 1
+    launch("rnnwf_sweep_dgates", samples.device, samples, trunk[1], hist, gates, douts, dg,
+           b, parts, n, u)
     return dg
-
-
-sweep_dgates.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -29,15 +29,25 @@ its kernel launches in its ``launches`` attribute.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .build import check, load_library
 from .compsum import kadd, kfinal
-from .fused_gru import MDRNN_FAMILY, Weights, fits_shared_memory, is_cpu_call, logp2, stream_of
-from .tfim_flip_kernel import check_key, plain_uniforms
+from .fused_gru import logp2
+from .launch import (
+    MDRNN_FAMILY,
+    Weights,
+    begin_draw,
+    check_layout,
+    check_samples,
+    check_supported,
+    counts_launches,
+    fits_shared_memory,
+    is_cpu_call,
+    launch,
+)
 
 
 def supports(nx: int, ny: int, u: int, device) -> bool:
@@ -164,54 +174,19 @@ def log_prob_bwd_plain(weights: Weights, samples: torch.Tensor, g: torch.Tensor)
         return torch.autograd.grad(lp, ws, grad_outputs=g)
 
 
-# ---------------------------------------------------------------------------
-# argument checks shared by the wrappers
-# ---------------------------------------------------------------------------
-
 def check_weights(weights: Weights) -> int:
     """Checks the MDRNN kernels' 7-tuple of weights; returns U."""
-    if len(weights) != 7:
-        raise ValueError(f"expected 7 weight tensors, got {len(weights)}")
-    u = weights[2].shape[0]
-    shapes = [(2, u), (2, u), (u, u), (u, u), (u,), (u, 2), (2,)]
-    for w, shape in zip(weights, shapes):
-        if w.dtype != torch.float32 or tuple(w.shape) != shape:
-            raise ValueError(
-                f"weight of shape {tuple(w.shape)} and dtype {w.dtype}; the "
-                f"kernels take float32 {shape}"
-            )
-        if not w.is_contiguous():
-            raise ValueError("weights must be contiguous")
+    u = weights[2].shape[0] if len(weights) > 2 else 0
+    check_layout(weights, [(2, u), (2, u), (u, u), (u, u), (u,), (u, 2), (2,)])
     return u
 
 
-def check_samples(samples: torch.Tensor) -> Tuple[int, int, int]:
-    if samples.dtype != torch.int32 or samples.dim() != 3:
-        raise ValueError(
-            f"samples must be a (B, Nx, Ny) int32 tensor; got {tuple(samples.shape)} "
-            f"{samples.dtype}"
-        )
-    if not samples.is_contiguous():
-        raise ValueError("samples must be contiguous")
-    b, nx, ny = samples.shape
-    if min(b, nx, ny) < 1:
-        raise ValueError(f"empty sample batch {tuple(samples.shape)}")
-    return b, nx, ny
-
-
-def check_supported(nx: int, ny: int, u: int, device) -> None:
-    if not supports(nx, ny, u, device):
-        raise ValueError(f"the CUDA kernels do not take a {nx}x{ny} lattice at U={u} on {device}")
-
-
-def check_draw(num_samples: int, nx: int, ny: int, seed: int, offset: int) -> None:
-    check_key(seed, offset)
-    if min(num_samples, nx, ny) < 1:
-        raise ValueError(f"num_samples, nx and ny must be >= 1; got {num_samples}, {nx}, {ny}")
-
-
-def weight_ptrs(weights: Weights):
-    return [w.data_ptr() for w in weights]
+def check_lattices(weights: Weights, samples: torch.Tensor):
+    """The checks before a launch on (B, Nx, Ny) samples: (B, Nx, Ny, U)."""
+    u = check_weights(weights)
+    b, nx, ny = check_samples(samples, 3)
+    check_supported(nx * ny, u, samples.device, MDRNN_FAMILY, nx=nx)
+    return b, nx, ny, u
 
 
 # ---------------------------------------------------------------------------
@@ -221,21 +196,16 @@ def weight_ptrs(weights: Weights):
 def launch_replay(weights: Weights, samples: torch.Tensor) -> Replay:
     """Launches B12 storing B14's replay on CUDA tensors (the callers count
     the launch: B12's wrapper, or B14's as its stage 1)."""
-    u = check_weights(weights)
-    b, nx, ny = check_samples(samples)
-    check_supported(nx, ny, u, samples.device)
+    b, nx, ny, u = check_lattices(weights, samples)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                        device=samples.device)
     out = Replay(empty(b), empty(b, nx * ny, u), empty(b, nx * ny))
-    lib = load_library().lib
-    with torch.cuda.device(samples.device):
-        err = lib.rnnwf_mdrnn_replay(samples.data_ptr(), *weight_ptrs(weights),
-                                     out.hist.data_ptr(), out.p1.data_ptr(), out.lp.data_ptr(),
-                                     b, nx, ny, u, stream_of(samples))
-    check(err, "rnnwf_mdrnn_replay")
+    launch("rnnwf_mdrnn_replay", samples.device, samples, *weights, out.hist, out.p1, out.lp,
+           b, nx, ny, u)
     return out
 
 
+@counts_launches()
 def mdrnn_log_prob(weights: Weights, samples: torch.Tensor, store: bool = False):
     """B12: (B, Nx, Ny) int32 samples -> (B,) float32 joint log p (no
     gradient); with ``store``, the ``Replay`` that B14 starts from (its
@@ -243,50 +213,27 @@ def mdrnn_log_prob(weights: Weights, samples: torch.Tensor, store: bool = False)
     if is_cpu_call(samples, *weights):
         return replay_plain(weights, samples) if store else log_prob_plain(weights, samples)
     if store:
-        out = launch_replay(weights, samples)
-    else:
-        u = check_weights(weights)
-        b, nx, ny = check_samples(samples)
-        check_supported(nx, ny, u, samples.device)
-        out = torch.empty(b, dtype=torch.float32, device=samples.device)
-        lib = load_library().lib
-        with torch.cuda.device(samples.device):
-            err = lib.rnnwf_mdrnn_log_prob(samples.data_ptr(), *weight_ptrs(weights),
-                                           out.data_ptr(), b, nx, ny, u, stream_of(samples))
-        check(err, "rnnwf_mdrnn_log_prob")
-    mdrnn_log_prob.launches += 1
+        return launch_replay(weights, samples)
+    b, nx, ny, u = check_lattices(weights, samples)
+    out = torch.empty(b, dtype=torch.float32, device=samples.device)
+    launch("rnnwf_mdrnn_log_prob", samples.device, samples, *weights, out, b, nx, ny, u)
     return out
 
 
-mdrnn_log_prob.launches = 0
-
-
+@counts_launches()
 def mdrnn_sample(weights: Weights, num_samples: int, nx: int, ny: int, seed: int,
                  offset: int):
     """B13: draw ``num_samples`` Nx x Ny lattices.  ``(seed, offset)`` (each
     in [0, 2^32)) keys the kernel's Philox generator with counter (sample,
     visit position), as B16's.  Returns (samples (B, Nx, Ny) int32, log p
     (B,))."""
-    check_draw(num_samples, nx, ny, seed, offset)
-    if is_cpu_call(*weights):
-        uni = plain_uniforms(num_samples, nx * ny, seed, offset, weights[0].device)
-        return sample_plain(weights, uni, nx, ny)
-    u = check_weights(weights)
-    dev = weights[0].device
-    check_supported(nx, ny, u, dev)
-    samples = torch.empty(num_samples, nx, ny, dtype=torch.int32, device=dev)
-    lp = torch.empty(num_samples, dtype=torch.float32, device=dev)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_mdrnn_sample(seed, offset, *weight_ptrs(weights), samples.data_ptr(),
-                                     lp.data_ptr(), num_samples, nx, ny, u,
-                                     stream_of(weights[0]))
-    check(err, "rnnwf_mdrnn_sample")
-    mdrnn_sample.launches += 1
-    return samples, lp
-
-
-mdrnn_sample.launches = 0
+    draw = begin_draw(weights, num_samples, (nx, ny), seed, offset, MDRNN_FAMILY, check_weights)
+    if draw.uniforms is not None:
+        return sample_plain(weights, draw.uniforms, nx, ny)
+    lp = torch.empty(num_samples, dtype=torch.float32, device=draw.samples.device)
+    launch("rnnwf_mdrnn_sample", lp.device, seed, offset, *weights, draw.samples, lp,
+           num_samples, nx, ny, draw.u)
+    return draw.samples, lp
 
 
 class MDRNNLogProb(torch.autograd.Function):

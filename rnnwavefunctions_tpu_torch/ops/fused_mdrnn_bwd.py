@@ -22,19 +22,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import check, load_library
-from .fused_gru import is_cpu_call, stream_of
+from .build import load_library
 from .fused_mdrnn import (
     Replay,
-    Weights,
-    check_samples,
-    check_supported,
-    check_weights,
+    check_lattices,
     launch_replay,
     log_prob_bwd_plain,
     replay_plain,
     visit_order,
 )
+from .launch import Weights, check_float32, counts_launches, is_cpu_call, launch
 
 # rows of the weight-cotangent product per block of stage 3 (kMChunkRows in
 # csrc/fused_mdrnn_bwd.cu), and the k-slices of the reverse sweep's products
@@ -160,6 +157,7 @@ def log_prob_bwd_staged_plain(weights: Weights, samples: torch.Tensor,
 # wrappers
 # ---------------------------------------------------------------------------
 
+@counts_launches()
 def mdrnn_log_prob_bwd(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
                        replay: Optional[Replay] = None) -> Tuple[torch.Tensor, ...]:
     """Gradients of sum(g * log p(samples)) for the seven weights (uh, uv,
@@ -171,6 +169,7 @@ def mdrnn_log_prob_bwd(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
     return _launch(weights, samples, g, replay)[0]
 
 
+@counts_launches(mdrnn_log_prob_bwd)
 def mdrnn_log_prob_bwd_stages(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
                               replay: Optional[Replay] = None):
     """B14 with its stages' outputs (gradients, Replay, C), for the stage
@@ -186,23 +185,12 @@ def _checked(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
              replay: Optional[Replay]) -> Tuple[int, int, int, int, Replay]:
     """(B, Nx, Ny, U, replay) after the argument checks of stages 2 and 3;
     runs stage 1 when no replay is handed over."""
-    u = check_weights(weights)
-    b, nx, ny = check_samples(samples)
-    check_supported(nx, ny, u, samples.device)
-    if g.dtype != torch.float32 or tuple(g.shape) != (b,) or not g.is_contiguous():
-        raise ValueError(
-            f"cotangent must be a contiguous float32 ({b},) tensor; got "
-            f"{tuple(g.shape)} {g.dtype}"
-        )
+    b, nx, ny, u = check_lattices(weights, samples)
+    check_float32("cotangent", (g,), ((b,),), samples.device)
     if replay is None:
         return b, nx, ny, u, launch_replay(weights, samples)
-    for t, shape in zip((replay.hist, replay.p1), ((b, nx * ny, u), (b, nx * ny))):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != samples.device):
-            raise ValueError(
-                f"replay tensor {tuple(t.shape)} {t.dtype} on {t.device}; B14 takes "
-                f"contiguous float32 {shape} on {samples.device}"
-            )
+    check_float32("B14's replay tensor", (replay.hist, replay.p1),
+                  ((b, nx * ny, u), (b, nx * ny)), samples.device)
     return b, nx, ny, u, replay
 
 
@@ -210,23 +198,12 @@ def _launch(weights: Weights, samples: torch.Tensor, g: torch.Tensor,
             replay: Optional[Replay]):
     b, nx, ny, u, replay = _checked(weights, samples, g, replay)
     dev = samples.device
-    lib = load_library().lib
     sizes = [w.numel() for w in weights]
     cot = torch.empty(b, nx * ny, u + 1, dtype=torch.float32, device=dev)
-    partial = torch.empty(lib.rnnwf_mdrnn_bwd_partial_floats(b, nx * ny, u),
+    partial = torch.empty(load_library().lib.rnnwf_mdrnn_bwd_partial_floats(b, nx * ny, u),
                           dtype=torch.float32, device=dev)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_mdrnn_log_prob_bwd(
-            samples.data_ptr(), g.data_ptr(), weights[2].data_ptr(), weights[3].data_ptr(),
-            weights[5].data_ptr(), replay.hist.data_ptr(), replay.p1.data_ptr(),
-            cot.data_ptr(), partial.data_ptr(), flat.data_ptr(), b, nx, ny, u,
-            stream_of(samples),
-        )
-    check(err, "rnnwf_mdrnn_log_prob_bwd")
-    mdrnn_log_prob_bwd.launches += 1
+    launch("rnnwf_mdrnn_log_prob_bwd", dev, samples, g, weights[2], weights[3], weights[5],
+           replay.hist, replay.p1, cot, partial, flat, b, nx, ny, u)
     grads = tuple(part.view(w.shape) for part, w in zip(torch.split(flat, sizes), weights))
     return grads, replay, cot
-
-
-mdrnn_log_prob_bwd.launches = 0

@@ -25,18 +25,17 @@ from __future__ import annotations
 import torch
 
 from ..hamiltonians.j1j2 import J1J2
-from .build import check, load_library
-from .fused_crnn import base_pass_plain, log_amp_parts_plain
-from .fused_gru import (
+from .build import load_library
+from .fused_crnn import base_pass_plain, check_crnn_weights, log_amp_parts_plain
+from .launch import (
     CRNN_FAMILY,
     Weights,
-    check_samples,
-    check_supported,
-    check_weights,
+    begin_draw,
+    check_chains,
+    counts_launches,
     is_cpu_call,
-    stream_of,
+    launch,
 )
-from .tfim_flip_kernel import check_key, plain_uniforms
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +128,7 @@ def _launch(name: str, weights: Weights, samples: torch.Tensor, seed: int, offse
     b, n = samples.shape
     u = weights[1].shape[0]
     dev = samples.device
-    lib = load_library().lib
-    k = lib.rnnwf_j1j2_num_bonds(n, int(has_nnn), int(periodic))
+    k = load_library().lib.rnnwf_j1j2_num_bonds(n, int(has_nnn), int(periodic))
     f32 = dict(dtype=torch.float32, device=dev)
     hist = torch.empty(b * n * u, **f32)
     pfx = torch.empty(5, b * n, **f32)     # Re and Im prefixes, up-counts, flipped site terms
@@ -139,17 +137,12 @@ def _launch(name: str, weights: Weights, samples: torch.Tensor, seed: int, offse
     # and packed offsets, and the list launch's counter of finished blocks
     order = torch.empty(k * b + 3 * n + 2, dtype=torch.int32, device=dev)
     out = torch.empty(4, b, **f32)         # eoff_re, eoff_im, lp_re, lp_im
-    with torch.cuda.device(dev):
-        err = getattr(lib, name)(
-            samples.data_ptr(), seed, offset, *[w.data_ptr() for w in weights],
-            hist.data_ptr(), pfx.data_ptr(), terms.data_ptr(), order.data_ptr(),
-            out.data_ptr(), b, n, u, int(u1), float(el_nn), float(el_nnn),
-            int(has_nnn), int(periodic), stream_of(samples),
-        )
-    check(err, name)
+    launch(name, dev, samples, seed, offset, *weights, hist, pfx, terms, order, out, b, n, u,
+           int(u1), float(el_nn), float(el_nnn), int(has_nnn), int(periodic))
     return tuple(out)
 
 
+@counts_launches()
 def j1j2_exchange_offdiag(weights: Weights, samples: torch.Tensor, *, u1: bool,
                           el_nn: float, el_nnn: float, has_nnn: bool,
                           periodic: bool = False):
@@ -158,17 +151,11 @@ def j1j2_exchange_offdiag(weights: Weights, samples: torch.Tensor, *, u1: bool,
     elements = dict(el_nn=el_nn, el_nnn=el_nnn, has_nnn=has_nnn, periodic=periodic)
     if is_cpu_call(samples, *weights):
         return exchange_offdiag_plain(weights, samples, u1=u1, **elements)
-    u = check_weights(weights, heads=2)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device, CRNN_FAMILY)
-    out = _launch("rnnwf_j1j2_exchange_offdiag", weights, samples, 0, 0, u1, **elements)
-    j1j2_exchange_offdiag.launches += 1
-    return out
+    check_chains(weights, samples, CRNN_FAMILY, heads=2)
+    return _launch("rnnwf_j1j2_exchange_offdiag", weights, samples, 0, 0, u1, **elements)
 
 
-j1j2_exchange_offdiag.launches = 0
-
-
+@counts_launches()
 def j1j2_sample_and_exchange(weights: Weights, num_samples: int, n_sites: int,
                              seed: int, offset: int, *, u1: bool, el_nn: float,
                              el_nnn: float, has_nnn: bool, periodic: bool = False):
@@ -176,20 +163,11 @@ def j1j2_sample_and_exchange(weights: Weights, num_samples: int, n_sites: int,
     and estimate their exchange sums in one pass.  ``(seed, offset)`` (each
     in [0, 2^32)) keys the kernel's Philox generator.  Returns (samples
     (B, N) int32, eoff_re, eoff_im, lp_re, lp_im)."""
-    check_key(seed, offset)
     elements = dict(el_nn=el_nn, el_nnn=el_nnn, has_nnn=has_nnn, periodic=periodic)
-    if is_cpu_call(*weights):
-        uni = plain_uniforms(num_samples, n_sites, seed, offset, weights[0].device)
-        return sample_and_exchange_plain(weights, uni, u1=u1, **elements)
-    u = check_weights(weights, heads=2)
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
-    check_supported(n_sites, u, weights[0].device, CRNN_FAMILY)
-    samples = torch.empty(num_samples, n_sites, dtype=torch.int32, device=weights[0].device)
-    out = _launch("rnnwf_j1j2_sample_and_exchange", weights, samples, seed, offset, u1,
+    draw = begin_draw(weights, num_samples, (n_sites,), seed, offset, CRNN_FAMILY,
+                      check_crnn_weights)
+    if draw.uniforms is not None:
+        return sample_and_exchange_plain(weights, draw.uniforms, u1=u1, **elements)
+    out = _launch("rnnwf_j1j2_sample_and_exchange", weights, draw.samples, seed, offset, u1,
                   **elements)
-    j1j2_sample_and_exchange.launches += 1
-    return (samples, *out)
-
-
-j1j2_sample_and_exchange.launches = 0
+    return (draw.samples, *out)

@@ -30,22 +30,18 @@ from typing import Tuple
 
 import torch
 
-from .build import check, load_library
 from .compsum import kadd, kfinal
-from .fused_gru import is_cpu_call, logp2, stream_of
+from .fused_gru import logp2
 from .fused_mdrnn import (
-    Weights,
-    check_draw,
-    check_samples,
-    check_supported,
+    check_lattices,
     check_weights,
     site_step,
     sweep_plain,
     to_lattice,
     visit_order,
-    weight_ptrs,
 )
-from .tfim_flip_kernel import ratio_sum, plain_uniforms
+from .launch import MDRNN_FAMILY, Weights, begin_draw, call, counts_launches, is_cpu_call, launch
+from .tfim_flip_kernel import ratio_sum
 
 # the base pass: (spins (B, NS), lp (B,), hist (B, NS, U), pfx (B, NS)), visit order
 base_pass_plain = sweep_plain
@@ -128,9 +124,7 @@ def _scratch(b: int, nx: int, ny: int, u: int, dev):
     by the library)."""
     ns = nx * ny
     rows = ctypes.c_longlong(0)
-    with torch.cuda.device(dev):
-        check(load_library().lib.rnnwf_mdrnn_suffix_scratch_floats(
-            b, nx, ny, u, ctypes.byref(rows)), "rnnwf_mdrnn_suffix_scratch_floats")
+    call("rnnwf_mdrnn_suffix_scratch_floats", dev, b, nx, ny, u, ctypes.byref(rows))
     f32 = dict(dtype=torch.float32, device=dev)
     return (
         torch.empty(b * ns * u, **f32),            # cell-output history
@@ -142,55 +136,31 @@ def _scratch(b: int, nx: int, ny: int, u: int, dev):
     )
 
 
+@counts_launches()
 def mdrnn_flip_ratio_sum(weights: Weights, samples: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B15: (B, Nx, Ny) int32 samples -> (ratio_sum (B,), base log p (B,))."""
     if is_cpu_call(samples, *weights):
         return flip_ratio_sum_plain(weights, samples)
-    u = check_weights(weights)
-    b, nx, ny = check_samples(samples)
-    check_supported(nx, ny, u, samples.device)
+    b, nx, ny, u = check_lattices(weights, samples)
     hist, pfx, terms, lp, ratio, rows = _scratch(b, nx, ny, u, samples.device)
-    lib = load_library().lib
-    with torch.cuda.device(samples.device):
-        err = lib.rnnwf_mdrnn_flip_ratio_sum(
-            samples.data_ptr(), *weight_ptrs(weights), hist.data_ptr(), pfx.data_ptr(),
-            terms.data_ptr(), lp.data_ptr(), ratio.data_ptr(), rows.data_ptr(), rows.numel(),
-            b, nx, ny, u, stream_of(samples),
-        )
-    check(err, "rnnwf_mdrnn_flip_ratio_sum")
-    mdrnn_flip_ratio_sum.launches += 1
+    launch("rnnwf_mdrnn_flip_ratio_sum", samples.device, samples, *weights, hist, pfx, terms,
+           lp, ratio, rows, rows.numel(), b, nx, ny, u)
     return ratio, lp
 
 
-mdrnn_flip_ratio_sum.launches = 0
-
-
+@counts_launches()
 def mdrnn_sample_and_flip_sum(weights: Weights, num_samples: int, nx: int, ny: int,
                               seed: int, offset: int):
     """B16: draw ``num_samples`` Nx x Ny lattices (the same draws as B13 for
     the same ``(seed, offset)``) and estimate their flip-ratio sums in one
     pass.  Returns (samples (B, Nx, Ny) int32, base log p (B,), ratio_sum
     (B,))."""
-    check_draw(num_samples, nx, ny, seed, offset)
-    if is_cpu_call(*weights):
-        uni = plain_uniforms(num_samples, nx * ny, seed, offset, weights[0].device)
-        return sample_and_flip_sum_plain(weights, uni, nx, ny)
-    u = check_weights(weights)
-    dev = weights[0].device
-    check_supported(nx, ny, u, dev)
-    samples = torch.empty(num_samples, nx, ny, dtype=torch.int32, device=dev)
-    hist, pfx, terms, lp, ratio, rows = _scratch(num_samples, nx, ny, u, dev)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_mdrnn_sample_and_flip_sum(
-            seed, offset, *weight_ptrs(weights), samples.data_ptr(), hist.data_ptr(),
-            pfx.data_ptr(), terms.data_ptr(), lp.data_ptr(), ratio.data_ptr(), rows.data_ptr(),
-            rows.numel(), num_samples, nx, ny, u, stream_of(weights[0]),
-        )
-    check(err, "rnnwf_mdrnn_sample_and_flip_sum")
-    mdrnn_sample_and_flip_sum.launches += 1
-    return samples, lp, ratio
-
-
-mdrnn_sample_and_flip_sum.launches = 0
+    draw = begin_draw(weights, num_samples, (nx, ny), seed, offset, MDRNN_FAMILY, check_weights)
+    if draw.uniforms is not None:
+        return sample_and_flip_sum_plain(weights, draw.uniforms, nx, ny)
+    dev = draw.samples.device
+    hist, pfx, terms, lp, ratio, rows = _scratch(num_samples, nx, ny, draw.u, dev)
+    launch("rnnwf_mdrnn_sample_and_flip_sum", dev, seed, offset, *weights, draw.samples, hist,
+           pfx, terms, lp, ratio, rows, rows.numel(), num_samples, nx, ny, draw.u)
+    return draw.samples, lp, ratio

@@ -20,8 +20,7 @@ import ctypes
 
 import torch
 
-from .build import check, load_library
-from .fused_gru import is_cpu_call, stream_of
+from .launch import counts_launches, is_cpu_call, launch
 
 # the kernel's paths, in the order of csrc/sr_cg.cu's CgPath
 _PATHS = ("block", "cluster", "grid")
@@ -45,6 +44,7 @@ def cg_solve_plain(t: torch.Tensor, c: torch.Tensor, iters: int) -> torch.Tensor
     return x
 
 
+@counts_launches()
 def sr_cg_solve(t: torch.Tensor, c: torch.Tensor, iters: int = 64) -> torch.Tensor:
     """Solves ``t @ x = c`` by ``iters`` CG steps: ``t`` (S, S) float32,
     symmetric positive definite (the damped SR Gram), ``c`` (S,) float32.
@@ -64,16 +64,9 @@ def sr_cg_solve(t: torch.Tensor, c: torch.Tensor, iters: int = 64) -> torch.Tens
     x = torch.empty_like(c)
     scratch = torch.empty(2 * s, dtype=torch.float32, device=c.device)
     taken = ctypes.c_int(-1)
-    with torch.cuda.device(c.device):
-        err = load_library().lib.rnnwf_sr_cg_solve(
-            t.data_ptr(), c.data_ptr(), x.data_ptr(), scratch.data_ptr(), s, iters,
-            ctypes.byref(taken), stream_of(c),
-        )
-    check(err, "rnnwf_sr_cg_solve")
-    sr_cg_solve.launches += 1
+    launch("rnnwf_sr_cg_solve", c.device, t, c, x, scratch, s, iters, ctypes.byref(taken))
     sr_cg_solve.last_path = _PATHS[taken.value]
     return x
 
 
-sr_cg_solve.launches = 0
 sr_cg_solve.last_path = None

@@ -21,57 +21,26 @@ by side.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
-from .build import check, load_library
 from .compsum import kadd, kfinal
-from .fused_gru import (
+from .fused_gru import base_pass_plain, logp2, site_step
+from .launch import (
+    GRU_FAMILY,
     Weights,
-    check_samples,
-    check_supported,
-    check_weights,
+    begin_draw,
+    check_chains,
+    counts_launches,
     is_cpu_call,
-    logp2,
-    site_step,
-    stream_of,
+    launch,
 )
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
-
-def base_pass_plain(weights: Weights, samples: Optional[torch.Tensor] = None,
-                    uniforms: Optional[torch.Tensor] = None):
-    """Teacher-forced (``samples`` given) or sampling (``uniforms`` (B, N)
-    given: s = 1 iff u >= p0) base pass.  Returns (spins (B, N) float,
-    lp (B,), hist (B, N, U), pfx (B, N), fl (B, N))."""
-    src = samples if samples is not None else uniforms
-    b, n = src.shape
-    u = weights[1].shape[0]
-    dev = src.device
-    h = torch.zeros(b, u, dtype=torch.float32, device=dev)
-    x = torch.zeros(b, dtype=torch.float32, device=dev)
-    acc = torch.zeros_like(x)
-    cmp = torch.zeros_like(x)
-    spins, hist, pfx, fl = [], [], [], []
-    for i in range(n):
-        h, l0, l1 = site_step(weights, h, x, 1.0 if i > 0 else 0.0)
-        if samples is not None:
-            s = samples[:, i].to(torch.float32)
-        else:
-            s = (uniforms[:, i] >= torch.sigmoid(l0 - l1)).to(torch.float32)
-        acc, cmp = kadd(acc, cmp, logp2(l0, l1, s))
-        spins.append(s)
-        hist.append(h)
-        pfx.append(kfinal(acc, cmp))
-        fl.append(logp2(l0, l1, 1.0 - s))
-        x = s
-    stack = lambda xs: torch.stack(xs, dim=1)  # noqa: E731
-    return stack(spins), kfinal(acc, cmp), stack(hist), stack(pfx), stack(fl)
-
 
 def flip_log_probs_plain(weights: Weights, spins, hist, pfx, fl) -> torch.Tensor:
     """(B, N) log p of every single-flip configuration, by explicit suffix
@@ -132,20 +101,6 @@ def sample_and_per_flip_plain(weights: Weights, uniforms: torch.Tensor):
     return spins.to(torch.int32), lp, flip_log_probs_plain(weights, spins, hist, pfx, fl)
 
 
-def check_key(seed: int, offset: int) -> None:
-    """The samplers' Philox key: each word in [0, 2^32)."""
-    if not (0 <= seed < 2**32 and 0 <= offset < 2**32):
-        raise ValueError(f"seed and offset must lie in [0, 2^32); got {seed}, {offset}")
-
-
-def plain_uniforms(num_samples: int, n_sites: int, seed: int, offset: int,
-                   device) -> torch.Tensor:
-    """The plain sampler's (B, N) uniforms, drawn from a CPU generator seeded
-    by the (seed, offset) pair the kernel would get."""
-    gen = torch.Generator().manual_seed((seed << 32) | offset)
-    return torch.rand(num_samples, n_sites, generator=gen).to(device)
-
-
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -161,119 +116,67 @@ def _scratch(b: int, n: int, u: int, dev):
     )
 
 
+@counts_launches()
 def tfim_flip_ratio_sum(weights: Weights, samples: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: (B, N) int32 samples -> (ratio_sum (B,), base log p (B,))."""
     if is_cpu_call(samples, *weights):
         return flip_ratio_sum_plain(weights, samples)
-    u = check_weights(weights)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device)
+    b, n, u = check_chains(weights, samples)
     hist, pfx, fl, terms, lp = _scratch(b, n, u, samples.device)
     ratio = torch.empty_like(lp)
-    lib = load_library().lib
-    with torch.cuda.device(samples.device):
-        err = lib.rnnwf_tfim_flip_ratio_sum(
-            samples.data_ptr(), *[w.data_ptr() for w in weights],
-            hist.data_ptr(), pfx.data_ptr(), fl.data_ptr(), terms.data_ptr(),
-            lp.data_ptr(), ratio.data_ptr(), b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_tfim_flip_ratio_sum")
-    tfim_flip_ratio_sum.launches += 1
+    launch("rnnwf_tfim_flip_ratio_sum", samples.device, samples, *weights, hist, pfx, fl,
+           terms, lp, ratio, b, n, u)
     return ratio, lp
 
 
-tfim_flip_ratio_sum.launches = 0
-
-
+@counts_launches()
 def tfim_flip_log_probs(weights: Weights, samples: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B6, teacher-forced: (B, N) int32 samples -> (lpf (B, N), base log p
     (B,)), ``lpf[b, f]`` the log p of sample b with site f flipped."""
     if is_cpu_call(samples, *weights):
         return per_flip_log_probs_plain(weights, samples)
-    u = check_weights(weights)
-    b, n = check_samples(samples)
-    check_supported(n, u, samples.device)
+    b, n, u = check_chains(weights, samples)
     hist, pfx, fl, lpf, lp = _scratch(b, n, u, samples.device)
-    lib = load_library().lib
-    with torch.cuda.device(samples.device):
-        err = lib.rnnwf_tfim_flip_log_probs(
-            samples.data_ptr(), *[w.data_ptr() for w in weights],
-            hist.data_ptr(), pfx.data_ptr(), fl.data_ptr(), lpf.data_ptr(),
-            lp.data_ptr(), b, n, u, stream_of(samples),
-        )
-    check(err, "rnnwf_tfim_flip_log_probs")
-    tfim_flip_log_probs.launches += 1
+    launch("rnnwf_tfim_flip_log_probs", samples.device, samples, *weights, hist, pfx, fl, lpf,
+           lp, b, n, u)
     return lpf, lp
 
 
-tfim_flip_log_probs.launches = 0
-
-
+@counts_launches()
 def tfim_sample_and_flip_log_probs(weights: Weights, num_samples: int, n_sites: int,
                                    seed: int, offset: int):
     """B6 in sample mode: K3's draws for ``(seed, offset)`` with their
     per-flip log p.  Returns (samples (B, N) int32, base log p (B,), lpf
     (B, N)).  ``tfim_sample_and_flip_sum(..., per_flip=True)`` calls it."""
-    check_key(seed, offset)
-    if is_cpu_call(*weights):
-        uni = plain_uniforms(num_samples, n_sites, seed, offset, weights[0].device)
-        return sample_and_per_flip_plain(weights, uni)
-    u = check_weights(weights)
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
-    check_supported(n_sites, u, weights[0].device)
-    b, n, dev = num_samples, n_sites, weights[0].device
-    samples = torch.empty(b, n, dtype=torch.int32, device=dev)
-    hist, pfx, fl, lpf, lp = _scratch(b, n, u, dev)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_tfim_sample_and_flip_log_probs(
-            seed, offset, *[w.data_ptr() for w in weights], samples.data_ptr(),
-            hist.data_ptr(), pfx.data_ptr(), fl.data_ptr(), lpf.data_ptr(),
-            lp.data_ptr(), b, n, u, stream_of(weights[0]),
-        )
-    check(err, "rnnwf_tfim_sample_and_flip_log_probs")
-    tfim_sample_and_flip_log_probs.launches += 1
-    return samples, lp, lpf
+    draw = begin_draw(weights, num_samples, (n_sites,), seed, offset, GRU_FAMILY)
+    if draw.uniforms is not None:
+        return sample_and_per_flip_plain(weights, draw.uniforms)
+    dev = draw.samples.device
+    hist, pfx, fl, lpf, lp = _scratch(num_samples, n_sites, draw.u, dev)
+    launch("rnnwf_tfim_sample_and_flip_log_probs", dev, seed, offset, *weights, draw.samples,
+           hist, pfx, fl, lpf, lp, num_samples, n_sites, draw.u)
+    return draw.samples, lp, lpf
 
 
-tfim_sample_and_flip_log_probs.launches = 0
-
-
+@counts_launches()
 def tfim_sample_and_flip_sum(weights: Weights, num_samples: int, n_sites: int,
                              seed: int, offset: int, per_flip: bool = False):
     """K3: draw ``num_samples`` chains of ``n_sites`` spins and estimate their
     flip-ratio sums in one pass.  ``(seed, offset)`` (each in [0, 2^32))
     keys the kernel's Philox generator.  Returns (samples (B, N) int32,
     base log p (B,), ratio_sum (B,)); with ``per_flip`` (B6 in sample mode,
-    ``tfim_sample_and_flip_log_probs``) the per-flip log p (B, N) in place
-    of the ratio sum."""
+    ``tfim_sample_and_flip_log_probs``, which counts the launch) the
+    per-flip log p (B, N) in place of the ratio sum."""
     if per_flip:
         return tfim_sample_and_flip_log_probs(weights, num_samples, n_sites, seed, offset)
-    check_key(seed, offset)
-    if is_cpu_call(*weights):
-        uni = plain_uniforms(num_samples, n_sites, seed, offset, weights[0].device)
-        return sample_and_flip_sum_plain(weights, uni)
-    u = check_weights(weights)
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1; got {num_samples}")
-    check_supported(n_sites, u, weights[0].device)
-    b, n, dev = num_samples, n_sites, weights[0].device
-    samples = torch.empty(b, n, dtype=torch.int32, device=dev)
-    hist, pfx, fl, terms, lp = _scratch(b, n, u, dev)
+    draw = begin_draw(weights, num_samples, (n_sites,), seed, offset, GRU_FAMILY)
+    if draw.uniforms is not None:
+        return sample_and_flip_sum_plain(weights, draw.uniforms)
+    dev = draw.samples.device
+    hist, pfx, fl, terms, lp = _scratch(num_samples, n_sites, draw.u, dev)
     ratio = torch.empty_like(lp)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.rnnwf_tfim_sample_and_flip_sum(
-            seed, offset, *[w.data_ptr() for w in weights], samples.data_ptr(),
-            hist.data_ptr(), pfx.data_ptr(), fl.data_ptr(), terms.data_ptr(),
-            lp.data_ptr(), ratio.data_ptr(), b, n, u, stream_of(weights[0]),
-        )
-    check(err, "rnnwf_tfim_sample_and_flip_sum")
-    tfim_sample_and_flip_sum.launches += 1
-    return samples, lp, ratio
-
-
-tfim_sample_and_flip_sum.launches = 0
+    launch("rnnwf_tfim_sample_and_flip_sum", dev, seed, offset, *weights, draw.samples, hist,
+           pfx, fl, terms, lp, ratio, num_samples, n_sites, draw.u)
+    return draw.samples, lp, ratio

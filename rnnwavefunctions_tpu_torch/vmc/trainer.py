@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..interop import param_tree, tree_leaves
+from ..ops.launch import draw_key
 from ..utils.trace import span
 from . import minsr
 from .local_energy import make_fused_sample_energy_fn, make_local_energy_fn
@@ -222,9 +223,7 @@ class VMCTrainer:
             n = self.config.num_samples
             if self._fused_sample_energy is not None:
                 with span("rnnwf.key_draw"):
-                    seed, offset = torch.randint(
-                        0, 2**32, (2,), generator=state.generator, dtype=torch.int64
-                    ).tolist()
+                    seed, offset = draw_key(state.generator)
                 samples, _, e_re, e_im = self._fused_sample_energy(n, seed, offset)
                 return samples, e_re, e_im
             samples, logp = self.ansatz.sample_with_log_prob(n, state.generator)

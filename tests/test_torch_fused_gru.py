@@ -15,7 +15,7 @@ from rnnwavefunctions_tpu.models.prnn1d import PRNN1D as JPRNN1D
 from rnnwavefunctions_tpu.ops import fused_gru as jfused_gru
 from rnnwavefunctions_tpu.ops.fused_gru_bwd import gru_log_prob_bwd as jgru_log_prob_bwd
 from rnnwavefunctions_tpu_torch import PRNN1D, interop
-from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd
+from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd, launch
 
 torch.set_num_threads(1)
 
@@ -96,14 +96,14 @@ def test_wrappers_raise_instead_of_falling_back(setup):
     with pytest.raises(ValueError, match="devices"):
         fused_gru.gru_log_prob(ws, torch.from_numpy(samples).to("meta"))
     with pytest.raises(ValueError, match="int32"):
-        fused_gru.check_samples(torch.from_numpy(samples).long())
+        launch.check_samples(torch.from_numpy(samples).long())
     with pytest.raises(ValueError, match="contiguous"):
-        fused_gru.check_samples(torch.from_numpy(samples).T)
+        launch.check_samples(torch.from_numpy(samples).T)
     with pytest.raises(ValueError, match="float32"):
-        fused_gru.check_weights((ws[0].double(),) + ws[1:])
+        launch.check_weights((ws[0].double(),) + ws[1:])
     with pytest.raises(ValueError, match="6 weight"):
-        fused_gru.check_weights(ws[:5])
-    assert fused_gru.check_weights(ws) == U
+        launch.check_weights(ws[:5])
+    assert launch.check_weights(ws) == U
 
 
 def test_kernel_coverage_and_shared_memory():

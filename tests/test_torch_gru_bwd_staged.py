@@ -2,7 +2,7 @@
 compute them, held on the CPU against the JAX package.
 
 * K1 runs the teacher-forced base pass of ``csrc/tfim_flip.cu``; its plain
-  version ``tfim_flip_kernel.base_pass_plain`` (and the replay K1 stores
+  version ``fused_gru.base_pass_plain`` (and the replay K1 stores
   for K2, ``fused_gru.replay_plain``) against JAX's ``_log_prob_pallas`` in
   interpret mode.
 * K2 runs in three stages (``csrc/fused_gru_bwd.cu``): the replay, the
@@ -30,7 +30,6 @@ from rnnwavefunctions_tpu.ops import fused_gru as jfused_gru
 from rnnwavefunctions_tpu.ops.fused_gru_bwd import gru_log_prob_bwd as jgru_log_prob_bwd
 from rnnwavefunctions_tpu_torch import PRNN1D, interop
 from rnnwavefunctions_tpu_torch.ops import fused_gru, fused_gru_bwd
-from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
 torch.set_num_threads(1)
 
@@ -70,7 +69,7 @@ def test_k1_route_plain_matches_jax_interpret(b, n, u):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jfused_gru._log_prob_pallas(params, jnp.asarray(samples)))
     s = torch.from_numpy(samples)
-    _, lp, *_ = tk.base_pass_plain(w, samples=s)
+    _, lp, *_ = fused_gru.base_pass_plain(w, samples=s)
     np.testing.assert_allclose(lp.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(fused_gru.replay_plain(w, s).lp.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(fused_gru.gru_log_prob(w, s).numpy(), want, rtol=0, atol=1e-5)

@@ -15,9 +15,10 @@ import torch
 
 from rnnwavefunctions_tpu.models.crnn_u1 import CRNNU1 as JCRNNU1
 from rnnwavefunctions_tpu.models.prnn1d import PRNN1D as JPRNN1D
-from rnnwavefunctions_tpu_torch import CRNNU1, PRNN1D, interop
-from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_gru
+from rnnwavefunctions_tpu_torch import CRNNU1, MDRNN2D, PRNN1D, interop
+from rnnwavefunctions_tpu_torch.ops import fused_crnn, fused_gru, fused_mdrnn, launch
 from rnnwavefunctions_tpu_torch.ops import j1j2_exchange_kernel as jk
+from rnnwavefunctions_tpu_torch.ops import mdrnn_flip_kernel as mk
 from rnnwavefunctions_tpu_torch.ops import tfim_flip_kernel as tk
 
 torch.set_num_threads(1)
@@ -80,7 +81,7 @@ def test_b5_plain_draws_equal_k3_plain_draws():
     s3, lp3, _ = tk.tfim_sample_and_flip_sum(w, B, n, 11, 12)
     assert torch.equal(s5, s3)
     torch.testing.assert_close(lp5, lp3, atol=0, rtol=0)
-    uni = tk.plain_uniforms(B, n, 11, 12, "cpu")
+    uni = launch.plain_uniforms(B, n, 11, 12, "cpu")
     s_p, lp_p = fused_gru.sample_plain(w, uni)
     assert torch.equal(s_p, s5)
     torch.testing.assert_close(lp_p, lp5, atol=0, rtol=0)
@@ -169,10 +170,46 @@ def test_models_sample_through_b5_and_b8_on_the_kernel_path(monkeypatch):
     s, lp = prnn.sample_with_log_prob(B, torch.Generator().manual_seed(9))
     key = torch.randint(0, 2**32, (2,), generator=torch.Generator().manual_seed(9),
                         dtype=torch.int64).tolist()
-    want, want_lp = fused_gru.sample_plain(_weights(prnn), tk.plain_uniforms(B, n, *key, "cpu"))
+    want, want_lp = fused_gru.sample_plain(_weights(prnn),
+                                           launch.plain_uniforms(B, n, *key, "cpu"))
     assert torch.equal(s, want)
     torch.testing.assert_close(lp, want_lp, atol=0, rtol=0)
     s, lp = crnn.sample_with_log_prob(B, torch.Generator().manual_seed(10))
     np.testing.assert_array_equal(s.sum(dim=1).numpy(), n // 2)
     torch.testing.assert_close(lp, crnn.log_prob(s).detach(), atol=2e-5 * n, rtol=0)
     assert calls == ["gru_sample", "crnn_sample"]
+
+
+# every wrapper that draws from a key: (its weights' model, the call at a
+# 4-site chain or a 2x2 lattice)
+KEYED = {
+    "gru_sample": ("prnn", lambda w, b, key: fused_gru.gru_sample(w, b, 4, *key)),
+    "tfim_sample_and_flip_sum": (
+        "prnn", lambda w, b, key: tk.tfim_sample_and_flip_sum(w, b, 4, *key)),
+    "tfim_sample_and_flip_log_probs": (
+        "prnn", lambda w, b, key: tk.tfim_sample_and_flip_log_probs(w, b, 4, *key)),
+    "crnn_sample": ("crnn", lambda w, b, key: fused_crnn.crnn_sample(w, b, 4, *key, True)),
+    "j1j2_sample_and_exchange": ("crnn", lambda w, b, key: jk.j1j2_sample_and_exchange(
+        w, b, 4, *key, u1=True, el_nn=0.5, el_nnn=0.1, has_nnn=True)),
+    "mdrnn_sample": ("mdrnn", lambda w, b, key: fused_mdrnn.mdrnn_sample(w, b, 2, 2, *key)),
+    "mdrnn_sample_and_flip_sum": (
+        "mdrnn", lambda w, b, key: mk.mdrnn_sample_and_flip_sum(w, b, 2, 2, *key)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KEYED))
+def test_keyed_samplers_refuse_a_bad_key_and_an_empty_draw_on_the_cpu(name):
+    """Each sampler runs the same prologue on both devices: the key's words
+    in [0, 2^32) and at least one sample, checked before the plain version
+    runs."""
+    models = {"prnn": lambda: PRNN1D(4, (U,), device="cpu"),
+              "crnn": lambda: CRNNU1(4, (U,), device="cpu"),
+              "mdrnn": lambda: MDRNN2D(2, 2, U, device="cpu")}
+    kind, draw = KEYED[name]
+    w = _weights(models[kind]().init(torch.Generator().manual_seed(0)))
+    assert draw(w, 3, (5, 6))[0].shape[0] == 3
+    for key in ((2**32, 0), (0, -1)):
+        with pytest.raises(ValueError, match="2\\^32"):
+            draw(w, 3, key)
+    with pytest.raises(ValueError, match=">= 1"):
+        draw(w, 0, (5, 6))
